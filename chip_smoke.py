@@ -6,22 +6,45 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device   — requires a CUDA device; prints the card's name and power
               limit as nvidia-smi reports them.
-2. build    — compiles the three CUDA kernels of the serving path from
+2. build    — compiles the five CUDA kernels of the serving paths from
               src/repro_torch/csrc (one nvcc per source, in parallel).
 3. kernels  — holds each kernel against its plain PyTorch version on the
-              card at mistral-7b full-width shapes, in bf16 and fp32, and
-              times kernel, plain version, one PyTorch library call where
-              one computes the same function, and the roofline bound.
-4. engine   — serves mistral-7b at full width (random bf16 weights from a
+              card, in bf16 and fp32, and times kernel, plain version, one
+              PyTorch library call where one computes the same function,
+              and the roofline bound: embed_gather, gather_rope and
+              paged_attention at mistral-7b full-width shapes;
+              paged_attention at glm4-9b's G 16 through a scattered page
+              table; fused_page_write (bitwise; linear and ring jobs,
+              modes 0/1/2, page-0 collisions, the int32 position leaf)
+              and cow_page_copy (bitwise; rem 0/7/16 over a body leaf
+              flattened over 39 layers) at glm4-9b page shapes.
+4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
-              cuda attention backend): 4 requests, prompts of 64-200 tokens,
-              16 new tokens each. Launch counters are zeroed just before
-              and read just after; every kernel must have run.
-5. consistency — the fp32 smoke config on the card: greedy tokens of the
-              cuda backend equal those of the reference backend.
+              cuda attention backend) on dense ring caches: 4 requests,
+              prompts of 64-200 tokens, 16 new tokens each.
+5. glm4     — serves glm4-9b at full width through the paged KV pool and
+              the radix prefix cache (bf16, seeded random weights,
+              precomputed table, page 16, max_seq 2048, chunk 16, fused
+              gather→RoPE, cuda backend, 4 slots): two waves of 4 requests
+              sharing a 256-token system prompt, one of which stops short
+              inside a cached page (copy-on-write); prints tok/s, TTFT with
+              and without a prefix hit, the device idle share and peak
+              memory.
+6. pressure — the glm4-9b smoke config in fp32 without the fused gather
+              (so embed_gather runs on the paged path) and a pool too small
+              for its slots: preemptions happen, tokens equal an
+              unpressured run's.
+7. consistency — on the card, fp32 smoke configs: mistral-7b's cuda and
+              reference backends give equal greedy tokens; glm4-9b paged
+              with the cuda backend gives dense reference's tokens; pool
+              contents after the kernel write path (fused_page_write,
+              deferred clears, cow_page_copy) equal those after the plain
+              scatters with eager clears, bit for bit.
 
-Ends with a ``{"kernels": [...]}`` line and, last, the device JSON line.
-Imports nothing of JAX or of the JAX package ``repro``.
+In each engine phase the launch counters are zeroed just before the run
+and read just after; every kernel of that path must have run. Ends with a
+``{"kernels": [...]}`` line and, last, the device JSON line. Imports
+nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
@@ -40,6 +63,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import paged_maintenance as PM  # noqa: E402
 from repro_torch.kernels.embed_gather import (embed_gather,  # noqa: E402
                                               embed_gather_plain)
 from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
@@ -47,7 +71,9 @@ from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, page_validity,
     paged_attention, paged_attention_plain)
-from repro_torch.models.attn_backend import KERNEL_TOL  # noqa: E402
+from repro_torch.models.attention import paged_view  # noqa: E402
+from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
+                                             ReferenceBackend)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
                                         ServingEngine)
@@ -55,7 +81,8 @@ from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
-KERNELS = [embed_gather, gather_rope, paged_attention]
+KERNELS = [embed_gather, gather_rope, paged_attention, PM.fused_page_write,
+           PM.cow_page_copy]
 SEED = 0
 
 
@@ -100,6 +127,15 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def zero_launches() -> None:
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def read_launches() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
 # ----------------------------------------------------------------- phase 1
 def phase_device() -> str:
     if not torch.cuda.is_available():
@@ -131,78 +167,111 @@ def phase_build() -> None:
 
 
 # ----------------------------------------------------------------- phase 3
-def check_embed_gather(gen) -> dict:
-    cfg = get_config('mistral_7b')
-    V, W = cfg.vocab_size, cfg.precompute_row_width
-    row = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        table = torch.randn((V, W), generator=gen, device='cuda').to(dtype)
-        for n in (1, 4, 64, 512):
-            ids = torch.randint(0, V, (n,), generator=gen, device='cuda',
-                                dtype=torch.int32)
-            got = embed_gather(table, ids)
-            want = embed_gather_plain(table, ids)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), f'embed_gather {dtype} N={n}'
-            id_sets = [torch.randint(0, V, (n,), generator=gen, device='cuda',
-                                     dtype=torch.int32) for _ in range(16)]
-            calls = [0]
+# (config, smoke?, dtypes, token counts) at which each gather kernel runs on
+# an engine path of this script: mistral-7b and glm4-9b at full width
+# (chunk steps of 4 x 16 tokens, decode steps of 4), the glm4-9b smoke
+# config of the pressure phase (3 slots, chunk 8, fp32) and the smoke
+# configs of the consistency phase.
+EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
+                (1, 4, 64, 512)),
+               ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
+               ('glm4_9b', True, (torch.float32,), (3, 24)))
+ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
+               (64, 512)),
+              ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
+              ('mistral_7b', True, (torch.float32,), (3, 12)),
+              ('glm4_9b', True, (torch.float32,), (3, 24)))
+ROPE_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 
-            def pick():
-                calls[0] += 1
-                return id_sets[calls[0] % 16]
-            ms = time_ms(lambda: embed_gather(table, pick()))
-            plain = time_ms(lambda: embed_gather_plain(table, pick()))
-            lib = time_ms(lambda: torch.index_select(table, 0, pick()))
-            b_ms, by = bound(2 * n * W * table.element_size() + 4 * n, 0,
-                             dtype)
-            log(f'[kernel] embed_gather {str(dtype)[6:]} N={n} W={W}: '
-                f'bitwise equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, '
-                f'index_select {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
-            if dtype is torch.bfloat16 and n == 4:     # the decode step
-                row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=lib)
-        del table
+
+def config_of(name: str, smoke: bool):
+    return get_smoke_config(name) if smoke else get_config(name)
+
+
+def check_embed_gather(gen) -> dict:
+    row = {}
+    for name, smoke, dtypes, counts in EMBED_CASES:
+        cfg = config_of(name, smoke)
+        V, W = cfg.vocab_size, cfg.precompute_row_width
+        for dtype in dtypes:
+            table = torch.randn((V, W), generator=gen,
+                                device='cuda').to(dtype)
+            for n in counts:
+                ids = torch.randint(0, V, (n,), generator=gen, device='cuda',
+                                    dtype=torch.int32)
+                got = embed_gather(table, ids)
+                want = embed_gather_plain(table, ids)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), \
+                    f'embed_gather {cfg.name} {dtype} N={n}'
+                id_sets = [torch.randint(0, V, (n,), generator=gen,
+                                         device='cuda', dtype=torch.int32)
+                           for _ in range(16)]
+                calls = [0]
+
+                def pick():
+                    calls[0] += 1
+                    return id_sets[calls[0] % 16]
+                ms = time_ms(lambda: embed_gather(table, pick()))
+                plain = time_ms(lambda: embed_gather_plain(table, pick()))
+                lib = time_ms(lambda: torch.index_select(table, 0, pick()))
+                b_ms, by = bound(2 * n * W * table.element_size() + 4 * n, 0,
+                                 dtype)
+                log(f'[kernel] embed_gather {cfg.name} {str(dtype)[6:]} '
+                    f'N={n} V={V} W={W}: bitwise equal; kernel {ms:.4f} ms, '
+                    f'plain {plain:.4f} ms, index_select {lib:.4f} ms, bound '
+                    f'{b_ms:.4f} ms ({by})')
+                if (name, smoke, dtype, n) == ('mistral_7b', False,
+                                               torch.bfloat16, 4):
+                    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=by, library_ms=lib)
+            del table
     return row
 
 
 def check_gather_rope(gen) -> dict:
-    cfg = get_config('mistral_7b')
-    V, W, hd = cfg.vocab_size, cfg.precompute_row_width, cfg.head_dim
-    q_off, k_off = cfg.d_model, cfg.d_model + cfg.q_size
-    segs = ((q_off, cfg.num_heads, hd), (k_off, cfg.num_kv_heads, hd))
-    untouched = [(0, q_off), (k_off + cfg.kv_size, W)]
     row = {}
-    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
-        table = torch.randn((V, W), generator=gen, device='cuda').to(dtype)
-        for n in (64, 512):
-            ids = torch.randint(0, V, (n,), generator=gen, device='cuda',
-                                dtype=torch.int32)
-            pos = torch.randint(0, 32768, (n,), generator=gen, device='cuda',
-                                dtype=torch.int32)
-            pos[0] = 32767
-            kw = dict(segs=segs, theta=cfg.rope_theta)
-            got = gather_rope(table, ids, pos, **kw)
-            want = gather_rope_plain(table, ids, pos, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
-            for a, b in untouched:
-                assert torch.equal(got[:, a:b], table[ids.long(), a:b]), \
-                    f'gather_rope changed columns {a}:{b}'
-            ms = time_ms(lambda: gather_rope(table, ids, pos, **kw))
-            plain = time_ms(lambda: gather_rope_plain(table, ids, pos, **kw))
-            b_ms, by = bound(2 * n * W * table.element_size() + 8 * n, 0,
-                             dtype)
-            log(f'[kernel] gather_rope {str(dtype)[6:]} N={n} max pos 32767: '
-                f'max |err| {err:.3g} (tol {tol}), untouched columns bitwise;'
-                f' kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
-                f'{b_ms:.4f} ms ({by})')
-            if dtype is torch.bfloat16 and n == 64:    # a 4 x 16 chunk step
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=None)
-        del table
+    for name, smoke, dtypes, counts in ROPE_CASES:
+        cfg = config_of(name, smoke)
+        V, W, hd = cfg.vocab_size, cfg.precompute_row_width, cfg.head_dim
+        q_off, k_off = cfg.d_model, cfg.d_model + cfg.q_size
+        segs = ((q_off, cfg.num_heads, hd), (k_off, cfg.num_kv_heads, hd))
+        untouched = [(0, q_off), (k_off + cfg.kv_size, W)]
+        kw = dict(segs=segs, theta=cfg.rope_theta)
+        for dtype in dtypes:
+            tol = ROPE_TOL[dtype]
+            table = torch.randn((V, W), generator=gen,
+                                device='cuda').to(dtype)
+            for n in counts:
+                ids = torch.randint(0, V, (n,), generator=gen, device='cuda',
+                                    dtype=torch.int32)
+                pos = torch.randint(0, 32768, (n,), generator=gen,
+                                    device='cuda', dtype=torch.int32)
+                pos[0] = 32767
+                got = gather_rope(table, ids, pos, **kw)
+                want = gather_rope_plain(table, ids, pos, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+                for a, b in untouched:
+                    assert torch.equal(got[:, a:b], table[ids.long(), a:b]), \
+                        f'gather_rope {cfg.name} changed columns {a}:{b}'
+                ms = time_ms(lambda: gather_rope(table, ids, pos, **kw))
+                plain = time_ms(
+                    lambda: gather_rope_plain(table, ids, pos, **kw))
+                b_ms, by = bound(2 * n * W * table.element_size() + 8 * n, 0,
+                                 dtype)
+                log(f'[kernel] gather_rope {cfg.name} {str(dtype)[6:]} N={n} '
+                    f'segments {segs} W={W} max pos 32767: max |err| '
+                    f'{err:.3g} (tol {tol}), untouched columns bitwise; '
+                    f'kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
+                    f'{b_ms:.4f} ms ({by})')
+                if (name, smoke, dtype, n) == ('mistral_7b', False,
+                                               torch.bfloat16, 64):
+                    row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=by, library_ms=None)
+            del table
     return row
 
 
@@ -291,8 +360,244 @@ def library_attention_ms(q, k, v, cpos, pos0, window) -> float:
         qh, kh, vh, attn_mask=mask, scale=d ** -0.5))
 
 
+# ------------------------------------------------- phase 3: glm4-9b pages
+GLM_PS, GLM_SEQ, GLM_SLOTS = 16, 2048, 4
+
+
+def glm_pool_pages() -> int:
+    """The engine's default pool for glm4-9b at 4 slots, max_seq 2048."""
+    lin = GLM_SEQ // GLM_PS
+    return 1 + GLM_SLOTS * lin + 8 * lin
+
+
+def page_leaves(gen, dtype, NP, ps, KV, d):
+    k = torch.randn((NP, ps, KV, d), generator=gen, device='cuda').to(dtype)
+    v = torch.randn((NP, ps, KV, d), generator=gen, device='cuda').to(dtype)
+    pos = torch.randint(0, 4096, (NP, ps), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    k[0], v[0], pos[0] = 0, 0, -1                # the null page
+    return k, v, pos
+
+
+def scattered_table(gen, B, P, NP, lengths, ps):
+    """Page tables of slots holding ``lengths`` tokens, their pages drawn
+    at random from [1, NP); blocks past a slot's length map to page 0."""
+    perm = torch.randperm(NP - 1, generator=gen, device='cuda') + 1
+    table = perm[:B * P].view(B, P).to(torch.int32).clone()
+    for b, n in enumerate(lengths):
+        table[b, -(-n // ps):] = 0
+    return table
+
+
+def write_counts(jobs, Sc, ps):
+    """(rows written, rows filled) by a job list — this run's data."""
+    j = jobs.long().cpu()
+    r = torch.arange(ps)
+    t = j[:, 2:3] + r[None]
+    t = torch.where(t >= Sc, t - Sc, t)
+    written = (t < j[:, 3:4]) & (j[:, 5:6] + r[None] < Sc)
+    filled = (j[:, 4:5] >= PM.MODE_FRESH) & ~written
+    return int(written.sum()), int(filled.sum())
+
+
+def check_fused_page_write(gen) -> dict:
+    cfg = get_config('glm4_9b')
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
+    NP = glm_pool_pages()
+    row = {}
+    cases = []
+    # linear tables at the engine's geometry: slot 0 mid-prompt, slot 1
+    # starting a fresh (pending) page, slot 2 inactive (all page 0), slot 3
+    # decoding; two more pending pages are not written (clear jobs)
+    P = GLM_SEQ // ps
+    for T in (1, 16):
+        lengths = [300 + T, 272 + T, 0, 365 + T]
+        pos0 = torch.tensor([300, 272, 0, 365], dtype=torch.int32,
+                            device='cuda')
+        nv = torch.tensor([T, T, 0, 1], dtype=torch.int32, device='cuda')
+        cases.append((f'linear T={T}', GLM_SEQ, T, pos0, nv,
+                      scattered_table(gen, B, P, NP, lengths, ps)))
+    # a ring of 27 entries: shorter than two pages, its last page partial,
+    # the chunk wrapping past its end
+    Sc, T = 27, 16
+    P = -(-Sc // ps)
+    pos0 = torch.tensor([20, 3, 0, 40], dtype=torch.int32, device='cuda')
+    nv = torch.tensor([16, 9, 0, 16], dtype=torch.int32, device='cuda')
+    cases.append((f'ring Sc={Sc} T={T}', Sc, T, pos0, nv,
+                  scattered_table(gen, B, P, NP, [Sc] * B, ps)))
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v, pos = page_leaves(gen, dtype, NP, ps, KV, d)
+        for label, Sc, T, pos0, nv, table in cases:
+            start = torch.div(pos0 % Sc, ps, rounding_mode='floor').long()
+            fresh = table[1, start[1]]
+            pending = torch.stack([fresh, table.new_tensor(NP - 1),
+                                   table.new_tensor(NP - 2),
+                                   table.new_tensor(0)]).to(torch.int32)
+            jobs = PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)
+            modes = set(jobs[:, 4].tolist())
+            zero_jobs = int((jobs[:, 0] == 0).sum())
+            assert modes == {0, 1, 2} and zero_jobs > 1, (modes, zero_jobs)
+            vals = [torch.randn((B, T, KV, d), generator=gen,
+                                device='cuda').to(dtype) for _ in range(2)]
+            pos_t = PM.chunk_positions(pos0, T)
+            leaves = [k, v, pos]
+            srcs = [vals[0], vals[1], pos_t]
+            fills = [0, 0, -1]
+            want = [PM.fused_page_write_plain(x.clone(), s, jobs, Sc=Sc,
+                                              fill=f)
+                    for x, s, f in zip(leaves, srcs, fills)]
+            PM.fused_page_write(leaves, srcs, jobs, Sc=Sc, fills=fills)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(('k', 'v', 'pos'), leaves, want):
+                assert torch.equal(g, w), f'fused_page_write {label} {nm}'
+            assert torch.equal(pos[0], torch.full_like(pos[0], -1)) \
+                and not k[0].any() and not v[0].any(), 'null page written'
+            if not (label.startswith('linear') and dtype is torch.bfloat16):
+                log(f'[kernel] fused_page_write {str(dtype)[6:]} {label}: '
+                    f'bitwise equal (modes {sorted(modes)}, {zero_jobs} jobs '
+                    'on page 0)')
+                continue
+            n_w, n_f = write_counts(jobs, Sc, ps)
+            rb = [x[0, 0].numel() * x.element_size() for x in leaves]
+            moved = n_w * 2 * sum(rb) + n_f * sum(rb) + nbytes(jobs)
+            b_ms, by = bound(moved, 0, dtype)
+            ms = time_ms(lambda: PM.fused_page_write(
+                leaves, srcs, jobs, Sc=Sc, fills=fills))
+            plain = time_ms(lambda: [PM.fused_page_write_plain(
+                x, s, jobs, Sc=Sc, fill=f)
+                for x, s, f in zip(leaves, srcs, fills)])
+            # the same chunk rows by index_copy_ on each flattened leaf,
+            # without the clears of the pending pages
+            lib = library_page_write_ms(leaves, srcs, jobs, Sc, ps)
+            log(f'[kernel] fused_page_write {str(dtype)[6:]} {label} NP={NP} '
+                f'KV={KV} d={d} ({jobs.shape[0]} jobs, {n_w} rows written, '
+                f'{n_f} filled): bitwise equal (modes {sorted(modes)}, '
+                f'{zero_jobs} jobs on page 0); kernel {ms:.4f} ms, plain '
+                f'{plain:.4f} ms, index_copy_ x3 (no clears) {lib:.4f} ms, '
+                f'bound {b_ms:.4f} ms ({by})')
+            if label == 'linear T=1':                 # the decode step
+                row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+        del k, v, pos
+    return row
+
+
+def library_page_write_ms(leaves, srcs, jobs, Sc, ps) -> float:
+    j = jobs.long()
+    r = torch.arange(ps, device='cuda')
+    t = j[:, 2:3] + r[None]
+    t = torch.where(t >= Sc, t - Sc, t)
+    written = (t < j[:, 3:4]) & (j[:, 5:6] + r[None] < Sc)
+    jw, rw = written.nonzero(as_tuple=True)
+    dst = j[jw, 0] * ps + rw
+    T = srcs[0].shape[1]
+    lane = j[jw, 1] * T + t[jw, rw]
+    flat = [x.view((-1,) + tuple(x.shape[2:])) for x in leaves]
+    rows = [s.reshape((-1,) + tuple(s.shape[2:]))[lane] for s in srcs]
+    return time_ms(lambda: [f.index_copy_(0, dst, s)
+                            for f, s in zip(flat, rows)])
+
+
+def check_cow_page_copy(gen) -> dict:
+    cfg = get_config('glm4_9b')
+    KV, d, ps = cfg.num_kv_heads, cfg.head_dim, GLM_PS
+    reps, NP = cfg.num_layers - 1, glm_pool_pages()
+    row = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v, pos = page_leaves(gen, dtype, reps * NP, ps, KV, d)
+        cache = {'k': k.view(reps, NP, ps, KV, d),
+                 'v': v.view(reps, NP, ps, KV, d),
+                 'pos': pos.view(reps, NP, ps)}
+        for src, dst, rem in ((11, 900, 0), (12, 901, 7), (13, 902, ps)):
+            sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
+                                for r in range(reps)], dtype=torch.int32,
+                               device='cuda')
+            want = [PM.cow_page_copy_plain(x.clone(), sdr,
+                                           fill=PM.leaf_fill(nm))
+                    for nm, x in (('k', k), ('v', v), ('pos', pos))]
+            PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(('k', 'v', 'pos'), (k, v, pos), want):
+                assert torch.equal(g, w), f'cow_page_copy rem={rem} {nm}'
+            if dtype is not torch.bfloat16 or rem != 7:
+                log(f'[kernel] cow_page_copy {str(dtype)[6:]} rem={rem} over '
+                    f'{reps} layers: bitwise equal')
+                continue
+            pools = [k, v, pos]
+            fills = [0, 0, -1]
+            rb = [x[0, 0].numel() * x.element_size() for x in pools]
+            moved = reps * sum((rem + ps) * b for b in rb) + nbytes(sdr)
+            b_ms, by = bound(moved, 0, dtype)
+            ms = time_ms(lambda: PM.cow_page_copy(pools, sdr, fills=fills))
+            plain = time_ms(lambda: [PM.cow_page_copy_plain(x, sdr, fill=f)
+                                     for x, f in zip(pools, fills)])
+            log(f'[kernel] cow_page_copy {str(dtype)[6:]} rem={rem} over '
+                f'{reps} layers (k, v, pos; NP={NP}): bitwise equal; kernel '
+                f'{ms:.4f} ms, plain {plain:.4f} ms, no library call, bound '
+                f'{b_ms:.4f} ms ({by})')
+            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=by, library_ms=None)
+        del cache, k, v, pos
+    return row
+
+
+def check_paged_attention_glm4(gen) -> dict:
+    """glm4-9b's KV 2, G 16, d 128 through a scattered table over the
+    engine's pool: 16 query rows per (slot, kv head) at T 1, 256 at T 16."""
+    cfg = get_config('glm4_9b')
+    KV, d = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
+    B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
+    P = GLM_SEQ // ps
+    lengths = [300, 271, 0, 365]
+    row = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2),
+                       (torch.float32, KERNEL_TOL['atol'])):
+        k, v, cpos = page_leaves(gen, dtype, NP, ps, KV, d)
+        table = scattered_table(gen, B, P, NP, lengths, ps)
+        cpos.fill_(-1)
+        for b, n in enumerate(lengths):
+            p = torch.arange(n, device='cuda')
+            cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+        for T in (1, 16):
+            pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                                dtype=torch.int32, device='cuda')
+            q = torch.randn((B, T, KV, G, d), generator=gen,
+                            device='cuda').to(dtype)
+            args = (q, k, v, cpos, table, pos0)
+            kw = dict(scale=d ** -0.5, window=0)
+            got = paged_attention(*args, **kw)
+            want = paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            assert not got[2].any(), 'empty slot must attend to zeros'
+            view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, GLM_SEQ)
+            if dtype is not torch.bfloat16:
+                log(f'[kernel] paged_attention {str(dtype)[6:]} glm4 G={G} '
+                    f'T={T}: max |err| {err:.3g} (tol {tol})')
+                continue
+            ms = time_ms(lambda: paged_attention(*args, **kw))
+            plain = time_ms(lambda: paged_attention_plain(*args, **kw))
+            lib = library_attention_ms(q, view['k'], view['v'], view['pos'],
+                                       pos0, 0)
+            b_ms, by = attention_bound(q, view['k'], view['pos'], pos0, 0,
+                                       dtype)
+            log(f'[kernel] paged_attention {str(dtype)[6:]} glm4 B={B} G={G} '
+                f'T={T} ({T * G} rows per (slot, kv head)) scattered table '
+                f'over NP={NP}: max |err| {err:.3g} (tol {tol}), empty slot '
+                f'zeros; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa '
+                f'{lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+            if T == 1:                                 # the decode step
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+        del k, v, cpos
+    return row
+
+
 # ----------------------------------------------------------------- phase 4
-def phase_engine() -> dict:
+def phase_mistral() -> dict:
     cfg = get_config('mistral_7b')
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -319,21 +624,20 @@ def phase_engine() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps0 = eng.steps
-    for kern in KERNELS:
-        kern.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     report = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = read_launches()
     for r in reqs:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
         assert len(r.generated) == 16, (r.uid, len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
-    for name, n in launches.items():
-        assert n > 0, f'{name} never launched on the engine path'
+    for name in ('embed_gather', 'gather_rope', 'paged_attention'):
+        assert launches[name] > 0, f'{name} never launched on the engine path'
     stats = eng.stats(reqs)
     steps = eng.steps - steps0
     log(f'[engine] 4 requests, prompts {[len(r.prompt) for r in reqs]}, '
@@ -345,20 +649,20 @@ def phase_engine() -> dict:
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     log(f'[engine] launches {json.dumps(launches)} over {steps} steps; all '
         f'requests FINISHED with 16 tokens (finite logits)')
-    profile_engine(eng, cfg, rng)
+    profile_engine(eng, [Request(uid=10 + i, prompt=rng.integers(
+        3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
+        max_new_tokens=16) for i in range(4)])
     return launches
 
 
-def profile_engine(eng, cfg, rng) -> None:
-    """Device time by kernel over a second batch like the measured one
+def profile_engine(eng, reqs) -> None:
+    """Device time by kernel over a batch like the measured one
     (torch.profiler recording device activity only), and the device's
     idle share of that window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    reqs = [Request(uid=10 + i, prompt=rng.integers(
-        3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
-        max_new_tokens=16) for i in range(4)]
     torch.cuda.synchronize()
+    steps0 = eng.steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in reqs:
@@ -366,6 +670,7 @@ def profile_engine(eng, cfg, rng) -> None:
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = eng.steps - steps0
     kern = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and e.self_device_time_total]
@@ -374,26 +679,187 @@ def profile_engine(eng, cfg, rng) -> None:
         log('[profile] torch.profiler recorded no device time')
         return
     groups = {'paged_attention': 0.0, 'gather_rope': 0.0,
-              'embed_gather': 0.0, 'matmul': 0.0, 'other': 0.0}
+              'embed_gather': 0.0, 'fused_page_write': 0.0,
+              'cow_page_copy': 0.0, 'matmul': 0.0, 'other': 0.0}
     for key, ms, _ in kern:
         name = ('paged_attention' if 'paged_attention' in key else
                 'gather_rope' if 'gather_rope' in key else
                 'embed_gather' if 'gather_rows' in key else
+                'fused_page_write' if 'fused_page_write' in key else
+                'cow_page_copy' if 'cow_page_copy' in key else
                 'matmul' if ('gemm' in key.lower() or 'cutlass' in key
                              or 'nvjet' in key) else 'other')
         groups[name] += ms
-    log(f'[profile] window {wall_ms:.1f} ms wall, device busy {busy:.1f} ms '
-        f'(idle share {1 - busy / wall_ms:.3f}); device ms by group '
-        f'{json.dumps({k: round(v, 2) for k, v in groups.items()})}')
+    log(f'[profile] window {wall_ms:.1f} ms wall over {steps} engine steps, '
+        f'device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}); '
+        f'device ms by group '
+        f'{json.dumps({k: round(v, 2) for k, v in groups.items()})}; per '
+        f'step {json.dumps({k: round(v / steps, 3) for k, v in groups.items()})}')
     for key, ms, n in sorted(kern, key=lambda x: -x[1])[:8]:
         log(f'[profile]   {ms:8.2f} ms  x{n:<5d} {key[:90]}')
 
 
 # ----------------------------------------------------------------- phase 5
-def phase_consistency() -> None:
+GLM_TAILS = (40, 120, 77, 23, 9, 64, 100, 31)
+
+
+def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
+    """Requests of ``system`` + a distinct tail each. The fifth tail is the
+    head of the first one's: that prompt stops inside a page the first
+    request published, so its admission copies on write."""
+    made = []
+    for i, n in enumerate(tails):
+        tail = rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+        if i == 4:
+            tail = made[0][:n].copy()
+        made.append(tail)
+    return [Request(uid=uid0 + i, prompt=np.concatenate([system, t]),
+                    max_new_tokens=new_tokens) for i, t in enumerate(made)]
+
+
+def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
+    cfg = cfg or get_config('glm4_9b')
+    on_card = torch.device(device).type == 'cuda'
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=device, dtype=dtype)
+    table = model.build_table(params)
+    if on_card:
+        torch.cuda.synchronize()
+    log(f'[glm4] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, '
+        f'{cfg.num_heads}H/{cfg.num_kv_heads}KV, vocab {cfg.vocab_size}; '
+        f'weights + table made in {time.perf_counter() - t0:.1f}s; table '
+        f'{tuple(table.table.shape)} {str(table.table.dtype)[6:]}')
+    eng = ServingEngine(model, params, max_slots=GLM_SLOTS, max_seq=GLM_SEQ,
+                        precomputed=table, seed=SEED, dtype=dtype,
+                        chunk_size=16, fused_gather_rope=True,
+                        prefix_cache=True, page_size=GLM_PS,
+                        attn_backend='cuda', device=device)
+    assert eng.paged and eng.fused_gather_rope and eng._fused_maint
+    log(f'[glm4] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
+        f'x {cfg.num_layers} layers')
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
+    reqs = glm_requests(cfg, rng, system, 0)
+    # warm-up (cuBLAS handles, allocator) with tokens no request shares
+    warm = Request(uid=100, prompt=rng.integers(
+        3, cfg.vocab_size, size=40).astype(np.int32), max_new_tokens=2)
+    eng.submit(warm)
+    eng.run()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    steps0 = eng.steps
+    zero_launches()
+    waves = []
+    t_all = time.perf_counter()
+    for wave in (reqs[:4], reqs[4:]):
+        t0 = time.perf_counter()
+        for r in wave:
+            eng.submit(r)
+        eng.run()
+        if on_card:
+            torch.cuda.synchronize()
+        waves.append(time.perf_counter() - t0)
+    dt = time.perf_counter() - t_all
+    launches = read_launches()
+    for r in reqs:
+        assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
+        assert len(r.generated) == 16, (r.uid, len(r.generated))
+    for r in reqs[4:]:
+        assert r.prefix_hit_tokens > 0, (r.uid, r.prefix_hit_tokens)
+    cow_req = reqs[4]
+    assert cow_req.prefix_hit_tokens == len(cow_req.prompt) - 1, \
+        cow_req.prefix_hit_tokens
+    assert eng.cow_copies > 0, 'no copy-on-write ran'
+    for name in ('fused_page_write', 'cow_page_copy', 'paged_attention',
+                 'gather_rope'):
+        assert launches[name] > 0, f'{name} never launched on the paged path'
+    stats = eng.stats(reqs)
+    steps = eng.steps - steps0
+    ttft = [[r.first_token_t - r.submit_t for r in w]
+            for w in (reqs[:4], reqs[4:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    log(f'[glm4] 8 requests (system prompt 256 + tails {list(GLM_TAILS)}), '
+        f'{stats["tokens"]} new tokens in {dt:.3f}s -> '
+        f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
+        f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
+        f'{[round(w, 3) for w in waves]}; mean TTFT without a hit (wave 1) '
+        f'{np.mean(ttft[0]):.3f}s, with a hit (wave 2) {np.mean(ttft[1]):.3f}s'
+        f'; peak memory {peak:.2f} GiB')
+    log(f'[glm4] prefix hits {stats["prefix_hits"]}, misses '
+        f'{stats["prefix_misses"]}, hit tokens {stats["prefix_hit_tokens"]} '
+        f'(per request {[r.prefix_hit_tokens for r in reqs]}), copy-on-write '
+        f'{stats["cow_copies"]}, pages in use {stats["pages_in_use"]}, '
+        f'preemptions {stats["preemptions"]}')
+    log(f'[glm4] launches {json.dumps(launches)} over {steps} steps; all '
+        f'requests FINISHED with 16 tokens (finite logits)')
+    if on_card:
+        profile_engine(eng, glm_requests(cfg, rng, system, 200,
+                                         tails=(50, 17, 90, 33)))
+    return launches
+
+
+# ----------------------------------------------------------------- phase 6
+def pressure_prompts(cfg, seed):
+    rng = np.random.default_rng(seed)
+    system = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
+    tails = [rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+             for n in (20, 7, 31, 12, 25, 3)]
+    return [np.concatenate([system, t]) for t in tails]
+
+
+def phase_pressure(device='cuda') -> dict:
+    cfg = get_smoke_config('glm4_9b')
+    model = Model(cfg)
+    params = model.init(SEED, device=device, dtype=torch.float32)
+    table = model.build_table(params)
+    prompts = pressure_prompts(cfg, SEED + 2)
+    out, launches = {}, {}
+    for num_pages in (None, 8):
+        eng = ServingEngine(model, params, max_slots=3, max_seq=128,
+                            precomputed=table, seed=SEED, chunk_size=8,
+                            fused_gather_rope=False, prefix_cache=True,
+                            page_size=16, num_pages=num_pages,
+                            attn_backend='cuda', dtype=torch.float32,
+                            device=device)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        zero_launches()
+        for r in reqs:
+            eng.submit(r)
+        report = eng.run()
+        launches = read_launches()
+        assert all(r.status is RequestStatus.FINISHED for r in reqs), \
+            [(r.uid, r.status, r.error) for r in reqs]
+        out[num_pages] = ([r.generated for r in reqs], report['preemptions'],
+                          eng.num_pages)
+    (base, pre0, np0), (tok, pre, np1) = out[None], out[8]
+    assert pre0 == 0 and pre > 0, (pre0, pre)
+    assert tok == base, 'tokens changed under pool pressure'
+    for name in ('embed_gather', 'fused_page_write', 'paged_attention'):
+        assert launches[name] > 0, f'{name} never launched under pressure'
+    assert launches['gather_rope'] == 0
+    log(f'[pressure] {cfg.name} fp32, 3 slots, {len(prompts)} requests: '
+        f'{pre} preemptions with {np1} pages (none with {np0}); greedy '
+        f'tokens equal ({sum(map(len, tok))} tokens); launches '
+        f'{json.dumps(launches)}')
+    return launches
+
+
+# ----------------------------------------------------------------- phase 7
+class ReferenceAttendKernelWrites(ReferenceBackend):
+    """The reference attend with the kernel write path (fused_page_write,
+    deferred clears, cow_page_copy): isolates the maintenance kernels, so
+    its pool must equal the plain write path's bit for bit."""
+    name = 'reference+kernel-writes'
+    fused_maintenance = True
+
+
+def phase_consistency(device='cuda') -> None:
     cfg = get_smoke_config('mistral_7b')
     model = Model(cfg)
-    params = model.init(SEED, device='cuda', dtype=torch.float32)
+    params = model.init(SEED, device=device, dtype=torch.float32)
     table = model.build_table(params)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -403,7 +869,7 @@ def phase_consistency() -> None:
         eng = ServingEngine(model, params, max_slots=3, max_seq=96,
                             precomputed=table, seed=SEED, chunk_size=4,
                             fused_gather_rope=True, attn_backend=backend,
-                            dtype=torch.float32, device='cuda')
+                            dtype=torch.float32, device=device)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -416,6 +882,61 @@ def phase_consistency() -> None:
         f'reference backends equal ({sum(map(len, out["cuda"]))} tokens, '
         f'{len(prompts)} requests)')
 
+    cfg = get_smoke_config('glm4_9b')
+    model = Model(cfg)
+    params = model.init(SEED, device=device, dtype=torch.float32)
+    table = model.build_table(params)
+    prompts = pressure_prompts(cfg, SEED + 3)
+    prompts.append(prompts[0][:44].copy())        # stops inside a cached page
+
+    def serve(backend, num_pages):
+        kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
+            if num_pages else {}
+        eng = ServingEngine(model, params, max_slots=3, max_seq=128,
+                            precomputed=table, seed=SEED, chunk_size=8,
+                            fused_gather_rope=True, attn_backend=backend,
+                            dtype=torch.float32, device=device, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.status is RequestStatus.FINISHED for r in reqs)
+        assert eng._pending_clear == []
+        return [r.generated for r in reqs], eng
+
+    tokens, _ = serve('reference', 0)
+    # 16 pages: prefix hits and a copy-on-write; 12: preemptions as well
+    for num_pages in (16, 12):
+        runs = {'paged cuda': serve('cuda', num_pages),
+                'paged reference': serve('reference', num_pages),
+                'paged reference+kernel writes':
+                    serve(ReferenceAttendKernelWrites(), num_pages)}
+        for label, (tok, _) in runs.items():
+            assert tok == tokens, f'{label} ({num_pages} pages): tokens ' \
+                'differ from dense reference'
+        eng = runs['paged cuda'][1]
+        assert eng.cow_copies > 0 if num_pages == 16 else eng.preemptions > 0
+        plain = runs['paged reference'][1]._pools
+        for label, every_leaf in (('paged reference+kernel writes', True),
+                                  ('paged cuda', False)):
+            pools = runs[label][1]._pools
+            for li, ((ca, _), (cb, _)) in enumerate(zip(plain, pools)):
+                for nm in ca:
+                    # layers past 0 store K/V computed from the attention
+                    # output, which the cuda kernel matches within
+                    # KERNEL_TOL, not bitwise
+                    if every_leaf or li == 0 or nm == 'pos':
+                        assert torch.equal(ca[nm], cb[nm]), \
+                            (label, num_pages, li, nm)
+        log(f'[consistency] {cfg.name} fp32 paged, {num_pages} pages '
+            f'({eng.cow_copies} copy-on-write, {eng.preemptions} '
+            f'preemptions): greedy tokens of paged cuda, paged reference and '
+            f'dense reference equal ({sum(map(len, tokens))} tokens); pool '
+            'leaves after the kernel write path bitwise equal to the plain '
+            'write path on every layer; paged cuda vs reference pools '
+            'bitwise on layer 0 and every position leaf')
+
 
 def main() -> None:
     phase_device()
@@ -423,16 +944,34 @@ def main() -> None:
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
     rows = {'embed_gather': check_embed_gather(gen),
-            'gather_rope': check_gather_rope(gen),
-            'paged_attention': check_paged_attention(gen)}
-    launches = phase_engine()
+            'gather_rope': check_gather_rope(gen)}
+    check_paged_attention(gen)                 # mistral-7b shapes
+    rows['paged_attention'] = check_paged_attention_glm4(gen)
+    rows['fused_page_write'] = check_fused_page_write(gen)
+    rows['cow_page_copy'] = check_cow_page_copy(gen)
+    torch.cuda.empty_cache()
+    phases = {'mistral': phase_mistral()}
+    torch.cuda.empty_cache()
+    phases['glm4'] = phase_glm4()
+    torch.cuda.empty_cache()
+    phases['pressure'] = phase_pressure()
     phase_consistency()
-    replaces = {'embed_gather': 'src/repro/kernels/embed_gather.py:30',
-                'gather_rope': 'src/repro/kernels/gather_rope.py:60',
-                'paged_attention': 'src/repro/kernels/paged_attention.py:129'}
+    # each kernel's launches on the engine path its row was measured for
+    main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
+                 'paged_attention': 'glm4', 'fused_page_write': 'glm4',
+                 'cow_page_copy': 'glm4'}
+    replaces = {
+        'embed_gather': 'src/repro/kernels/embed_gather.py:30',
+        'gather_rope': 'src/repro/kernels/gather_rope.py:60',
+        'paged_attention': 'src/repro/kernels/paged_attention.py:129',
+        'fused_page_write': 'src/repro/kernels/paged_maintenance.py:131',
+        'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217'}
     kernels = [dict(name=name, route='cuda',
                     source=f'src/repro_torch/csrc/{name}.cu',
-                    replaces=replaces[name], launches=launches[name], **row)
+                    replaces=replaces[name],
+                    launches=phases[main_path[name]][name], **row,
+                    launches_by_phase={ph: ln[name]
+                                       for ph, ln in phases.items()})
                for name, row in rows.items()]
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

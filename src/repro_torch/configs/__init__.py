@@ -11,8 +11,9 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-# the paper's serial example; other families join as their modules are ported
-ALL_IDS: List[str] = ['mistral_7b']
+# the paper's serial example (sliding window) and an all-global GQA model
+# for the paged KV pool; other families join as their modules are ported
+ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b']
 
 
 def _norm(name: str) -> str:

@@ -15,24 +15,30 @@
 // chunk with G = 4) give only 2*T*G flops per K/V element read, far below
 // the card's ratio of compute to bandwidth.
 //
-// Design: one block per (slot, kv head) keeps all T*G query rows in shared
-// memory and walks the slot's virtual cache in tiles of 32 keys; that loop
-// replaces the TPU's sequential grid axis. A tile's keys are addressed row
+// Design: the T*G query rows of one (slot, kv head) are split into tiles of
+// at most kRowTile = 64 rows, one block per (slot, kv head, row tile), so any
+// chunk length and group size fit (glm4-9b's 16-token chunks at G = 16 are
+// 256 rows: four blocks) and the grid grows with the chunk. Each block keeps
+// its rows in shared memory and walks the slot's virtual cache in tiles of
+// 32 keys; that loop replaces the TPU's sequential grid axis. Every block
+// reads the slot's K/V for its own rows (from L2 after the first). A tile's keys are addressed row
 // by row through the table, so any page size works the same (including the
 // page size of 1 that an odd ring length forces on the dense view) and no
 // gathered copy of the cache is ever made. A tile whose 32 stored positions
 // are all unusable for every query row (empty ring slots, beyond the
-// chunk, outside the window) is skipped before its K/V are read. Scores,
+// chunk, outside the window) is skipped before its K/V are read; a skipped
+// tile would change no row's running state, so the split into row tiles
+// leaves every row's result bit for bit as with one block. Scores,
 // the running max, the running sum and the accumulator are fp32; the
 // softmax is one warp per query row with shuffle reductions. The running
 // max starts at NEG_INF = -2^30 and invalid probabilities are forced to 0,
 // as in the Pallas kernel, so a row with no valid key ends with l = 0 and
 // writes 0 / max(l, 1e-30) = 0. K rows are padded by one float in shared
 // memory so the score loop (lanes on different keys) is free of bank
-// conflicts. The shared footprint (about 105 KB at T*G = 64, d = 128) is
-// above the 48 KB static limit, so it is dynamic shared memory opted in
-// with cudaFuncSetAttribute; d may be anything up to the footprint limit
-// (16 in the smoke config, 128 at full width).
+// conflicts. The shared footprint of a 64-row tile (about 105 KB at
+// d = 128) is above the 48 KB static limit, so it is dynamic shared memory
+// opted in with cudaFuncSetAttribute; d may be anything up to the footprint
+// limit (16 in the smoke configs, 128 at full width, up to about 280).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -41,6 +47,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;  // keys per tile = one warp lane per key in the softmax
+constexpr int kRowTile = 64;  // query rows per block
 constexpr float kNegInf = -1073741824.0f;  // -2^30, as NEG_INF in the Pallas kernel
 constexpr int kMaxSmem = 232448;           // 227 KB per block on sm_90
 
@@ -57,6 +64,7 @@ __device__ __forceinline__ bool usable(int c, int qp, int window) {
 }
 
 size_t smem_floats(int R, int d) {
+  R = R < kRowTile ? R : kRowTile;  // rows one block holds
   return (size_t)R * (d + 1)      // q rows
          + (size_t)R * d          // accumulator
          + (size_t)kTile * (d + 1)  // K tile (padded)
@@ -75,15 +83,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float scale, int window) {
   extern __shared__ float smem[];
   const int R = T_ * G;
+  const int r0 = blockIdx.y * kRowTile;          // first row of this block
+  const int Rb = min(kRowTile, R - r0);          // rows of this block
+  const int Rs = min(kRowTile, R);               // rows the layout holds
   float* sQ = smem;
-  float* sAcc = sQ + R * (d + 1);
-  float* sK = sAcc + R * d;
+  float* sAcc = sQ + Rs * (d + 1);
+  float* sK = sAcc + Rs * d;
   float* sV = sK + kTile * (d + 1);
   float* sS = sV + kTile * d;
-  float* sM = sS + R * kTile;
-  float* sL = sM + R;
-  float* sCorr = sL + R;
-  int* sPos = reinterpret_cast<int*>(sCorr + R);
+  float* sM = sS + Rs * kTile;
+  float* sL = sM + Rs;
+  float* sCorr = sL + Rs;
+  int* sPos = reinterpret_cast<int*>(sCorr + Rs);
   int* sRow = sPos + kTile;
 
   const int b = blockIdx.x / KV;
@@ -92,14 +103,17 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31;
   const int p0 = pos0[b];
   const int S = P * ps;
+  // the loosest rows of this block: its last lane for causality, its first
+  // for the window
+  const int t_lo = r0 / G, t_hi = (r0 + Rb - 1) / G;
 
-  for (int i = tid; i < R * d; i += kThreads) {
+  for (int i = tid; i < Rb * d; i += kThreads) {
     const int r = i / d, c = i % d;
-    const int t = r / G, g = r % G;
+    const int t = (r0 + r) / G, g = (r0 + r) % G;
     sQ[r * (d + 1) + c] = to_f(q[((((long long)b * T_ + t) * KV + h) * G + g) * d + c]);
     sAcc[i] = 0.f;
   }
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < Rb; r += kThreads) {
     sM[r] = kNegInf;
     sL[r] = 0.f;
   }
@@ -116,8 +130,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       sPos[tid] = c;
       sRow[tid] = row;
-      // the loosest query rows: t = T-1 for causality, t = 0 for the window
-      live = c >= 0 && c <= p0 + T_ - 1 && (window == 0 || p0 - c < window);
+      live = c >= 0 && c <= p0 + t_hi && (window == 0 || p0 + t_lo - c < window);
     }
     if (!__syncthreads_or(live)) continue;
 
@@ -134,10 +147,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int i = tid; i < R * kTile; i += kThreads) {
+    for (int i = tid; i < Rb * kTile; i += kThreads) {
       const int r = i / kTile, j = i % kTile;
       float s = kNegInf;
-      if (usable(sPos[j], p0 + r / G, window)) {
+      if (usable(sPos[j], p0 + (r0 + r) / G, window)) {
         const float* qr = sQ + r * (d + 1);
         const float* kr = sK + j * (d + 1);
         float dot = 0.f;
@@ -148,8 +161,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int r = warp; r < R; r += kWarps) {
-      const bool ok = usable(sPos[lane], p0 + r / G, window);
+    for (int r = warp; r < Rb; r += kWarps) {
+      const bool ok = usable(sPos[lane], p0 + (r0 + r) / G, window);
       const float s = sS[r * kTile + lane];
       float mx = s;
 #pragma unroll
@@ -170,7 +183,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int i = tid; i < R * d; i += kThreads) {
+    for (int i = tid; i < Rb * d; i += kThreads) {
       const int r = i / d, c = i % d;
       const float* pr = sS + r * kTile;
       float pv = 0.f;
@@ -181,9 +194,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  for (int i = tid; i < R * d; i += kThreads) {
+  for (int i = tid; i < Rb * d; i += kThreads) {
     const int r = i / d, c = i % d;
-    const int t = r / G, g = r % G;
+    const int t = (r0 + r) / G, g = (r0 + r) % G;
     const float l = fmaxf(sL[r], 1e-30f);
     out[((((long long)b * T_ + t) * KV + h) * G + g) * d + c] = from_f<T>(sAcc[i] / l);
   }
@@ -204,7 +217,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* cpos,
     if (e != cudaSuccess) return e;
     opted_in = smem;
   }
-  paged_attention_kernel<T><<<B * KV, kThreads, smem, stream>>>(
+  const dim3 grid(B * KV, (T_ * G + kRowTile - 1) / kRowTile);
+  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), cpos,
       table, pos0, static_cast<T*>(out), T_, KV, G, d, ps, P, scale, window);
   return cudaGetLastError();
@@ -233,8 +247,9 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Bytes of dynamic shared memory one block needs (0 when above the limit),
-// so the caller can reject a shape before launching.
+// Bytes of dynamic shared memory one block needs for R query rows per
+// (slot, kv head) (0 when above the limit), so the caller can reject a head
+// width before launching.
 extern "C" int paged_attention_smem(int R, int d) {
   const size_t smem = smem_floats(R, d) * sizeof(float);
   return smem > (size_t)kMaxSmem ? 0 : (int)smem;

@@ -50,6 +50,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                             _I, _I, _I, _F, _I, _I, _P),
         # rows, head_dim -> dynamic shared bytes per block (0: too large)
         'paged_attention_smem': (_I, _I)},
+    'fused_page_write': {
+        # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,
+        # n_jobs, NP, B, ps, Sc, stream
+        'fused_page_write': (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                             _P)},
+    'cow_page_copy': {
+        # pools[n], n_pages[n], row_bytes[n], fills[n], n, sdr, n_jobs, ps,
+        # stream
+        'cow_page_copy': (_P, _P, _P, _P, _I, _P, _I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

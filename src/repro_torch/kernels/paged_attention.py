@@ -4,8 +4,9 @@ that view a dense ring cache as identity-table pages.
 Port of ``repro/kernels/paged_attention.py::paged_attention`` (Pallas),
 without its int8 (``quant``) and MLA (``mla_split``) variants. The CUDA
 kernel is ``repro_torch/csrc/paged_attention.cu``: one block per (slot,
-kv head) holds all T·G query rows and walks the slot's pages through the
-table with an fp32 online softmax.
+kv head, tile of up to 64 of the T·G query rows) walks the slot's pages
+through the table with an fp32 online softmax, so any chunk length and
+group size fit one launch.
 
 Contract (as the JAX kernel): q (B, T, KV, G, d) post-RoPE queries, lane t
 at position ``pos0 + t``; k/v pages (NP, ps, KV, d); stored positions
@@ -93,7 +94,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     code = dtype_code(name, q)
     lib = build.load(name)
     require(lib.paged_attention_smem(T * G, d) > 0, name,
-            f'{T * G} query rows of width {d} exceed one block\'s shared '
+            f'a tile of query rows of width {d} exceeds one block\'s shared '
             'memory')
     out = torch.empty_like(q)
     P = table.shape[1]

@@ -1,11 +1,14 @@
 """End-to-end serving driver of the port: batched requests through the
 continuous-batching engine, with the paper's precomputed first layer on by
-default (port of ``repro/launch/serve.py`` for the dense engine).
+default (port of ``repro/launch/serve.py`` for the dense engine and the
+paged KV pool with the prefix cache).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-7b \
         --requests 8 --fused-gather-rope            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --new-tokens 4                 # plain versions, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+        --prefix-cache --shared-prefix 32 --fused-gather-rope   # paged
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -45,10 +48,26 @@ def main() -> None:
     ap.add_argument('--score', action='store_true',
                     help='score each prompt (mean token logprob) instead of '
                          'generating')
+    ap.add_argument('--prefix-cache', action='store_true',
+                    help='paged KV pool + shared-prefix radix cache: '
+                         'requests sharing a cached prompt prefix attach '
+                         'its pages and skip that prefill work (configs '
+                         "whose layers are all 'global', e.g. glm4-9b)")
+    ap.add_argument('--page-size', type=int, default=16,
+                    help='tokens per KV page (prefix-cache mode; must '
+                         'divide --max-seq)')
+    ap.add_argument('--num-pages', type=int, default=0,
+                    help='KV pool size in pages (0 = auto: slots + cache '
+                         'headroom)')
+    ap.add_argument('--shared-prefix', type=int, default=0,
+                    help='prepend a common system prompt of this many '
+                         'tokens to every request (shows the prefix-cache '
+                         'hit rate)')
     ap.add_argument('--attn-backend', default='auto',
                     choices=['auto', 'reference', 'cuda'],
-                    help='"cuda": the paged_attention kernel over the dense '
-                         'caches viewed as pages; "reference": plain '
+                    help='"cuda": the paged_attention kernel over the pool '
+                         'pages (or the dense caches viewed as pages) and '
+                         'the page-maintenance kernels; "reference": plain '
                          'PyTorch, one query lane at a time; "auto": cuda on '
                          'a CUDA device, reference on the CPU')
     ap.add_argument('--deadline', type=float, default=0.0,
@@ -70,13 +89,19 @@ def main() -> None:
                         max_seq=args.max_seq, precomputed=table,
                         seed=args.seed, chunk_size=args.chunk_size,
                         fused_gather_rope=args.fused_gather_rope,
+                        prefix_cache=args.prefix_cache,
+                        page_size=args.page_size,
+                        num_pages=args.num_pages or None,
                         attn_backend=args.attn_backend,
                         dtype=getattr(torch, cfg.dtype), device=args.device)
     if eng.chunk_size > 1:
         print(f'chunked prefill: {eng.chunk_size} tokens/dispatch'
               + (' + fused gather→RoPE' if eng.fused_gather_rope else ''))
     print(f'attention backend: {eng.attn_backend.name} on {eng.device}')
+    if eng.paged:
+        print(f'paged KV: {eng.num_pages} pages x {eng.page_size} tokens')
     rng = np.random.default_rng(args.seed)
+    shared = rng.integers(3, cfg.vocab_size, size=args.shared_prefix)
     if args.score:
         prompts = [rng.integers(3, cfg.vocab_size,
                                 size=int(rng.integers(4, 12)))
@@ -94,8 +119,9 @@ def main() -> None:
         print(f'scored {len(prompts)} prompts '
               f'({sum(len(p) for p in prompts)} tokens) in {dt:.2f}s')
         return
-    reqs = [Request(uid=i, prompt=rng.integers(3, cfg.vocab_size,
-                                               size=int(rng.integers(4, 12))),
+    reqs = [Request(uid=i, prompt=np.concatenate(
+        [shared, rng.integers(3, cfg.vocab_size,
+                              size=int(rng.integers(4, 12)))]),
                     max_new_tokens=args.new_tokens,
                     temperature=args.temperature,
                     deadline_s=args.deadline or None)
@@ -119,7 +145,17 @@ def main() -> None:
           f'(p50 {fmt("p50_ttft_s")} / p99 {fmt("p99_ttft_s")}), '
           f'engine steps {stats["engine_steps"]}')
     print(f'{stats["failed"]} failed, {stats["deadline_exceeded"]} '
-          f'deadline-exceeded, {report["stalled"]} stalled')
+          f'deadline-exceeded, {report["stalled"]} stalled, '
+          f'{stats["preemptions"]} preemptions')
+    if eng.paged:
+        print(f'prefix cache: {stats["prefix_hits"]} hits / '
+              f'{stats["prefix_misses"]} misses '
+              f'(rate {stats["prefix_hit_rate"]:.2f}), '
+              f'{stats["prefix_hit_tokens"]} hit tokens, '
+              f'{stats["cow_copies"]} copy-on-write, '
+              f'{stats["pages_in_use"]} pages in use, '
+              f'{stats["evictions"]} evictions; TTFT on hit '
+              f'{fmt("mean_ttft_on_hit_s")}')
 
 
 if __name__ == '__main__':

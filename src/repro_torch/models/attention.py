@@ -1,5 +1,6 @@
-"""Grouped-query attention with RoPE against dense (ring) KV caches — the
-dense-cache part of ``repro/models/attention.py``.
+"""Grouped-query attention with RoPE against dense (ring) KV caches and the
+paged KV pool — the dense-cache and paged parts of
+``repro/models/attention.py`` (without int8 caches and packed prefill).
 
 Caches are dicts ``{'k': (B, Sc, KV, hd), 'v': (B, Sc, KV, hd),
 'pos': (B, Sc) int32}``; ``pos`` holds each entry's token position (-1 =
@@ -14,11 +15,17 @@ per-layer state) and return the same dict. Contents — ``pos`` included,
 ring wraparound and chunks that lap the ring included — equal JAX's
 exactly.
 
+**Paged mode** replaces the per-slot caches with a pool of
+``(num_pages, page_size, ...)`` pages addressed through per-slot page
+tables (:class:`PageTables`); chunk writes go through :func:`chunk_write`,
+also in place.
+
 How queries read the cache is the attention backend's decision
 (``repro_torch.models.attn_backend``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -137,6 +144,158 @@ def cache_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+# ================================================================== paged KV
+@dataclasses.dataclass
+class PageTables:
+    """Per-slot page tables for paged-KV serving.
+
+    ``pt`` (B, P_lin) int32 maps linear position blocks of append-only
+    (full-causal) layers: position ``p`` lives in physical page
+    ``pt[b, p // page_size]``. ``rt`` (B, P_ring) maps the ring blocks of
+    sliding-window layers (``sc_ring`` entries; 0 = no ring layers).
+    Physical page 0 is the null page (zero K/V, pos == -1): unallocated
+    entries point at it and are masked out by position validity.
+
+    ``pending`` (K,) int32, optional: pages awaiting deferred
+    clear-on-alloc. ``jobs``: the step's ``(job list, chunk positions)``
+    pair of ``kernels.paged_maintenance`` for the linear table, which
+    ``fused_maintenance`` backends need: every layer's fused chunk write
+    applies it, pending clears included. The engine builds it once per
+    step on the host; :meth:`with_jobs` builds it on the tables' device.
+    Without ``fused_maintenance`` the engine clears eagerly and neither
+    field is read.
+    """
+    pt: torch.Tensor
+    rt: torch.Tensor
+    sc_ring: int
+    pending: Optional[torch.Tensor] = None
+    jobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def table_for(self, window: int, page_size: int
+                  ) -> Tuple[torch.Tensor, int]:
+        """(table, virtual cache length) for a layer of the given window."""
+        if window and self.sc_ring:
+            return self.rt, self.sc_ring
+        return self.pt, self.pt.shape[1] * page_size
+
+    def with_jobs(self, pos0: torch.Tensor, n_valid: torch.Tensor,
+                  page_size: int, T: int) -> 'PageTables':
+        """A copy carrying the job list of a T-lane chunk step at ``pos0``
+        with ``n_valid`` lanes per slot, over the linear table."""
+        from repro_torch.kernels import paged_maintenance as PM
+        pending = self.pending if self.pending is not None else \
+            torch.zeros(0, dtype=torch.int32, device=self.pt.device)
+        jobs = PM.build_jobs(pos0, n_valid, self.pt,
+                             self.pt.shape[1] * page_size, page_size, T,
+                             pending)
+        return dataclasses.replace(
+            self, pending=pending,
+            jobs=(jobs, PM.chunk_positions(pos0, T)))
+
+
+def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: torch.device | str = 'cuda'
+                     ) -> Dict[str, torch.Tensor]:
+    """Pool-shaped KV storage: the leaves of :func:`make_cache` with
+    leading axes (num_pages, page_size). Page 0 is the null page and must
+    stay in this initial state."""
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        'k': torch.zeros((num_pages, page_size, KV, hd), dtype=dtype,
+                         device=device),
+        'v': torch.zeros((num_pages, page_size, KV, hd), dtype=dtype,
+                         device=device),
+        'pos': torch.full((num_pages, page_size), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def paged_view(cache: Dict, table: torch.Tensor, Sc: int
+               ) -> Dict[str, torch.Tensor]:
+    """Gather a slot-indexed virtual ``(B, Sc, ...)`` cache out of the pool,
+    with the dense cache's length and entry order, so attending it issues
+    the dense path's contractions. Unallocated blocks resolve to the null
+    page."""
+    B, P = table.shape
+    tab = table.long()
+
+    def g(leaf):
+        v = leaf[tab]                                    # (B, P, ps, ...)
+        v = v.reshape((B, P * leaf.shape[1]) + tuple(leaf.shape[2:]))
+        return v[:, :Sc]
+
+    return {nm: g(leaf) for nm, leaf in cache.items()}
+
+
+def paged_scatter(cache: Dict, updates: Dict[str, torch.Tensor],
+                  pos0: torch.Tensor, n_valid: torch.Tensor,
+                  table: torch.Tensor, Sc: int) -> Dict:
+    """Write a chunk's T lanes through a page table (ring-aware), in place.
+
+    ``updates[name]`` is (B, T, ...) chunk values for pool leaf ``name``;
+    lane ``t < n_valid[b]`` of slot ``b`` lands at virtual index
+    ``(pos0[b] + t) % Sc`` -> physical row ``table[b, idx // ps] * ps +
+    idx % ps``; other lanes are not written. Targets are unique (slots
+    never share writable pages, a chunk cannot lap the ring), so the
+    result equals the dense path's sequential writes. The 'pos' leaf is
+    maintained here.
+    """
+    any_upd = next(iter(updates.values()))
+    B, T = any_upd.shape[:2]
+    NP, ps = cache['pos'].shape[:2]
+    assert T <= Sc, 'chunk must not lap the paged ring'
+    t = torch.arange(T, device=pos0.device)[None]
+    pos_t = pos0.long()[:, None] + t                         # (B, T)
+    idx = pos_t % Sc
+    page = torch.gather(table.long(), 1, torch.div(idx, ps,
+                                                   rounding_mode='floor'))
+    flat = page * ps + idx % ps
+    valid = t < n_valid.long()[:, None]
+    rows = flat[valid]
+
+    def scat(leaf, vals):
+        fl = leaf.view((NP * ps,) + tuple(leaf.shape[2:]))
+        fl[rows] = vals[valid].to(leaf.dtype)
+
+    for nm, vals in updates.items():
+        scat(cache[nm], vals)
+    scat(cache['pos'], pos_t.to(torch.int32))
+    return cache
+
+
+def paged_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                       pos0: torch.Tensor, n_valid: torch.Tensor,
+                       table: torch.Tensor, Sc: int) -> Dict:
+    """Paged form of :func:`cache_update_chunk`."""
+    return paged_scatter(cache, {'k': k_new, 'v': v_new}, pos0, n_valid,
+                         table, Sc)
+
+
+def chunk_write(cache: Dict, k_h: torch.Tensor, v_h: torch.Tensor,
+                pos0: torch.Tensor, n_valid: torch.Tensor, *, window: int,
+                paged: Optional[PageTables], backend=None) -> Dict:
+    """Chunk K/V write into the stored cache, in place: the dense ring
+    update, or a write through the layer's page table in paged mode. A
+    ``fused_maintenance`` backend writes pages with the
+    ``fused_page_write`` job list ``paged.jobs``, which also applies the
+    step's deferred clears, and raises without it; otherwise
+    :func:`paged_update_chunk`."""
+    if paged is None:
+        return cache_update_chunk(cache, k_h, v_h, pos0, n_valid)
+    ps = cache['k'].shape[1]
+    table, Sc = paged.table_for(window, ps)
+    if getattr(_backend(backend, k_h.device), 'fused_maintenance', False):
+        from repro_torch.kernels import paged_maintenance as PM
+        if paged.jobs is None or table is not paged.pt:
+            raise ValueError(
+                'fused paged writes need the step job list of the linear '
+                'page table: PageTables.jobs (see PageTables.with_jobs)')
+        return PM.fused_chunk_scatter(cache, {'k': k_h, 'v': v_h},
+                                      *paged.jobs, Sc=Sc)
+    return paged_update_chunk(cache, k_h, v_h, pos0, n_valid, table, Sc)
+
+
 # ================================================================ decode core
 def decode_step(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
                 pos: torch.Tensor, cfg: ModelConfig, *, rope_theta: float,
@@ -203,11 +362,12 @@ def decode_chunk(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
                  pos0: torch.Tensor, n_valid: torch.Tensor, cfg: ModelConfig,
                  *, rope_theta: float, window: int = 0,
                  qkv: Optional[Tuple] = None, rope_applied: bool = False,
+                 paged: Optional[PageTables] = None,
                  backend=None) -> Tuple[torch.Tensor, Dict]:
     """Chunked-prefill step: project (or take precomputed) a T-token chunk,
     write its valid prefix into the cache in one call, attend all T
     queries. ``rope_applied`` marks gathered rows already rotated by the
-    fused kernel."""
+    fused kernel; ``paged`` switches the cache to page-pool addressing."""
     q, k, v = compute_qkv(params, x_normed, cfg) if qkv is None else qkv
     B, T = q.shape[0], q.shape[1]
     k_h = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -215,8 +375,9 @@ def decode_chunk(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
         pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
         k_h = L.apply_rope(k_h, pos_t, rope_theta)
     v_h = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    cache_update_chunk(cache, k_h, v_h, pos0, n_valid)
+    chunk_write(cache, k_h, v_h, pos0, n_valid, window=window, paged=paged,
+                backend=backend)
     ctx = _backend(backend, q.device).attend_chunk(
         q, cache, pos0, cfg, rope_theta=rope_theta, window=window,
-        rope_applied=rope_applied)
+        rope_applied=rope_applied, paged=paged)
     return L.dense(params['wo'], ctx), cache

@@ -1,19 +1,27 @@
 """Attention backends for every decode/chunk attend (port of
-``repro/models/attn_backend.py``, dense caches only).
+``repro/models/attn_backend.py`` for dense caches and the paged pool).
 
 - ``'reference'``: plain PyTorch, query lanes one at a time
-  (``attention.decode_attend_chunk``), as the JAX reference backend.
+  (``attention.decode_attend_chunk``), as the JAX reference backend. Paged
+  storage is first gathered into a dense-shaped view
+  (``attention.paged_view``), so its contractions are the dense path's.
 - ``'cuda'``: the hand-written ``paged_attention`` kernel
-  (``kernels/paged_attention.py``). A dense (B, Sc, ...) cache is viewed,
-  without a copy, as identity-table pages; all T query lanes of a chunk go
-  in one launch. On CPU tensors the kernel wrapper runs its plain version,
-  so the backend's plumbing is testable without a card.
+  (``kernels/paged_attention.py``). Pool pages are read in place through
+  the slot's page table; a dense (B, Sc, ...) cache is viewed, without a
+  copy, as identity-table pages. All T query lanes of a chunk go in one
+  launch. It declares ``fused_maintenance``: paged writes go through the
+  ``fused_page_write`` job list with deferred clears, and the engine's
+  copy-on-write through ``cow_page_copy``
+  (``kernels/paged_maintenance.py``). On CPU tensors the kernel wrappers
+  run their plain versions, so the backend's plumbing is testable without
+  a card.
 - ``'auto'`` resolves by device: ``cuda`` for a CUDA device, ``reference``
   for the CPU. (JAX's ``'auto'`` picks the plain path everywhere except on
   a TPU; here the kernel is the default wherever it runs.)
 
 Parity: ``cuda`` matches ``reference`` within :data:`KERNEL_TOL` (the JAX
-package's ``PALLAS_TOL``, fp32 running-softmax reassociation).
+package's ``PALLAS_TOL``, fp32 running-softmax reassociation); pool
+contents written by the two are bitwise equal.
 """
 from __future__ import annotations
 
@@ -32,12 +40,17 @@ class AttnBackend:
     """Produce attend context from the stored (already updated) cache."""
 
     name = 'abstract'
+    # paged writes through kernels/paged_maintenance (job-list chunk write
+    # with deferred clear-on-alloc; copy-on-write kernel in the engine)
+    fused_maintenance = False
 
     def attend_chunk(self, q: torch.Tensor, cache: Dict, pos0: torch.Tensor,
                      cfg: ModelConfig, *, rope_theta: float, window: int = 0,
-                     rope_applied: bool = False) -> torch.Tensor:
+                     rope_applied: bool = False, paged=None) -> torch.Tensor:
         """q (B, T, q_size) flat (pre-RoPE unless ``rope_applied``); lane t
-        sits at ``pos0 + t``. -> (B, T, H*hd) context."""
+        sits at ``pos0 + t``. ``paged`` (an ``attention.PageTables``) means
+        ``cache`` is pool storage (num_pages, page_size, ...). -> (B, T,
+        H*hd) context."""
         raise NotImplementedError
 
 
@@ -45,8 +58,11 @@ class ReferenceBackend(AttnBackend):
     name = 'reference'
 
     def attend_chunk(self, q, cache, pos0, cfg, *, rope_theta, window=0,
-                     rope_applied=False):
+                     rope_applied=False, paged=None):
         from repro_torch.models import attention as A
+        if paged is not None:
+            table, Sc = paged.table_for(window, cache['k'].shape[1])
+            cache = A.paged_view(cache, table, Sc)
         return A.decode_attend_chunk(q, cache, pos0, cfg,
                                      rope_theta=rope_theta, window=window,
                                      rope_applied=rope_applied)
@@ -54,9 +70,10 @@ class ReferenceBackend(AttnBackend):
 
 class CudaBackend(AttnBackend):
     name = 'cuda'
+    fused_maintenance = True
 
     def attend_chunk(self, q, cache, pos0, cfg, *, rope_theta, window=0,
-                     rope_applied=False):
+                     rope_applied=False, paged=None):
         from repro_torch.kernels.paged_attention import (dense_as_pages,
                                                          dense_identity_table,
                                                          dense_page_split,
@@ -70,14 +87,18 @@ class CudaBackend(AttnBackend):
         k = cache['k']
         # the kernel reads q, K and V in one dtype: queries follow the cache
         qg = q.reshape(B, T, KV, H // KV, hd).to(k.dtype).contiguous()
-        Sc = k.shape[1]
-        ps = dense_page_split(Sc)
-        ctx = paged_attention(
-            qg, dense_as_pages(k, ps), dense_as_pages(cache['v'], ps),
-            dense_as_pages(cache['pos'], ps),
-            dense_identity_table(B, Sc, ps, q.device),
-            pos0.to(torch.int32).contiguous(), scale=hd ** -0.5,
-            window=window)
+        if paged is not None:                 # pool pages, in place
+            table, _ = paged.table_for(window, k.shape[1])
+            pages = (k, cache['v'], cache['pos'])
+        else:                                 # dense caches as pages
+            Sc = k.shape[1]
+            ps = dense_page_split(Sc)
+            pages = (dense_as_pages(k, ps), dense_as_pages(cache['v'], ps),
+                     dense_as_pages(cache['pos'], ps))
+            table = dense_identity_table(B, Sc, ps, q.device)
+        ctx = paged_attention(qg, *pages, table,
+                              pos0.to(torch.int32).contiguous(),
+                              scale=hd ** -0.5, window=window)
         return ctx.reshape(B, T, H * hd).to(q.dtype)
 
 

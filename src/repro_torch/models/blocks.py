@@ -71,23 +71,40 @@ def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
 
 def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
-                     device: torch.device | str = 'cuda') -> Dict:
+                     device: torch.device | str = 'cuda', num_pages: int = 0,
+                     page_size: int = 0) -> Dict:
+    """``num_pages > 0`` builds paged-KV storage (a global page pool
+    instead of per-slot caches)."""
     _supported(cfg, kind, False)
+    if num_pages:
+        return A.make_paged_cache(cfg, num_pages, page_size, dtype=dtype,
+                                  device=device)
     return A.make_cache(cfg, batch, seq_len, window=kind_window(cfg, kind),
                         dtype=dtype, chunk=chunk, device=device)
+
+
+def block_paged_mask(cfg: ModelConfig, kind: str) -> Dict[str, bool]:
+    """Same keys as paged :func:`block_make_state`, True on page-pool
+    leaves (shared, never slot-reset) — every leaf of an attention kind."""
+    _supported(cfg, kind, False)
+    return {'k': True, 'v': True, 'pos': True}
 
 
 def block_decode(params: Dict, h: torch.Tensor, state: Dict,
                  pos: torch.Tensor, cfg: ModelConfig, kind: str,
                  use_moe: bool, *, pre: Optional[Dict] = None,
                  n_valid: Optional[torch.Tensor] = None,
-                 rope_applied: bool = False, backend=None
+                 rope_applied: bool = False, paged=None, backend=None
                  ) -> Tuple[torch.Tensor, Dict]:
     """Decode step. h (B, T, d); pos (B,) start positions. ``n_valid is
     None`` is the one-token step (T == 1); ``n_valid`` (B,) runs the
-    chunked-prefill path. The cache in ``state`` is updated in place.
-    -> (h_out, state)."""
+    chunked-prefill path. ``paged`` (an ``attention.PageTables``; chunked
+    path only) addresses the cache as pool pages. The cache in ``state``
+    is updated in place. -> (h_out, state)."""
     _supported(cfg, kind, use_moe)
+    assert paged is None or n_valid is not None, \
+        'paged decode runs the chunked path'
+
     theta = kind_theta(cfg, kind)
     window = kind_window(cfg, kind)
     if pre is not None:
@@ -97,7 +114,7 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
     if n_valid is not None:
         attn_out, state = A.decode_chunk(
             params['attn'], xn, state, pos, n_valid, cfg, rope_theta=theta,
-            window=window, qkv=qkv, rope_applied=rope_applied,
+            window=window, qkv=qkv, rope_applied=rope_applied, paged=paged,
             backend=backend)
     else:
         attn_out, state = A.decode_step(

@@ -33,24 +33,39 @@ class Model:
     def decode_step(self, params: Dict, tokens: torch.Tensor, states: Dict,
                     pos: torch.Tensor, *, precomputed=None, n_valid=None,
                     return_hidden: bool = False,
-                    fused_gather_rope: bool = False, attn_backend='auto'):
+                    fused_gather_rope: bool = False, paged=None,
+                    attn_backend='auto'):
         """tokens (B, T), pos (B,) -> (logits (B, T, V), states). T == 1
         with ``n_valid=None`` is the one-token step; ``n_valid`` (B,) runs
-        the chunked-prefill path. Caches update in place. ``attn_backend``
-        ('auto' | 'reference' | 'cuda' | an AttnBackend) picks the attend."""
+        the chunked-prefill path. ``paged`` (an ``attention.PageTables``)
+        addresses the caches of paged states; a ``fused_maintenance``
+        backend (``'cuda'``) needs its step job list
+        (``PageTables.with_jobs``) and raises without it. Caches update in
+        place.
+        ``attn_backend`` ('auto' | 'reference' | 'cuda' | an AttnBackend)
+        picks the attend."""
         from repro_torch.models.attn_backend import get_backend
         backend = get_backend(attn_backend, tokens.device)
         return T.lm_decode_step(params, tokens, states, pos, self.cfg,
                                 precomputed=precomputed, n_valid=n_valid,
                                 return_hidden=return_hidden,
                                 fused_gather_rope=fused_gather_rope,
-                                attn_backend=backend)
+                                paged=paged, attn_backend=backend)
 
     def make_states(self, batch: int, seq_len: int,
                     dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
-                    device: torch.device | str = 'cuda') -> Dict:
+                    device: torch.device | str = 'cuda', num_pages: int = 0,
+                    page_size: int = 0) -> Dict:
+        """``num_pages > 0`` builds paged-KV storage: attention caches
+        become a global (num_pages, page_size, ...) pool addressed through
+        page tables."""
         return T.backbone_make_states(self.cfg, batch, seq_len, dtype, chunk,
-                                      device)
+                                      device, num_pages, page_size)
+
+    def paged_state_mask(self) -> Dict:
+        """Bool tree matching paged ``make_states``: True on page-pool
+        leaves, False on per-slot state."""
+        return T.backbone_paged_mask(self.cfg)
 
     def build_table(self, params: Dict) -> PC.PrecomputedTable:
         return PC.build_precomputed_table(params, self.cfg)

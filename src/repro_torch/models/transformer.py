@@ -19,7 +19,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (ATTN_KINDS, block_decode,
-                                       block_make_state, kind_theta)
+                                       block_make_state, block_paged_mask,
+                                       kind_theta)
 from repro_torch.params import tree_slice
 
 
@@ -76,14 +77,17 @@ def lm_logits(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ==================================================================== decode
 def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
                          dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
-                         device: torch.device | str = 'cuda') -> Dict:
+                         device: torch.device | str = 'cuda',
+                         num_pages: int = 0, page_size: int = 0) -> Dict:
+    """Per-layer caches; ``num_pages > 0`` makes every attention cache a
+    (num_pages, page_size, ...) pool (stacked over reps for ``body``)."""
     plan = layer_plan(cfg)
     if plan.n_head:
         raise NotImplementedError('unstacked head layers (MoE) not ported')
 
     def mk(kind):
         return block_make_state(cfg, kind, batch, seq_len, dtype, chunk,
-                                device)
+                                device, num_pages, page_size)
 
     st: Dict[str, Any] = {'layer0': mk(plan.kinds[0])}
     if plan.reps:
@@ -94,17 +98,31 @@ def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
     return st
 
 
+def backbone_paged_mask(cfg: ModelConfig) -> Dict:
+    """Bool tree matching paged :func:`backbone_make_states`: True on
+    page-pool leaves, False on per-slot state."""
+    plan = layer_plan(cfg)
+    st: Dict[str, Any] = {'layer0': block_paged_mask(cfg, plan.kinds[0])}
+    if plan.reps:
+        st['body'] = [block_paged_mask(cfg, k) for k in plan.slots]
+    if plan.n_tail:
+        st['tail'] = [block_paged_mask(cfg, plan.slots[i])
+                      for i in range(plan.n_tail)]
+    return st
+
+
 def backbone_decode(params: Dict, h: torch.Tensor, states: Dict,
                     pos: torch.Tensor, cfg: ModelConfig, *,
                     pre0: Optional[Dict] = None,
                     n_valid: Optional[torch.Tensor] = None,
-                    rope_applied: bool = False, attn_backend=None
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    rope_applied: bool = False, paged=None,
+                    attn_backend=None) -> Tuple[torch.Tensor, Dict]:
     """``n_valid is None``: one-token step (h is (B, 1, d)); with
-    ``n_valid`` (B,): chunked step over h (B, T, d). Caches in ``states``
-    are updated in place; returns (h, states)."""
+    ``n_valid`` (B,): chunked step over h (B, T, d). ``paged`` (an
+    ``attention.PageTables``) addresses the caches as pool pages. Caches in
+    ``states`` are updated in place; returns (h, states)."""
     plan = layer_plan(cfg)
-    kw = dict(n_valid=n_valid, backend=attn_backend)
+    kw = dict(n_valid=n_valid, paged=paged, backend=attn_backend)
     h, _ = block_decode(params['layer0'], h, states['layer0'], pos, cfg,
                         plan.kinds[0], plan.use_moe[0], pre=pre0,
                         rope_applied=rope_applied, **kw)
@@ -123,8 +141,8 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
                    pos: torch.Tensor, cfg: ModelConfig, *, precomputed=None,
                    n_valid: Optional[torch.Tensor] = None,
                    return_hidden: bool = False,
-                   fused_gather_rope: bool = False, attn_backend=None
-                   ) -> Tuple[torch.Tensor, Dict]:
+                   fused_gather_rope: bool = False, paged=None,
+                   attn_backend=None) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, T), pos (B,) -> (logits (B, T, V), states).
 
     ``n_valid is None`` is the one-token step (T == 1); with ``n_valid``
@@ -133,7 +151,9 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     written to a cache; their outputs are garbage). With ``precomputed``
     the embedding read and layer 0's projections are one row gather per
     token; ``fused_gather_rope`` (chunked path) also rotates layer 0's q/k
-    inside that gather. ``return_hidden`` skips the final norm and head.
+    inside that gather. ``paged`` (an ``attention.PageTables``; chunked
+    path) addresses the caches as pool pages. ``return_hidden`` skips the
+    final norm and head.
     """
     rope_applied = False
     if precomputed is not None:
@@ -151,7 +171,7 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
         h = embed_tokens(params, tokens, cfg)
     h, states = backbone_decode(params['backbone'], h, states, pos, cfg,
                                 pre0=pre0, n_valid=n_valid,
-                                rope_applied=rope_applied,
+                                rope_applied=rope_applied, paged=paged,
                                 attn_backend=attn_backend)
     return (h if return_hidden else lm_logits(params, h, cfg)), states
 

@@ -1,6 +1,6 @@
 """Batched serving engine: continuous batching with chunked prefill over
-dense per-slot KV caches — the dense, synchronous path of
-``repro/serving/engine.py``'s ``ServingEngine``.
+dense per-slot KV caches or a paged KV pool with a radix prefix cache —
+the synchronous path of ``repro/serving/engine.py``'s ``ServingEngine``.
 
 The engine schedules **mixed steps** over a fixed set of slots. Decoding
 slots consume one sampled token per step; prefilling slots consume up to
@@ -16,39 +16,69 @@ layer-0 projections are one row gather per token (the ``embed_gather``
 kernel on a CUDA device); ``fused_gather_rope=True`` also folds layer-0
 RoPE into the gather of chunked steps (the ``gather_rope`` kernel).
 
+**Paged KV + prefix caching** (``prefix_cache=True``, for configurations
+whose layers are all ``'global'`` attention): the per-slot caches become a
+global pool of ``page_size``-token pages per layer, addressed through
+per-slot page tables, and admission looks the prompt up in a token-prefix
+radix index (``repro_torch.serving.kvpool``). A request whose prompt
+shares a cached prefix attaches its pages read-only and skips that part of
+its prefill; one that stops short inside a cached page copies that page's
+head rows into a private page (copy-on-write). Prefilled prompts publish
+their full pages. Paged mode always runs the chunk-shaped step; its
+T = 1 case is the decode step. When the pool runs dry and nothing is
+evictable, a victim slot is **preempted** — fewest decoded tokens, LIFO
+on ties, the oldest in-flight request protected — its full pages are
+published to the radix index, and it is requeued at the front, so its
+resume is a prefix hit and its greedy tokens equal an uninterrupted
+run's. A request that cannot be scheduled even then fails with
+``'unschedulable'``. With a ``fused_maintenance`` backend (``cuda``) page
+writes are one ``fused_page_write`` launch per layer whose job list (built
+once per step on the host, shared by all layers) also clears freshly
+allocated pages, and copy-on-write is ``cow_page_copy``; the reference
+backend clears pages when they are allocated and writes with plain
+scatters. Windowed (ring) layers, recurrent state and meta tokens are not
+ported to paged mode and raise ``NotImplementedError``.
+
 **Attention backend** (``attn_backend='auto' | 'reference' | 'cuda'``):
 ``'auto'`` (the default) takes the ``cuda`` kernel backend on a CUDA
 device and the plain ``reference`` backend on the CPU
 (``repro_torch.models.attn_backend``). Greedy tokens of the two agree
-wherever logits are not within the kernel tolerance of a tie.
+wherever logits are not within the kernel tolerance of a tie; pool
+contents written by the two are bitwise equal.
 
-**Requests** follow ``QUEUED -> PREFILLING -> DECODING -> FINISHED``.
-Malformed submissions (empty prompt, prompt that cannot fit ``max_seq``,
-``max_new_tokens <= 0``) are ``FAILED`` at submit with ``error`` set;
-duplicate live uids raise ``ValueError``; ``deadline_s`` is enforced at
-every step on the monotonic clock; a lane whose sampled logits are not
-finite fails only its request (``'nonfinite_logits'``); ``run()`` marks
-work still queued when its budget expires ``FAILED('stalled')``.
-``score()`` returns all-position prompt logits (logits on demand).
+**Requests** follow ``QUEUED -> PREFILLING -> DECODING -> FINISHED``
+(``PREEMPTED`` while requeued after a preemption). Malformed submissions
+(empty prompt, prompt that cannot fit ``max_seq``, ``max_new_tokens <=
+0``) are ``FAILED`` at submit with ``error`` set; duplicate live uids raise
+``ValueError``; ``deadline_s`` is enforced at every step on the monotonic
+clock; a lane whose sampled logits are not finite fails only its request
+(``'nonfinite_logits'``); ``run()`` marks work still queued when its
+budget expires ``FAILED('stalled')``. ``score()`` returns all-position
+prompt logits (logits on demand); scoring requests always prefill cold.
 
-Not ported yet, and rejected with ``NotImplementedError``: the paged KV
-pool and prefix cache, device meshes, the async host loop, segment-packed
-prefill, the int8 KV cache, telemetry recording and fault injection.
+Not ported yet, and rejected with ``NotImplementedError``: device meshes,
+the async host loop, segment-packed prefill, the int8 KV cache, telemetry
+recording and fault injection.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import paged_maintenance as PM
+from repro_torch.models.attention import PageTables
 from repro_torch.models.attn_backend import get_backend
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import fused_rope_eligible, lm_logits
+from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
+                                            lm_logits)
+from repro_torch.serving.kvpool import PrefixCache
 from repro_torch.serving.sampler import sample_tokens
+from repro_torch.serving import telemetry as TM
 from repro_torch.serving.telemetry import Histogram, latency_summary
 
 
@@ -61,6 +91,7 @@ class RequestStatus(str, enum.Enum):
     FINISHED = 'finished'
     FAILED = 'failed'
     CANCELLED = 'cancelled'
+    PREEMPTED = 'preempted'
 
 
 class ScoringError(RuntimeError):
@@ -100,8 +131,14 @@ class Request:
     first_token_t: float = 0.0
     finish_t: float = 0.0
     prompt_logits: Optional[np.ndarray] = None    # (P, V) if return_logits
+    prefix_hit_tokens: int = 0            # prompt tokens served from cache
+    preemptions: int = 0                  # times this request was preempted
     _logit_chunks: List[np.ndarray] = dataclasses.field(default_factory=list,
                                                         repr=False)
+    _admit_fails: int = dataclasses.field(default=0, repr=False)
+    _stuck_pos: int = dataclasses.field(default=-1, repr=False)
+    _stuck: int = dataclasses.field(default=0, repr=False)
+    _hold_until: int = dataclasses.field(default=0, repr=False)
 
 
 @dataclasses.dataclass
@@ -114,53 +151,129 @@ class _Lane:
     p_after: int            # ... and after
 
 
+def _stage(arrays: Sequence[np.ndarray], device: torch.device
+           ) -> List[torch.Tensor]:
+    """Copy int32 host arrays to ``device`` in one transfer; returns views
+    of the copy with each array's shape."""
+    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                           for a in arrays])
+    buf = torch.from_numpy(flat).to(device)
+    out, off = [], 0
+    for a in arrays:
+        n = int(np.prod(a.shape))
+        out.append(buf[off:off + n].view(a.shape))
+        off += n
+    return out
+
+
 class ServingEngine:
     def __init__(self, model: Model, params, *, max_slots: int = 8,
                  max_seq: int = 512, precomputed=None, seed: int = 0,
                  dtype: torch.dtype = torch.float32, kv_quant: bool = False,
                  chunk_size: int = 1, fused_gather_rope: bool = False,
-                 prefix_cache: bool = False, attn_backend: str = 'auto',
-                 fault_injector=None, pack_prefill: bool = False,
-                 telemetry: bool = False, mesh=None, async_loop: bool = False,
+                 prefix_cache: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None, attn_backend: str = 'auto',
+                 fault_injector=None, admit_retry_steps: int = 8,
+                 pack_prefill: bool = False, telemetry: bool = False,
+                 mesh=None, async_loop: bool = False,
                  device: torch.device | str = 'cuda'):
-        unported = {'prefix_cache': prefix_cache, 'mesh': mesh,
-                    'async_loop': async_loop, 'pack_prefill': pack_prefill,
-                    'kv_quant': kv_quant, 'telemetry': telemetry,
-                    'fault_injector': fault_injector}
+        unported = {'mesh': mesh, 'async_loop': async_loop,
+                    'pack_prefill': pack_prefill, 'kv_quant': kv_quant,
+                    'telemetry': telemetry, 'fault_injector': fault_injector}
         for name, val in unported.items():
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f'ServingEngine({name}=...) is not ported yet')
+        cfg = model.cfg
         self.model, self.params = model, params
         self.device = torch.device(device)
         self.max_slots, self.max_seq = max_slots, max_seq
         self.precomputed = precomputed
         self.attn_backend = get_backend(attn_backend, self.device)
         self.chunk_size = chunk_size
-        # the one-token path never fuses; ineligible layouts use the plain
-        # gather (transformer.fused_rope_eligible)
-        self.fused_gather_rope = bool(fused_gather_rope) and chunk_size > 1 \
-            and fused_rope_eligible(precomputed, model.cfg)
-        self.states = model.make_states(max_slots, max_seq, dtype,
-                                        chunk=chunk_size, device=self.device)
-        # (leaf, slot axis, fresh value) of every cache leaf, for slot reset
+        self.paged = bool(prefix_cache)
+        self.page_size = page_size
+        # the one-token path never fuses (paged mode has none: its T == 1
+        # steps run the chunk path); ineligible layouts use the plain gather
+        # (transformer.fused_rope_eligible)
+        self.fused_gather_rope = bool(fused_gather_rope) \
+            and (chunk_size > 1 or self.paged) \
+            and fused_rope_eligible(precomputed, cfg)
+        plan = layer_plan(cfg)
+        self.num_pages = 0
+        self.kv: Optional[PrefixCache] = None
+        if self.paged:
+            if getattr(cfg, 'num_meta_tokens', 0) \
+                    or any(k != 'global' for k in plan.kinds):
+                raise NotImplementedError(
+                    'paged prefix caching is ported for configurations '
+                    "whose layers are all 'global' attention; ring pages "
+                    'with snapshots (windowed layers), recurrent state and '
+                    f'meta tokens are not ported yet (layers: '
+                    f'{sorted(set(plan.kinds))})')
+            if max_seq % page_size:
+                raise ValueError(f'max_seq ({max_seq}) must be a multiple of '
+                                 f'page_size ({page_size}) so the paged '
+                                 'virtual cache matches the dense cache '
+                                 'length exactly')
+            self._pages_lin = max_seq // page_size
+            if num_pages is None:
+                num_pages = 1 + max_slots * self._pages_lin \
+                    + 8 * self._pages_lin
+            # one admission needs a COW page and the first dispatch one
+            # linear page; below this floor nothing could ever be admitted
+            floor = 1 + 2
+            if num_pages < floor:
+                raise ValueError(f'num_pages ({num_pages}) cannot host even '
+                                 f'one request: need >= {floor} (null page + '
+                                 'COW/linear headroom)')
+            self.kv = PrefixCache(num_pages, page_size)
+            self.num_pages = num_pages
+        self.states = model.make_states(
+            max_slots, max_seq, dtype, chunk=chunk_size, device=self.device,
+            num_pages=self.num_pages, page_size=page_size if self.paged else 0)
+        # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
+        # slot reset; the page pool is never slot-reset (pages are cleared
+        # when they are allocated instead)
         self._reset_plan = []
+        # (pool leaves, reps) of every layer's page pool: reps > 0 for
+        # leaves stacked over the layers of a pattern slot
+        self._pools = []
+        mask = model.paged_state_mask() if self.paged else None
         for part, st in self.states.items():
-            for layer in (st if isinstance(st, list) else [st]):
-                for nm, leaf in layer.items():
-                    self._reset_plan.append(
-                        (leaf, 1 if part == 'body' else 0,
-                         -1 if nm == 'pos' else 0))
+            layers = st if isinstance(st, list) else [st]
+            masks = [{}] * len(layers) if mask is None else \
+                mask[part] if isinstance(st, list) else [mask[part]]
+            for layer, lmask in zip(layers, masks):
+                stacked = part == 'body'
+                pool = {nm: leaf for nm, leaf in layer.items()
+                        if lmask.get(nm)}
+                if pool:
+                    reps = next(iter(pool.values())).shape[0] \
+                        if stacked else 0
+                    self._pools.append((pool, reps))
+                self._reset_plan += [(leaf, 1 if stacked else 0,
+                                      PM.leaf_fill(nm))
+                                     for nm, leaf in layer.items()
+                                     if not lmask.get(nm)]
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_pos = np.zeros(max_slots, np.int64)       # next position
         self.slot_next_tok = np.zeros(max_slots, np.int32)  # token to feed
+        # the token stream a slot serves: prompt, or prompt + generated-so-far
+        # for a resumed (previously preempted) request
         self.slot_stream: List[Optional[np.ndarray]] = [None] * max_slots
+        self.slot_admit_seq = np.zeros(max_slots, np.int64)  # LIFO victim tie
         self.queue: List[Request] = []
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.steps = 0
+        self.ticks = 0      # step_once entries
         self._live_uids: set = set()
         self._internal_uid = _INTERNAL_UID_BASE
+        self._admit_seq = 0
+        self._admit_retry_steps = max(1, admit_retry_steps)
+        self.preemptions = 0
+        self.cow_copies = 0
         self.n_failed = 0
         self.n_deadline = 0
         self.n_stalled = 0
@@ -169,6 +282,19 @@ class ServingEngine:
         self.lane_tokens = 0
         self._lat_hist = Histogram()
         self._ttft_hist = Histogram()
+
+        # ------------------------------------------------ per-slot paging
+        # Deferred clear-on-alloc: with a fused_maintenance backend, freshly
+        # allocated pages are queued here and ride into the next step as
+        # PageTables.pending, where every layer's fused write clears them
+        self._fused_maint = self.paged and self.attn_backend.fused_maintenance
+        self._pending_clear: List[int] = []
+        if self.paged:
+            self._pt = np.zeros((max_slots, self._pages_lin), np.int32)
+            self.slot_node = [None] * max_slots       # attached radix node
+            self.slot_nblocks = np.zeros(max_slots, np.int32)
+            self.slot_priv: List[List[int]] = [[] for _ in range(max_slots)]
+            self.slot_insert_at = np.full(max_slots, -1, np.int64)
 
     # ------------------------------------------------------------- plumbing
     def _validate(self, req: Request) -> Optional[str]:
@@ -220,8 +346,11 @@ class ServingEngine:
         self._live_uids.discard(req.uid)
 
     def _vacate(self, slot: int) -> None:
+        """Free one slot's scheduling state (and pages, in paged mode)."""
         self.slot_req[slot] = None
         self.slot_stream[slot] = None
+        if self.paged:
+            self._release_slot_pages(slot)
 
     def _check_deadlines(self) -> None:
         """Fail every live request whose budget expired (monotonic clock)."""
@@ -254,21 +383,284 @@ class ServingEngine:
         for leaf, axis, fill in self._reset_plan:
             leaf.select(axis, slot).fill_(fill)
 
+    # ------------------------------------------------------------ paged ops
+    def _clear_pages(self, pages: List[int]) -> None:
+        """Return pool pages to the null state on every layer, eagerly."""
+        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for cache, reps in self._pools:
+            for nm, leaf in cache.items():
+                if reps:
+                    leaf[:, ids] = PM.leaf_fill(nm)
+                else:
+                    leaf[ids] = PM.leaf_fill(nm)
+
+    def _cow_copy(self, src: int, dst: int, rem: int) -> None:
+        """Copy rows [0, rem) of page src into page dst on every layer; the
+        other rows of dst get the null state — what a cold prefill of those
+        rem tokens would have left in a fresh page."""
+        for cache, reps in self._pools:
+            PM.cow_copy_cache(cache, src, dst, rem, reps=reps,
+                              plain=not self._fused_maint)
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        if n == 0:
+            return []
+        pages = self.kv.alloc(n)
+        if pages is None:
+            return None
+        if self._fused_maint:
+            # clear-on-alloc is deferred: the ids ride into the next
+            # dispatch as PageTables.pending, where every layer's fused
+            # write folds the clear into first-write masking (or a clear job)
+            self._pending_clear.extend(pages)
+        else:
+            self._clear_pages(pages)
+        return pages
+
+    def _release_slot_pages(self, slot: int) -> None:
+        if self.slot_node[slot] is not None:
+            self.kv.release(self.slot_node[slot])
+            self.slot_node[slot] = None
+        if self.slot_priv[slot]:
+            self.kv.free(self.slot_priv[slot])
+            self.slot_priv[slot] = []
+        self._pt[slot] = 0
+        self.slot_nblocks[slot] = 0
+        self.slot_insert_at[slot] = -1
+
+    def _admit_paged(self, slot: int, req: Request,
+                     stream: np.ndarray) -> bool:
+        """Prefix lookup + page attach for one admission. ``stream`` is the
+        token stream to serve — the prompt, or prompt + generated-so-far
+        for a resumed (preempted) request, whose published pages make the
+        resume a prefix hit. Returns False if the pool cannot currently
+        host the request (it goes back to the queue)."""
+        ps = self.page_size
+        P = len(stream)
+        node, nblocks, pages = None, 0, []
+        if not req.return_logits and P > 1:
+            res = self.kv.match(stream, max_tokens=P - 1)
+            node, nblocks, pages = res.node, res.n_blocks, res.pages
+        # pin the match before any allocation can trigger eviction
+        self.kv.attach(node)
+        eff = nblocks * ps
+        cow_page = None
+        if not req.return_logits:
+            # copy-on-write: reuse the head of a cached block this prompt
+            # stops short inside (or diverges from past its shared rows)
+            tail_len = min(P - 1 - eff, ps - 1)
+            if tail_len > 0:
+                alloc = self._alloc_pages(1)
+                if alloc is None:
+                    self.kv.release(node)
+                    return False
+                src = self.kv.find_extension(node, stream[eff:eff + tail_len])
+                if src >= 0:
+                    self._cow_copy(src, alloc[0], tail_len)
+                    cow_page = alloc[0]
+                    self.cow_copies += 1
+                    eff += tail_len
+                    # the copy wrote dst in full; a deferred clear would
+                    # destroy it (every entry: a page freed and taken again
+                    # in one step is listed twice)
+                    self._pending_clear = [p for p in self._pending_clear
+                                           if p != cow_page]
+                else:
+                    self.kv.free(alloc)
+        row = list(pages) + ([cow_page] if cow_page is not None else [])
+        self._pt[slot, :len(row)] = row
+        self.slot_nblocks[slot] = len(row)
+        self.slot_node[slot] = node
+        self.slot_priv[slot] = [cow_page] if cow_page is not None else []
+        if eff:
+            self.kv.hits += 1
+            self.kv.hit_tokens += eff
+            req.prefix_hit_tokens = eff
+        elif not req.return_logits:
+            self.kv.misses += 1
+        # where to publish this prompt's prefix
+        self.slot_insert_at[slot] = P if not req.return_logits \
+            and P // ps > nblocks else -1
+        self.slot_pos[slot] = eff
+        self.slot_next_tok[slot] = int(stream[eff])
+        return True
+
+    # ---------------------------------------------------------- preemption
+    def _pick_victim(self, exclude=(),
+                     protect_oldest: bool = True) -> Optional[int]:
+        """Fewest decoded tokens first (cheapest work to redo), ties LIFO
+        (most recently admitted). Scoring slots are never victims. With
+        ``protect_oldest`` the longest-admitted in-flight request is immune,
+        which guarantees progress: two requests that cannot coexist in the
+        pool would otherwise preempt each other forever."""
+        protected = None
+        if protect_oldest:
+            live = [(int(self.slot_admit_seq[s]), s)
+                    for s in range(self.max_slots)
+                    if self.slot_req[s] is not None]
+            if live:
+                protected = min(live)[1]
+        best = None
+        for s in range(self.max_slots):
+            req = self.slot_req[s]
+            if req is None or s in exclude or s == protected \
+                    or req.return_logits:
+                continue
+            key = (len(req.generated), -int(self.slot_admit_seq[s]))
+            if best is None or key < best[0]:
+                best = (key, s)
+        return None if best is None else best[1]
+
+    def _publish(self, slot: int, tokens: np.ndarray, n_blocks: int) -> None:
+        """Insert the slot's first ``n_blocks`` pages into the radix index
+        and re-pin the slot to the inserted path."""
+        node, transferred = self.kv.insert(tokens, n_blocks,
+                                           list(self._pt[slot, :n_blocks]))
+        moved = set(transferred)
+        self.slot_priv[slot] = [p for p in self.slot_priv[slot]
+                                if p not in moved]
+        self.kv.attach(node)
+        self.kv.release(self.slot_node[slot])
+        self.slot_node[slot] = node
+
+    def _publish_preempted(self, slot: int) -> None:
+        """Publish a preempted slot's fully written pages, so its resume is
+        a prefix hit that recomputes only the uncached tail. Blocks may
+        cover generated tokens too: radix keys are token values, and
+        identical tokens at identical positions give identical pages."""
+        req = self.slot_req[slot]
+        if req.return_logits:
+            return                          # scoring resumes cold anyway
+        n_blocks = int(self.slot_pos[slot]) // self.page_size
+        if n_blocks <= 0:
+            return
+        stream = np.atleast_1d(np.asarray(req.prompt))
+        if req.generated:
+            stream = np.concatenate(
+                [stream, np.asarray(req.generated, stream.dtype)])
+        self._publish(slot, stream, n_blocks)
+
+    def _preempt_slot(self, slot: int, hold: bool = False) -> None:
+        """Evict one in-flight request from its slot and requeue it at the
+        front, its full pages published first. ``hold`` delays its
+        re-admission by ``admit_retry_steps`` ticks (a slot yielding to
+        pool contention)."""
+        req = self.slot_req[slot]
+        self._publish_preempted(slot)
+        self._vacate(slot)
+        req.status = RequestStatus.PREEMPTED
+        req.preemptions += 1
+        self.preemptions += 1
+        req._logit_chunks = []              # scoring resumes from position 0
+        if hold:
+            req._hold_until = self.ticks + self._admit_retry_steps
+        self.queue.insert(0, req)
+
+    def _ensure_blocks(self, slot: int, end_pos: int) -> bool:
+        """Allocate linear pages up to position ``end_pos``. When the pool
+        is dry, preempt a victim, else yield this slot to the others, else
+        (alone and making no progress) fail it as ``unschedulable``.
+        Returns False iff ``slot`` no longer holds its request."""
+        need = -(-end_pos // self.page_size)
+        while self.slot_nblocks[slot] < need:
+            alloc = self._alloc_pages(1)
+            if alloc is not None:
+                nb = int(self.slot_nblocks[slot])
+                self._pt[slot, nb] = alloc[0]
+                self.slot_priv[slot].append(alloc[0])
+                self.slot_nblocks[slot] = nb + 1
+                continue
+            victim = self._pick_victim(exclude=(slot,))
+            if victim is not None:
+                self._preempt_slot(victim)
+                continue
+            if any(self.slot_req[s] is not None
+                   for s in range(self.max_slots) if s != slot):
+                # the others are untouchable (protected oldest / scoring):
+                # yield to them; they free pages by finishing
+                self._preempt_slot(slot, hold=True)
+                return False
+            req = self.slot_req[slot]
+            pos = int(self.slot_pos[slot])
+            if pos <= req._stuck_pos:
+                req._stuck += 1
+            else:
+                req._stuck_pos, req._stuck = pos, 0
+            if req._stuck >= 2:
+                self._vacate(slot)
+                self._terminate(req, RequestStatus.FAILED, 'unschedulable')
+            else:
+                self._preempt_slot(slot)
+            return False
+        return True
+
+    def _maybe_insert(self, slot: int, p_before: int, p_after: int) -> None:
+        """Publish a prefilled prompt's full pages into the radix index."""
+        P = int(self.slot_insert_at[slot])
+        if P < 0 or not (p_before < P <= p_after):
+            return
+        self._publish(slot, self.slot_stream[slot], P // self.page_size)
+        self.slot_insert_at[slot] = -1
+
+    # ------------------------------------------------------------ admission
     def _admit(self) -> None:
         for slot in range(self.max_slots):
             if self.slot_req[slot] is None and self.queue:
+                req = self.queue[0]
+                if req._hold_until > self.ticks and any(
+                        r is not None for r in self.slot_req):
+                    return      # yielding to in-flight work; retry later
                 req = self.queue.pop(0)
+                req._hold_until = 0
                 stream = np.atleast_1d(np.asarray(req.prompt))
-                self.slot_req[slot] = req
-                self.slot_pos[slot] = 0
-                self.slot_next_tok[slot] = int(stream[0])
-                self._reset_slot(slot)
+                if req.generated:       # resuming a preempted request
+                    stream = np.concatenate(
+                        [stream, np.asarray(req.generated, stream.dtype)])
+                if self.paged:
+                    if not self._admit_with_retry(slot, req, stream):
+                        return          # queue head parked (or failed)
+                else:
+                    self.slot_req[slot] = req
+                    self.slot_pos[slot] = 0
+                    self.slot_next_tok[slot] = int(stream[0])
+                    self._reset_slot(slot)
                 self.slot_stream[slot] = stream
+                self.slot_admit_seq[slot] = self._admit_seq
+                self._admit_seq += 1
                 req.status = RequestStatus.PREFILLING
+                req._admit_fails = 0
+
+    def _admit_with_retry(self, slot: int, req: Request,
+                          stream: np.ndarray) -> bool:
+        """Paged admission with bounded retries, then preemption of a
+        victim, then ``FAILED('unschedulable')``. Returns False when
+        admission should stop for this step (the queue head is parked, or
+        was failed)."""
+        while True:
+            if self._admit_paged(slot, req, stream):
+                self.slot_req[slot] = req
+                return True
+            req._admit_fails += 1
+            if req._admit_fails <= self._admit_retry_steps:
+                self.queue.insert(0, req)     # pool full: retry next step
+                return False
+            victim = self._pick_victim()
+            if victim is None:
+                victim = self._pick_victim(protect_oldest=False)
+            if victim is not None:
+                self._preempt_slot(victim)
+                req._admit_fails = 0
+                continue
+            if any(r is not None for r in self.slot_req):
+                self.queue.insert(0, req)     # only scoring slots in flight
+                return False
+            self._terminate(req, RequestStatus.FAILED, 'unschedulable')
+            return False
 
     # ----------------------------------------------------------------- run
     def step_once(self) -> None:
         """One engine tick: deadlines, admission, one dispatch, commit."""
+        self.ticks += 1
         self._check_deadlines()
         self._admit()
         rec = self._dispatch()
@@ -281,16 +673,22 @@ class ServingEngine:
         """Run one step on the device -> (sampled tokens (B,), per-lane
         finiteness (B,), all-lane logits (B, T, V) or None)."""
         dev, cfg = self.device, self.model.cfg
-        tok = torch.from_numpy(tokens).to(dev)
-        pos = torch.from_numpy(self.slot_pos.astype(np.int32)).to(dev)
         kw = dict(precomputed=self.precomputed,
                   attn_backend=self.attn_backend)
+        pos_np = self.slot_pos.astype(np.int32)
         if n_valid is None:
+            tok, pos = _stage([tokens, pos_np], dev)
             logits, _ = self.model.decode_step(self.params, tok, self.states,
                                                pos, **kw)         # (B,1,V)
             all_logits = logits if want_logits else None
         else:
-            nv = torch.from_numpy(n_valid).to(dev)
+            host = [tokens, pos_np, n_valid]
+            if self.paged:
+                host += self._paged_host(pos_np, n_valid, tokens.shape[1])
+            staged = _stage(host, dev)
+            tok, pos, nv = staged[:3]
+            if self.paged:
+                kw['paged'] = self._page_tables(staged[3:])
             h, _ = self.model.decode_step(
                 self.params, tok, self.states, pos, n_valid=nv,
                 return_hidden=True, fused_gather_rope=self.fused_gather_rope,
@@ -305,43 +703,94 @@ class ServingEngine:
         finite = torch.isfinite(logits).all(dim=2).all(dim=1)
         return nxt, finite, all_logits
 
+    def _paged_host(self, pos: np.ndarray, n_valid: np.ndarray,
+                    T: int) -> List[np.ndarray]:
+        """The step's page-table inputs on the host: the linear table and,
+        with fused maintenance, the pending clears, the job list and the
+        chunk positions (built once here and shared by every layer)."""
+        if not self._fused_maint:
+            return [self._pt]
+        pending = np.asarray(self._pending_clear, np.int32)
+        jobs = PM.build_jobs(torch.from_numpy(pos), torch.from_numpy(n_valid),
+                             torch.from_numpy(self._pt), self.max_seq,
+                             self.page_size, T, torch.from_numpy(pending))
+        pos_t = PM.chunk_positions(torch.from_numpy(pos), T)
+        return [self._pt, pending, jobs.numpy(), pos_t.numpy()]
+
+    def _page_tables(self, staged: List[torch.Tensor]) -> PageTables:
+        pt = staged[0]
+        rt = pt[:, :0]                       # no ring layers in paged mode
+        if not self._fused_maint:
+            return PageTables(pt, rt, 0)
+        pending, jobs, pos_t = staged[1:]
+        return PageTables(pt, rt, 0, pending, (jobs, pos_t))
+
     def _dispatch(self):
         active = [s for s in range(self.max_slots)
                   if self.slot_req[s] is not None]
         if not active:
             return None
         prefilling = self.chunk_size > 1 and any(
-            len(self.slot_stream[s]) - int(self.slot_pos[s]) > 1 for s in active)
-        want_logits = any(
-            self.slot_req[s].return_logits
-            and int(self.slot_pos[s]) < len(self.slot_stream[s])
+            len(self.slot_stream[s]) - int(self.slot_pos[s]) > 1
             for s in active)
         temps = torch.tensor(
             [(r.temperature if r is not None else 0.0) for r in self.slot_req],
             dtype=torch.float32, device=self.device)
-        if prefilling:
-            T = self.chunk_size
+        if prefilling or self.paged:
+            # paged mode always runs the chunk-shaped step; its T == 1 case
+            # is the decode step
+            T = self.chunk_size if prefilling else 1
             tokens = np.zeros((self.max_slots, T), np.int32)
             n_valid = np.zeros(self.max_slots, np.int32)
             for s in active:
+                if self.slot_req[s] is None:
+                    continue      # preempted by an earlier slot's _ensure
                 stream = self.slot_stream[s]
                 p = int(self.slot_pos[s])
-                if p < len(stream):                  # prefilling slot
-                    take = min(T, len(stream) - p)
+                # a prefilling slot takes up to T prompt tokens, a decoding
+                # slot its one sampled token
+                take = min(T, len(stream) - p) if p < len(stream) else 1
+                if self.paged and not self._ensure_blocks(s, p + take):
+                    continue      # slot preempted/failed: lane stays empty
+                if p < len(stream):
                     tokens[s, :take] = stream[p:p + take]
-                else:                                # decoding slot: 1 token
-                    take = 1
+                else:
                     tokens[s, 0] = self.slot_next_tok[s]
                 n_valid[s] = take
-            consumed = n_valid
-            self.lanes_dispatched += int(tokens.size)
-            self.lane_tokens += int(n_valid.sum())
+            # a preemption above may have vacated an already-scheduled lane
+            for s in range(self.max_slots):
+                if self.slot_req[s] is None and n_valid[s]:
+                    tokens[s] = 0
+                    n_valid[s] = 0
+            active = [s for s in active
+                      if self.slot_req[s] is not None and n_valid[s] > 0]
+            if not active:
+                return None       # everything was preempted this step
+            if prefilling and max(int(n_valid[s]) for s in active) <= 1:
+                # the prefilling slots were all preempted: narrow back to
+                # the T == 1 grid (the chunk path's T == 1 case)
+                if not self.paged:
+                    n_valid = None
+                tokens = tokens[:, :1]
+            if n_valid is not None:
+                self.lanes_dispatched += int(tokens.size)
+                self.lane_tokens += int(n_valid.sum())
+                consumed = n_valid
+            else:
+                consumed = np.ones(self.max_slots, np.int32)
         else:
             tokens = self.slot_next_tok[:, None].copy()
             n_valid = None
             consumed = np.ones(self.max_slots, np.int32)
+        # recomputed from the surviving lanes: a step whose only scoring
+        # slot was preempted runs without the all-lane head
+        want_logits = any(
+            self.slot_req[s].return_logits
+            and int(self.slot_pos[s]) < len(self.slot_stream[s])
+            for s in active)
         nxt, finite, logits = self._forward(tokens, n_valid, temps,
                                             want_logits)
+        self._pending_clear = []
         lanes = []
         for s in active:
             c = int(consumed[s])
@@ -356,7 +805,8 @@ class ServingEngine:
     def _commit(self, nxt: torch.Tensor, finite: torch.Tensor,
                 logits: Optional[torch.Tensor], lanes: List[_Lane]) -> None:
         """Bring the step's tokens to the host (the device wait) and commit
-        them: prompt logits, first/next tokens, terminations."""
+        them: prompt logits, radix publishes, first/next tokens,
+        terminations."""
         nxt = nxt.cpu().numpy()
         bad = ~finite.cpu().numpy()
         logits = None if logits is None else logits.float().cpu().numpy()
@@ -367,6 +817,8 @@ class ServingEngine:
                 self._terminate(req, RequestStatus.FAILED, 'nonfinite_logits')
                 continue
             stream = self.slot_stream[s]
+            if self.paged:
+                self._maybe_insert(s, ln.p_before, ln.p_after)
             if req.return_logits and ln.p_before < len(stream):
                 # lanes 0..consumed-1 hold logits for stream[p_before:p_after]
                 req._logit_chunks.append(logits[s, :ln.consumed].copy())
@@ -407,6 +859,7 @@ class ServingEngine:
             self.n_stalled += stalled
         out = {'iters': it, 'stalled': stalled,
                'in_flight': sum(r is not None for r in self.slot_req),
+               'preemptions': self.preemptions,
                'failed': self.n_failed,
                'deadline_exceeded': self.n_deadline}
         if self._lat_hist.count:
@@ -438,10 +891,14 @@ class ServingEngine:
 
     def stats(self, requests: List[Request]) -> Dict[str, float]:
         """Aggregate statistics over ``requests`` plus engine counters;
-        latency/TTFT keys are omitted when they have no samples."""
+        latency/TTFT keys are omitted when they have no samples. Paged
+        engines add the pool's counters (``kvpool.PrefixCache.stats``),
+        ``cow_copies`` and ``ttft_on_hit_s``."""
         done = [r for r in requests if r.done]
         lat = [r.finish_t - r.submit_t for r in done]
         ttft = [r.first_token_t - r.submit_t for r in done if r.first_token_t]
+        hit_ttft = [r.first_token_t - r.submit_t for r in done
+                    if r.first_token_t and r.prefix_hit_tokens]
         out = {
             'completed': len(done),
             'tokens': sum(len(r.generated) for r in done),
@@ -451,10 +908,15 @@ class ServingEngine:
             'prefill_lane_utilization':
                 self.lane_tokens / self.lanes_dispatched
                 if self.lanes_dispatched else 0.0,
+            'preemptions': self.preemptions,
             'failed': self.n_failed,
             'deadline_exceeded': self.n_deadline,
             'stalled': self.n_stalled,
         }
         out.update(latency_summary('latency_s', lat))
         out.update(latency_summary('ttft_s', ttft))
+        if self.kv is not None:
+            out.update(self.kv.stats())
+            out[TM.KV_COW_COPIES] = self.cow_copies
+            out.update(latency_summary('ttft_on_hit_s', hit_ttft))
         return out

@@ -1,10 +1,22 @@
-"""Fixed-bucket latency histograms — a copy of ``Histogram`` and
-``latency_summary`` from ``repro/serving/telemetry.py`` (the rest of that
-module, the metrics registry and span tracer, is not ported yet)."""
+"""Fixed-bucket latency histograms and the paged pool's metric names — a
+copy of ``Histogram``, ``latency_summary`` and the ``KV_*`` names from
+``repro/serving/telemetry.py`` (the rest of that module, the metrics
+registry and span tracer, is not ported yet)."""
 from __future__ import annotations
 
 from bisect import bisect_left
 from typing import Dict, List, Optional, Tuple
+
+# paged KV pool / prefix cache: stats() keys, as in the JAX package
+KV_PREFIX_HITS = 'prefix_hits'
+KV_PREFIX_MISSES = 'prefix_misses'
+KV_PREFIX_HIT_RATE = 'prefix_hit_rate'
+KV_PREFIX_HIT_TOKENS = 'prefix_hit_tokens'
+KV_PAGES_IN_USE = 'pages_in_use'
+KV_PAGES_FREE = 'pages_free'
+KV_PAGES_RECLAIMABLE = 'pages_reclaimable'
+KV_EVICTIONS = 'evictions'
+KV_COW_COPIES = 'cow_copies'
 
 
 def _geometric_bounds(lo: float = 1e-6, hi: float = 64.0,

@@ -20,6 +20,9 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_sources_name_neither_jax_nor_repro():
+    names = {str(p.relative_to(SRC)) for p in PORT_FILES if SRC in p.parents}
+    assert {'repro_torch/serving/kvpool.py',
+            'repro_torch/kernels/paged_maintenance.py'} <= names
     bad = []
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

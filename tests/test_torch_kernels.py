@@ -5,8 +5,13 @@ against the JAX kernels as the JAX tests run them here (Pallas in interpret
 mode): ``embed_gather`` bitwise, ``gather_rope`` within 1e-4 (fp32) / 3e-2
 (bf16), ``paged_attention`` within ``PALLAS_TOL`` (atol = rtol = 2e-4).
 
+``paged_attention`` is also held at glm4-9b's group size (G 16): a 16-token
+chunk gives 256 query rows per (slot, kv head). The plain versions of
+``fused_page_write`` and ``cow_page_copy`` are held against JAX in
+``tests/test_torch_paged.py``.
+
 Tests marked ``cuda`` hold each CUDA kernel against its plain version on a
-card and skip without one. They import nothing of JAX, so on a machine with
+card and skip without one (bitwise for the two page-maintenance kernels). They import nothing of JAX, so on a machine with
 only the port they run with:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -25,6 +30,7 @@ from repro_torch.kernels.paged_attention import (dense_as_pages,
                                                  dense_page_split,
                                                  paged_attention,
                                                  paged_attention_plain)
+from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.models.attn_backend import KERNEL_TOL
 
 
@@ -165,6 +171,20 @@ def test_paged_attention_matches_jax(jx, ps, window, T):
     assert not got[2].any()
 
 
+@pytest.mark.parametrize('T', [1, 16])
+def test_paged_attention_group16_matches_jax(jx, T):
+    """glm4-9b's grouping (KV 2, G 16) at a 16-token chunk: 256 query rows
+    per (slot, kv head), more than one block of the kernel holds."""
+    jax, jnp, _, PA = jx
+    B, KV, G, d, Sc, ps = 2, 2, 16, 16, 48, 16
+    args = _paged_case(1, B, T, KV, G, d, Sc, ps, [40, 17])
+    kw = dict(scale=d ** -0.5, window=0)
+    want = np.asarray(PA.paged_attention(*map(jnp.asarray, args), **kw,
+                                         interpret=True))
+    got = paged_attention(*map(torch.from_numpy, args), **kw).numpy()
+    np.testing.assert_allclose(got, want, **KERNEL_TOL)
+
+
 def test_kernel_tolerance_is_jax_pallas_tol(jx):
     from repro.models.attn_backend import PALLAS_TOL
     assert KERNEL_TOL == PALLAS_TOL
@@ -250,3 +270,92 @@ def test_paged_attention_kernel_matches_plain(cuda, ps, window, T, d):
     want = paged_attention_plain(*args, **kw)
     torch.testing.assert_close(got, want, **KERNEL_TOL)
     assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, KERNEL_TOL['atol']),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('T', [1, 16])
+def test_paged_attention_kernel_group16(cuda, dtype, tol, T):
+    """glm4-9b's KV 2, G 16, d 128 through a scattered page table: 256
+    query rows per (slot, kv head) at T 16, in four row tiles."""
+    B, KV, G, d, Sc, ps = 4, 2, 16, 128, 256, 16
+    q, k, v, cpos, table, pos0 = _paged_case(2, B, T, KV, G, d, Sc, ps,
+                                             [200, 37, 0, 256])
+    perm = np.random.default_rng(0).permutation(k.shape[0] - 1) + 1
+    inv = np.empty_like(perm)
+    inv[perm - 1] = np.arange(1, k.shape[0])
+    k[1:], v[1:], cpos[1:] = k[perm], v[perm], cpos[perm]
+    table = np.where(table > 0, inv[np.maximum(table, 1) - 1], 0) \
+        .astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, cpos, table,
+                                                    pos0)]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    got = paged_attention(*args, scale=d ** -0.5)
+    want = paged_attention_plain(*args, scale=d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert not got[2].any()
+
+
+# ----------------------------------------- page maintenance: CUDA vs plain
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ps,Sc,T', [(16, 2048, 16), (16, 2048, 1),
+                                     (8, 11, 4), (4, 10, 4)])
+def test_fused_page_write_kernel_bitwise(cuda, dtype, ps, Sc, T):
+    B, KV, d = 4, 2, 128
+    P = -(-Sc // ps)
+    NP = 1 + B * P + 4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k = torch.randn((NP, ps, KV, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((NP, ps, KV, d), generator=gen, device=cuda).to(dtype)
+    pos = torch.randint(0, 99, (NP, ps), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    k[0], v[0], pos[0] = 0, 0, -1
+    table = (torch.arange(B * P, dtype=torch.int32, device=cuda)
+             .view(B, P) + 1)
+    table[3, 1:] = 0                           # unallocated blocks
+    pos0 = torch.tensor([Sc - 2, 0, 5, 0], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([T, max(T - 1, 1), T, 0], dtype=torch.int32,
+                           device=cuda)
+    pending = torch.tensor([int(table[1, 0]), NP - 1, NP - 2, 0],
+                           dtype=torch.int32, device=cuda)
+    vals = [torch.randn((B, T, KV, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2)]
+    pos_t = PM.chunk_positions(pos0, T)
+    jobs = PM.build_jobs(pos0, n_valid, table, Sc, ps, T, pending)
+    want = [PM.fused_page_write_plain(x.clone(), val, jobs, Sc=Sc, fill=f)
+            for x, val, f in ((k, vals[0], 0), (v, vals[1], 0),
+                              (pos, pos_t, -1))]
+    n0 = PM.fused_page_write.launches
+    got = PM.fused_page_write([k, v, pos], [vals[0], vals[1], pos_t], jobs,
+                              Sc=Sc, fills=[0, 0, -1])
+    torch.cuda.synchronize()
+    assert PM.fused_page_write.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cow_page_copy_kernel_bitwise(cuda, dtype):
+    reps, NP, ps, KV, d = 39, 20, 16, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cache = {'k': torch.randn((reps, NP, ps, KV, d), generator=gen,
+                              device=cuda).to(dtype),
+             'pos': torch.randint(0, 99, (reps, NP, ps), generator=gen,
+                                  device=cuda, dtype=torch.int32)}
+    for src, dst, rem in ((3, 7, 0), (4, 8, 7), (5, 9, 16)):
+        want = {nm: x.clone() for nm, x in cache.items()}
+        for nm, x in want.items():
+            sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
+                                for r in range(reps)], dtype=torch.int32,
+                               device=cuda)
+            PM.cow_page_copy_plain(x.view((reps * NP,) + x.shape[2:]), sdr,
+                                   fill=PM.leaf_fill(nm))
+        n0 = PM.cow_page_copy.launches
+        PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
+        torch.cuda.synchronize()
+        assert PM.cow_page_copy.launches == n0 + 1
+        for nm in cache:
+            assert torch.equal(cache[nm], want[nm]), (nm, rem)

@@ -40,7 +40,9 @@ def _leaves(tree):
 
 def test_config_copy_matches_jax():
     from repro.configs import get_config as jax_config
-    for name in ('mistral_7b',):
+    from repro_torch.configs import ALL_IDS
+    assert ALL_IDS == ['mistral_7b', 'glm4_9b']
+    for name in ALL_IDS:
         assert get_config(name) == get_config(name)
         assert vars(get_config(name)) == vars(jax_config(name))
         assert vars(get_smoke_config(name)) == vars(jax_smoke_config(name))
