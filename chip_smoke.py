@@ -6,8 +6,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device   — requires a CUDA device; prints the card's name and power
               limit as nvidia-smi reports them.
-2. build    — compiles the five CUDA kernels of the serving paths from
-              src/repro_torch/csrc (one nvcc per source, in parallel).
+2. build    — compiles the CUDA kernels of the serving paths from
+              src/repro_torch/csrc (one nvcc per source, in parallel):
+              embed_gather, gather_rope, paged_attention (dense and MLA
+              forms), fused_page_write, cow_page_copy.
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
@@ -17,7 +19,12 @@ Phases, in order; any failure raises and exits non-zero:
               table; fused_page_write (bitwise; linear and ring jobs,
               modes 0/1/2, page-0 collisions, the int32 position leaf)
               and cow_page_copy (bitwise; rem 0/7/16 over a body leaf
-              flattened over 39 layers) at glm4-9b page shapes.
+              flattened over 39 layers) at glm4-9b page shapes; the MLA
+              form of paged_attention at deepseek-v2-lite-16b shapes (fp32
+              queries over bf16 or fp32 latent pages, T 1 and 16),
+              gather_rope over its 17 MLA segments (width 5696), and
+              fused_page_write / cow_page_copy on its ckv / kpe / pos
+              leaves over 27 layers (bitwise).
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
@@ -30,13 +37,18 @@ Phases, in order; any failure raises and exits non-zero:
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
               memory.
-6. pressure — the glm4-9b smoke config in fp32 without the fused gather
+6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
+              depth as phase 5 serves glm4-9b: paged pool, prefix cache,
+              the MLA kernel on every attend; also logs the MoE drop
+              count.
+7. pressure — the glm4-9b smoke config in fp32 without the fused gather
               (so embed_gather runs on the paged path) and a pool too small
               for its slots: preemptions happen, tokens equal an
               unpressured run's.
-7. consistency — on the card, fp32 smoke configs: mistral-7b's cuda and
-              reference backends give equal greedy tokens; glm4-9b paged
-              with the cuda backend gives dense reference's tokens; pool
+8. consistency — on the card, fp32 smoke configs: mistral-7b's cuda and
+              reference backends give equal greedy tokens; glm4-9b and
+              deepseek-v2-lite-16b paged with the cuda backend give dense
+              reference's tokens; pool
               contents after the kernel write path (fused_page_write,
               deferred clears, cow_page_copy) equal those after the plain
               scatters with eager clears, bit for bit.
@@ -48,6 +60,7 @@ nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -70,8 +83,11 @@ from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
                                              gather_rope_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, page_validity,
-    paged_attention, paged_attention_plain)
+    paged_attention, paged_attention_mla, paged_attention_plain)
 from repro_torch.models.attention import paged_view  # noqa: E402
+from repro_torch.models.blocks import preproj_layout  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    fused_rope_segments, layer_plan)
 from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
                                              ReferenceBackend)
 from repro_torch.models.model import Model  # noqa: E402
@@ -81,8 +97,8 @@ from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
-KERNELS = [embed_gather, gather_rope, paged_attention, PM.fused_page_write,
-           PM.cow_page_copy]
+KERNELS = [embed_gather, gather_rope, paged_attention, paged_attention_mla,
+           PM.fused_page_write, PM.cow_page_copy]
 SEED = 0
 
 
@@ -125,6 +141,12 @@ def bound(nbytes: float, ops: float, dtype: torch.dtype):
 
 def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def free() -> None:
+    """Return the last phase's tensors to the card before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def zero_launches() -> None:
@@ -175,12 +197,16 @@ def phase_build() -> None:
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 512)),
                ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
-               ('glm4_9b', True, (torch.float32,), (3, 24)))
+               ('glm4_9b', True, (torch.float32,), (3, 24)),
+               ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (64, 512)),
               ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
+              ('deepseek_v2_lite_16b', False,
+               (torch.bfloat16, torch.float32), (4, 64)),
               ('mistral_7b', True, (torch.float32,), (3, 12)),
-              ('glm4_9b', True, (torch.float32,), (3, 24)))
+              ('glm4_9b', True, (torch.float32,), (3, 24)),
+              ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
 ROPE_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 
 
@@ -229,14 +255,22 @@ def check_embed_gather(gen) -> dict:
     return row
 
 
+def rope_segments(cfg):
+    """The segments the fused gather rotates in this config's table rows."""
+    plan = layer_plan(cfg)
+    return fused_rope_segments(
+        preproj_layout(cfg, plan.kinds[0], plan.use_moe[0]), cfg)
+
+
 def check_gather_rope(gen) -> dict:
     row = {}
     for name, smoke, dtypes, counts in ROPE_CASES:
         cfg = config_of(name, smoke)
-        V, W, hd = cfg.vocab_size, cfg.precompute_row_width, cfg.head_dim
-        q_off, k_off = cfg.d_model, cfg.d_model + cfg.q_size
-        segs = ((q_off, cfg.num_heads, hd), (k_off, cfg.num_kv_heads, hd))
-        untouched = [(0, q_off), (k_off + cfg.kv_size, W)]
+        V, W = cfg.vocab_size, cfg.precompute_row_width
+        segs = rope_segments(cfg)
+        rotated = torch.zeros(W, dtype=torch.bool, device='cuda')
+        for off, heads, hd in segs:
+            rotated[off:off + heads * hd] = True
         kw = dict(segs=segs, theta=cfg.rope_theta)
         for dtype in dtypes:
             tol = ROPE_TOL[dtype]
@@ -254,16 +288,18 @@ def check_gather_rope(gen) -> dict:
                 err = (got.float() - want.float()).abs().max().item()
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=tol, rtol=tol)
-                for a, b in untouched:
-                    assert torch.equal(got[:, a:b], table[ids.long(), a:b]), \
-                        f'gather_rope {cfg.name} changed columns {a}:{b}'
+                assert torch.equal(got[:, ~rotated],
+                                   table[ids.long()][:, ~rotated]), \
+                    f'gather_rope {cfg.name} changed unrotated columns'
                 ms = time_ms(lambda: gather_rope(table, ids, pos, **kw))
                 plain = time_ms(
                     lambda: gather_rope_plain(table, ids, pos, **kw))
                 b_ms, by = bound(2 * n * W * table.element_size() + 8 * n, 0,
                                  dtype)
+                seg_txt = str(segs) if len(segs) <= 4 else \
+                    f'{len(segs)} of width {segs[0][2]}'
                 log(f'[kernel] gather_rope {cfg.name} {str(dtype)[6:]} N={n} '
-                    f'segments {segs} W={W} max pos 32767: max |err| '
+                    f'segments {seg_txt} W={W} max pos 32767: max |err| '
                     f'{err:.3g} (tol {tol}), untouched columns bitwise; '
                     f'kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
                     f'{b_ms:.4f} ms ({by})')
@@ -596,6 +632,197 @@ def check_paged_attention_glm4(gen) -> dict:
     return row
 
 
+# ------------------------------------ phase 3: deepseek-v2-lite-16b (MLA)
+DS = 'deepseek_v2_lite_16b'
+
+
+def mla_pool(gen, dtype, NP, ps, r, dr, lengths, P):
+    """Latent pages of slots holding ``lengths`` tokens through a scattered
+    table; the null page stays zero / -1."""
+    ckv = torch.randn((NP, ps, r), generator=gen, device='cuda').to(dtype)
+    kpe = torch.randn((NP, ps, dr), generator=gen, device='cuda').to(dtype)
+    ckv[0], kpe[0] = 0, 0
+    table = scattered_table(gen, len(lengths), P, NP, lengths, ps)
+    cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
+    for b, n in enumerate(lengths):
+        p = torch.arange(n, device='cuda')
+        cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    return ckv, kpe, cpos, table
+
+
+def check_paged_attention_mla(gen) -> dict:
+    """The MLA form at deepseek-v2-lite-16b's widths (16 heads, latent 512
+    + rope 64) through a scattered table over the engine's pool: fp32
+    queries (W_UK absorbed in fp32) over bf16 pages, and all fp32."""
+    cfg = get_config(DS)
+    m = cfg.mla
+    H, r, dr = cfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
+    B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
+    P = GLM_SEQ // ps
+    lengths = [300, 271, 0, 365]
+    scale = (m.qk_nope_dim + dr) ** -0.5
+    row = {}
+    for page_dtype in (torch.bfloat16, torch.float32):
+        ckv, kpe, cpos, table = mla_pool(gen, page_dtype, NP, ps, r, dr,
+                                         lengths, P)
+        pages = (ckv[:, :, None], kpe[:, :, None])
+        for T in (1, 16):
+            pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                                dtype=torch.int32, device='cuda')
+            q = torch.randn((B, T, 1, H, r + dr), generator=gen,
+                            device='cuda')
+            args = (q, pages[0], None, cpos, table, pos0)
+            kw = dict(scale=scale, k2_pages=pages[1], mla_split=r)
+            got = paged_attention(*args, **kw)
+            want = paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            assert not got[2].any(), 'empty slot must attend to zeros'
+            view = paged_view({'ckv': ckv, 'kpe': kpe, 'pos': cpos}, table,
+                              GLM_SEQ)
+            ms = time_ms(lambda: paged_attention(*args, **kw))
+            plain = time_ms(lambda: paged_attention_plain(*args, **kw))
+            lib = library_mla_ms(q, view, pos0, r, scale)
+            b_ms, by = mla_bound(q, view, pos0, r)
+            log(f'[kernel] paged_attention_mla q float32 pages '
+                f'{str(page_dtype)[6:]} B={B} T={T} H={H} r={r} dr={dr} '
+                f'({T * H} rows per slot) scattered table over NP={NP}: max '
+                f'|err| {err:.3g} (tol {KERNEL_TOL["atol"]}), empty slot '
+                f'zeros; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa '
+                f'{lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+            if page_dtype is torch.bfloat16 and T == 1:   # the decode step
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+        del ckv, kpe, cpos, pages
+    return row
+
+
+def mla_bound(q, view, pos0, r):
+    """Least time: q and out (fp32), the positions, and the latent rows
+    some query may use read once; 2*(r + dr) + 2*r flops per usable
+    (query row, key) pair at the fp32 rate (the scores are fp32)."""
+    B, T, _, H, dq = q.shape
+    pos_t = pos0[:, None].long() + torch.arange(T, device='cuda')
+    valid = page_validity(view['pos'], pos_t, 0)             # (B, T, S)
+    rows_used = int(valid.any(dim=1).sum())
+    pairs = int(valid.sum()) * H
+    es = view['ckv'].element_size()
+    moved = nbytes(q) + B * T * H * r * 4 + nbytes(view['pos'], pos0) \
+        + rows_used * dq * es
+    return bound(moved, (2 * dq + 2 * r) * pairs, torch.float32)
+
+
+def library_mla_ms(q, view, pos0, r, scale) -> float:
+    """scaled_dot_product_attention on the gathered latent view with keys
+    [ckv | kpe] and values ckv, under an explicit mask, in q's dtype — a
+    yardstick only; the port never calls it."""
+    B, T, _, H, dq = q.shape
+    k = torch.cat([view['ckv'], view['kpe']], dim=-1).to(q.dtype)
+    kh = k[:, None].expand(B, H, k.shape[1], dq)
+    vh = view['ckv'].to(q.dtype)[:, None].expand(B, H, k.shape[1], r)
+    qh = q[:, :, 0].transpose(1, 2)                          # (B, H, T, dq)
+    pos_t = pos0[:, None].long() + torch.arange(T, device='cuda')
+    mask = page_validity(view['pos'], pos_t, 0)[:, None]     # (B,1,T,S)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale))
+
+
+def check_mla_page_writes(gen) -> None:
+    """fused_page_write and cow_page_copy on deepseek-v2-lite-16b's ckv
+    (1024-byte bf16 rows), kpe (128-byte rows) and pos leaves: the chunk
+    values are slices of gathered 5696-wide table rows, as layer 0 writes
+    them; copy-on-write over layer 0 and the 26 stacked layers. Bitwise
+    against the plain versions."""
+    cfg = get_config(DS)
+    m = cfg.mla
+    r, dr, W = m.kv_lora_rank, m.qk_rope_dim, cfg.precompute_row_width
+    ps, B, NP = GLM_PS, GLM_SLOTS, glm_pool_pages()
+    P = GLM_SEQ // ps
+    reps = layer_plan(cfg).reps
+    c0 = cfg.d_model + cfg.q_size                        # ckv's row offset
+    for dtype in (torch.bfloat16, torch.float32):
+        ckv, kpe, pos, _ = mla_pool(gen, dtype, NP, ps, r, dr, [0] * B, P)
+        pos.random_(0, 4096, generator=gen)
+        pos[0] = -1
+        for T in (1, 16):
+            lengths = [300 + T, 272 + T, 0, 365 + T]
+            pos0 = torch.tensor([300, 272, 0, 365], dtype=torch.int32,
+                                device='cuda')
+            nv = torch.tensor([T, T, 0, 1], dtype=torch.int32, device='cuda')
+            table = scattered_table(gen, B, P, NP, lengths, ps)
+            start = torch.div(pos0, ps, rounding_mode='floor').long()
+            pending = torch.stack([table[1, start[1]],
+                                   table.new_tensor(NP - 1),
+                                   table.new_tensor(0)]).to(torch.int32)
+            jobs = PM.build_jobs(pos0, nv, table, GLM_SEQ, ps, T, pending)
+            rows = torch.randn((B, T, W), generator=gen,
+                               device='cuda').to(dtype)
+            srcs = [rows[..., c0:c0 + r], rows[..., c0 + r:c0 + r + dr],
+                    PM.chunk_positions(pos0, T)]
+            leaves, fills = [ckv, kpe, pos], [0, 0, -1]
+            want = [PM.fused_page_write_plain(x.clone(), v, jobs, Sc=GLM_SEQ,
+                                              fill=f)
+                    for x, v, f in zip(leaves, srcs, fills)]
+            PM.fused_page_write(leaves, srcs, jobs, Sc=GLM_SEQ, fills=fills)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(('ckv', 'kpe', 'pos'), leaves, want):
+                assert torch.equal(g, w), f'fused_page_write mla T={T} {nm}'
+            msg = (f'[kernel] fused_page_write {str(dtype)[6:]} deepseek '
+                   f'ckv/kpe/pos (row bytes {r * ckv.element_size()}/'
+                   f'{dr * kpe.element_size()}/{4 * 1}, values strided '
+                   f'slices of {W}-wide rows) T={T}, {jobs.shape[0]} jobs: '
+                   'bitwise equal')
+            if dtype is torch.bfloat16:
+                n_w, n_f = write_counts(jobs, GLM_SEQ, ps)
+                rb = [x[0, 0].numel() * x.element_size() for x in leaves]
+                b_ms, by = bound(n_w * 2 * sum(rb) + n_f * sum(rb)
+                                 + nbytes(jobs), 0, dtype)
+                ms = time_ms(lambda: PM.fused_page_write(
+                    leaves, srcs, jobs, Sc=GLM_SEQ, fills=fills))
+                plain = time_ms(lambda: [PM.fused_page_write_plain(
+                    x, v, jobs, Sc=GLM_SEQ, fill=f)
+                    for x, v, f in zip(leaves, srcs, fills)])
+                msg += (f'; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
+                        f'{b_ms:.4f} ms ({by})')
+            log(msg)
+        del ckv, kpe, pos
+        # copy-on-write: layer 0's cache and the stacked body, one launch
+        # each, as the engine's _cow_copy launches them
+        lay0 = {'ckv': torch.randn((NP, ps, r), generator=gen,
+                                   device='cuda').to(dtype),
+                'kpe': torch.randn((NP, ps, dr), generator=gen,
+                                   device='cuda').to(dtype),
+                'pos': torch.randint(0, 4096, (NP, ps), generator=gen,
+                                     device='cuda', dtype=torch.int32)}
+        body = {nm: torch.stack([x] * reps) for nm, x in lay0.items()}
+        for src, dst, rem in ((11, 900, 0), (12, 901, 7), (13, 902, ps)):
+            want = {}
+            for part, cache, n in (('layer0', lay0, 0), ('body', body, reps)):
+                flat = {nm: x.clone().view((max(n, 1) * NP,)
+                                           + tuple(x.shape[2 if n else 1:]))
+                        for nm, x in cache.items()}
+                sdr = torch.tensor([[src + i * NP, dst + i * NP, rem]
+                                    for i in range(max(n, 1))],
+                                   dtype=torch.int32, device='cuda')
+                want[part] = {nm: PM.cow_page_copy_plain(
+                    x, sdr, fill=PM.leaf_fill(nm)) for nm, x in flat.items()}
+            n0 = PM.cow_page_copy.launches
+            PM.cow_copy_cache(lay0, src, dst, rem)
+            PM.cow_copy_cache(body, src, dst, rem, reps=reps)
+            torch.cuda.synchronize()
+            assert PM.cow_page_copy.launches == n0 + 2
+            for part, cache in (('layer0', lay0), ('body', body)):
+                for nm, x in cache.items():
+                    assert torch.equal(x.reshape(want[part][nm].shape),
+                                       want[part][nm]), \
+                        f'cow_page_copy mla rem={rem} {part} {nm}'
+        log(f'[kernel] cow_page_copy {str(dtype)[6:]} deepseek ckv/kpe/pos '
+            f'over 1 + {reps} layers, rem 0/7/16: bitwise equal, 2 launches '
+            'per copy-on-write')
+        del lay0, body
+
+
 # ----------------------------------------------------------------- phase 4
 def phase_mistral() -> dict:
     cfg = get_config('mistral_7b')
@@ -717,8 +944,11 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
                     max_new_tokens=new_tokens) for i, t in enumerate(made)]
 
 
-def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
-    cfg = cfg or get_config('glm4_9b')
+def phase_paged(cfg, tag: str, attn_kernel: str, device='cuda',
+                dtype=torch.bfloat16) -> dict:
+    """Serve ``cfg`` through the paged pool and the prefix cache: two waves
+    of 4 requests sharing a 256-token system prompt (one copies on write),
+    16 new tokens each; every attend goes through ``attn_kernel``."""
     on_card = torch.device(device).type == 'cuda'
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -726,9 +956,14 @@ def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
     table = model.build_table(params)
     if on_card:
         torch.cuda.synchronize()
-    log(f'[glm4] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, '
-        f'{cfg.num_heads}H/{cfg.num_kv_heads}KV, vocab {cfg.vocab_size}; '
-        f'weights + table made in {time.perf_counter() - t0:.1f}s; table '
+    log(f'[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, '
+        f'{cfg.num_heads}H/{cfg.num_kv_heads}KV'
+        + (f' MLA r {cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_dim}'
+           if cfg.mla else '')
+        + (f', MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + '
+           f'{cfg.moe.num_shared} shared' if cfg.moe else '')
+        + f', vocab {cfg.vocab_size}; weights + table made in '
+        f'{time.perf_counter() - t0:.1f}s; table '
         f'{tuple(table.table.shape)} {str(table.table.dtype)[6:]}')
     eng = ServingEngine(model, params, max_slots=GLM_SLOTS, max_seq=GLM_SEQ,
                         precomputed=table, seed=SEED, dtype=dtype,
@@ -736,7 +971,7 @@ def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
                         prefix_cache=True, page_size=GLM_PS,
                         attn_backend='cuda', device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint
-    log(f'[glm4] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
+    log(f'[{tag}] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
         f'x {cfg.num_layers} layers')
     rng = np.random.default_rng(SEED)
     system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
@@ -749,7 +984,7 @@ def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    steps0 = eng.steps
+    steps0, drops0 = eng.steps, eng.moe_token_drops
     zero_launches()
     waves = []
     t_all = time.perf_counter()
@@ -766,33 +1001,37 @@ def phase_glm4(cfg=None, device='cuda', dtype=torch.bfloat16) -> dict:
     for r in reqs:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
         assert len(r.generated) == 16, (r.uid, len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
     for r in reqs[4:]:
         assert r.prefix_hit_tokens > 0, (r.uid, r.prefix_hit_tokens)
     cow_req = reqs[4]
     assert cow_req.prefix_hit_tokens == len(cow_req.prompt) - 1, \
         cow_req.prefix_hit_tokens
     assert eng.cow_copies > 0, 'no copy-on-write ran'
-    for name in ('fused_page_write', 'cow_page_copy', 'paged_attention',
+    for name in ('fused_page_write', 'cow_page_copy', attn_kernel,
                  'gather_rope'):
         assert launches[name] > 0, f'{name} never launched on the paged path'
     stats = eng.stats(reqs)
     steps = eng.steps - steps0
+    assert launches[attn_kernel] == cfg.num_layers * steps, \
+        (attn_kernel, launches[attn_kernel], steps)
     ttft = [[r.first_token_t - r.submit_t for r in w]
             for w in (reqs[:4], reqs[4:])]
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
-    log(f'[glm4] 8 requests (system prompt 256 + tails {list(GLM_TAILS)}), '
+    log(f'[{tag}] 8 requests (system prompt 256 + tails {list(GLM_TAILS)}), '
         f'{stats["tokens"]} new tokens in {dt:.3f}s -> '
         f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
         f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
         f'{[round(w, 3) for w in waves]}; mean TTFT without a hit (wave 1) '
         f'{np.mean(ttft[0]):.3f}s, with a hit (wave 2) {np.mean(ttft[1]):.3f}s'
         f'; peak memory {peak:.2f} GiB')
-    log(f'[glm4] prefix hits {stats["prefix_hits"]}, misses '
+    log(f'[{tag}] prefix hits {stats["prefix_hits"]}, misses '
         f'{stats["prefix_misses"]}, hit tokens {stats["prefix_hit_tokens"]} '
         f'(per request {[r.prefix_hit_tokens for r in reqs]}), copy-on-write '
         f'{stats["cow_copies"]}, pages in use {stats["pages_in_use"]}, '
-        f'preemptions {stats["preemptions"]}')
-    log(f'[glm4] launches {json.dumps(launches)} over {steps} steps; all '
+        f'preemptions {stats["preemptions"]}, MoE token drops '
+        f'{eng.moe_token_drops - drops0}')
+    log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps; all '
         f'requests FINISHED with 16 tokens (finite logits)')
     if on_card:
         profile_engine(eng, glm_requests(cfg, rng, system, 200,
@@ -882,60 +1121,63 @@ def phase_consistency(device='cuda') -> None:
         f'reference backends equal ({sum(map(len, out["cuda"]))} tokens, '
         f'{len(prompts)} requests)')
 
-    cfg = get_smoke_config('glm4_9b')
-    model = Model(cfg)
-    params = model.init(SEED, device=device, dtype=torch.float32)
-    table = model.build_table(params)
-    prompts = pressure_prompts(cfg, SEED + 3)
-    prompts.append(prompts[0][:44].copy())        # stops inside a cached page
+    for name in ('glm4_9b', DS):
+        cfg = get_smoke_config(name)
+        model = Model(cfg)
+        params = model.init(SEED, device=device, dtype=torch.float32)
+        table = model.build_table(params)
+        prompts = pressure_prompts(cfg, SEED + 3)
+        prompts.append(prompts[0][:44].copy())   # stops inside a cached page
 
-    def serve(backend, num_pages):
-        kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
-            if num_pages else {}
-        eng = ServingEngine(model, params, max_slots=3, max_seq=128,
-                            precomputed=table, seed=SEED, chunk_size=8,
-                            fused_gather_rope=True, attn_backend=backend,
-                            dtype=torch.float32, device=device, **kw)
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        eng.run()
-        assert all(r.status is RequestStatus.FINISHED for r in reqs)
-        assert eng._pending_clear == []
-        return [r.generated for r in reqs], eng
+        def serve(backend, num_pages):
+            kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
+                if num_pages else {}
+            eng = ServingEngine(model, params, max_slots=3, max_seq=128,
+                                precomputed=table, seed=SEED, chunk_size=8,
+                                fused_gather_rope=True, attn_backend=backend,
+                                dtype=torch.float32, device=device, **kw)
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            assert all(r.status is RequestStatus.FINISHED for r in reqs)
+            assert eng._pending_clear == []
+            return [r.generated for r in reqs], eng
 
-    tokens, _ = serve('reference', 0)
-    # 16 pages: prefix hits and a copy-on-write; 12: preemptions as well
-    for num_pages in (16, 12):
-        runs = {'paged cuda': serve('cuda', num_pages),
-                'paged reference': serve('reference', num_pages),
-                'paged reference+kernel writes':
-                    serve(ReferenceAttendKernelWrites(), num_pages)}
-        for label, (tok, _) in runs.items():
-            assert tok == tokens, f'{label} ({num_pages} pages): tokens ' \
-                'differ from dense reference'
-        eng = runs['paged cuda'][1]
-        assert eng.cow_copies > 0 if num_pages == 16 else eng.preemptions > 0
-        plain = runs['paged reference'][1]._pools
-        for label, every_leaf in (('paged reference+kernel writes', True),
-                                  ('paged cuda', False)):
-            pools = runs[label][1]._pools
-            for li, ((ca, _), (cb, _)) in enumerate(zip(plain, pools)):
-                for nm in ca:
-                    # layers past 0 store K/V computed from the attention
-                    # output, which the cuda kernel matches within
-                    # KERNEL_TOL, not bitwise
-                    if every_leaf or li == 0 or nm == 'pos':
-                        assert torch.equal(ca[nm], cb[nm]), \
-                            (label, num_pages, li, nm)
-        log(f'[consistency] {cfg.name} fp32 paged, {num_pages} pages '
-            f'({eng.cow_copies} copy-on-write, {eng.preemptions} '
-            f'preemptions): greedy tokens of paged cuda, paged reference and '
-            f'dense reference equal ({sum(map(len, tokens))} tokens); pool '
-            'leaves after the kernel write path bitwise equal to the plain '
-            'write path on every layer; paged cuda vs reference pools '
-            'bitwise on layer 0 and every position leaf')
+        tokens, _ = serve('reference', 0)
+        # 16 pages: prefix hits and a copy-on-write; 12: preemptions as well
+        for num_pages in (16, 12):
+            runs = {'paged cuda': serve('cuda', num_pages),
+                    'paged reference': serve('reference', num_pages),
+                    'paged reference+kernel writes':
+                        serve(ReferenceAttendKernelWrites(), num_pages)}
+            for label, (tok, _) in runs.items():
+                assert tok == tokens, f'{label} ({num_pages} pages): tokens ' \
+                    'differ from dense reference'
+            eng = runs['paged cuda'][1]
+            assert eng.cow_copies > 0 if num_pages == 16 \
+                else eng.preemptions > 0
+            plain = runs['paged reference'][1]._pools
+            for label, every_leaf in (('paged reference+kernel writes', True),
+                                      ('paged cuda', False)):
+                pools = runs[label][1]._pools
+                for li, ((ca, _), (cb, _)) in enumerate(zip(plain, pools)):
+                    for nm in ca:
+                        # layers past 0 store K/V (latents) computed from
+                        # the attention output, which the cuda kernel
+                        # matches within KERNEL_TOL, not bitwise
+                        if every_leaf or li == 0 or nm == 'pos':
+                            assert torch.equal(ca[nm], cb[nm]), \
+                                (label, num_pages, li, nm)
+            log(f'[consistency] {cfg.name} fp32 paged, {num_pages} pages '
+                f'({eng.cow_copies} copy-on-write, {eng.preemptions} '
+                f'preemptions): greedy tokens of paged cuda, paged reference '
+                f'and dense reference equal ({sum(map(len, tokens))} tokens); '
+                'pool '
+                'leaves after the kernel write path bitwise equal to the plain '
+                'write path on every layer; paged cuda vs reference pools '
+                'bitwise on layer 0 and every position leaf')
 
 
 def main() -> None:
@@ -949,25 +1191,35 @@ def main() -> None:
     rows['paged_attention'] = check_paged_attention_glm4(gen)
     rows['fused_page_write'] = check_fused_page_write(gen)
     rows['cow_page_copy'] = check_cow_page_copy(gen)
-    torch.cuda.empty_cache()
+    rows['paged_attention_mla'] = check_paged_attention_mla(gen)
+    check_mla_page_writes(gen)
+    free()
     phases = {'mistral': phase_mistral()}
-    torch.cuda.empty_cache()
-    phases['glm4'] = phase_glm4()
-    torch.cuda.empty_cache()
+    free()
+    phases['glm4'] = phase_paged(get_config('glm4_9b'), 'glm4',
+                                 'paged_attention')
+    free()
+    phases['deepseek'] = phase_paged(get_config(DS), 'deepseek',
+                                     'paged_attention_mla')
+    free()
     phases['pressure'] = phase_pressure()
     phase_consistency()
     # each kernel's launches on the engine path its row was measured for
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',
-                 'cow_page_copy': 'glm4'}
+                 'cow_page_copy': 'glm4', 'paged_attention_mla': 'deepseek'}
+    sources = dict({name: f'src/repro_torch/csrc/{name}.cu' for name in rows},
+                   paged_attention_mla='src/repro_torch/csrc/'
+                   'paged_attention.cu')
     replaces = {
         'embed_gather': 'src/repro/kernels/embed_gather.py:30',
         'gather_rope': 'src/repro/kernels/gather_rope.py:60',
         'paged_attention': 'src/repro/kernels/paged_attention.py:129',
+        'paged_attention_mla': 'src/repro/kernels/paged_attention.py:129',
         'fused_page_write': 'src/repro/kernels/paged_maintenance.py:131',
         'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217'}
     kernels = [dict(name=name, route='cuda',
-                    source=f'src/repro_torch/csrc/{name}.cu',
+                    source=sources[name],
                     replaces=replaces[name],
                     launches=phases[main_path[name]][name], **row,
                     launches_by_phase={ph: ln[name]

@@ -11,9 +11,10 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-# the paper's serial example (sliding window) and an all-global GQA model
-# for the paged KV pool; other families join as their modules are ported
-ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b']
+# the paper's serial example (sliding window), an all-global GQA model for
+# the paged KV pool and an MLA + MoE model (latent caches, expert FFN);
+# other families join as their modules are ported
+ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b']
 
 
 def _norm(name: str) -> str:

@@ -4,7 +4,8 @@
 For every vocabulary entry, run layer 0's position-independent part (first
 norm, Q/K/V projections) and store the results as an expanded embedding
 table with rows ``[x, q, k, v]`` (width d + q_size + 2e; 10240 for
-mistral-7b). At serving time the embedding read and those projections
+mistral-7b), or ``[x, q, c_kv, k_pe]`` for MLA (d + H·(dn + dr) + r + dr;
+5696 for deepseek-v2-lite-16b), as ``blocks.preproj_layout`` lays out. At serving time the embedding read and those projections
 collapse into one row gather per token (:meth:`PrecomputedTable.gather`),
 which on a CUDA device is the ``embed_gather`` kernel. RoPE and attention
 stay at run time — the enabling condition.

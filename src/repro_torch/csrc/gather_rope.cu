@@ -11,6 +11,10 @@
 // (20 KB each in bf16 at the mistral-7b width); the trigonometry is
 // sum(hd/2) sin/cos pairs per token, negligible beside the copy.
 //
+// Segments: GQA rows have two (q heads, k heads); MLA rows have one per head
+// (its q_pe slice between the q_nope slices) plus the shared k_pe, 17 for
+// deepseek-v2-lite-16b, so the segment table holds up to kMaxSegs = 32.
+//
 // Design: one block per token. The block first computes the segment angles
 // once into shared memory: angle = pos * inv[j] with the inverse frequencies
 // supplied by the caller (the same fp32 vector the plain PyTorch version
@@ -28,7 +32,7 @@
 
 namespace {
 
-constexpr int kMaxSegs = 4;
+constexpr int kMaxSegs = 32;  // MLA rows: one per head's q_pe slice + k_pe
 constexpr int kThreads = 256;
 
 struct Segs {
@@ -37,7 +41,9 @@ struct Segs {
   int heads[kMaxSegs];
   int hd[kMaxSegs];
   int inv_off[kMaxSegs];
-  int trig_off[kMaxSegs];
+  int trig_off[kMaxSegs];  // sin / cos table offset: sum of earlier hd
+  int freq_off[kMaxSegs];  // first frequency index: sum of earlier hd / 2
+  int n_freq;              // frequencies over all segments
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -61,14 +67,17 @@ __global__ void gather_rope_rows(const T* __restrict__ table, const int* __restr
     return;
   }
   const float p = (float)pos[row];
-  for (int s = 0; s < segs.n; ++s) {
-    const int half = segs.hd[s] / 2;
+  // one (segment, frequency) pair per thread across all segments at once:
+  // accurate sinf/cosf of large angles are slow, and MLA rows have 17
+  // segments of only 32 frequencies each
+  for (int e = threadIdx.x; e < segs.n_freq; e += blockDim.x) {
+    int s = 0;
+    while (e >= segs.freq_off[s] + segs.hd[s] / 2) ++s;
+    const int half = segs.hd[s] / 2, j = e - segs.freq_off[s];
     float* sn = trig + segs.trig_off[s];
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const float ang = __fmul_rn(p, inv[segs.inv_off[s] + j]);
-      sn[j] = sinf(ang);
-      sn[half + j] = cosf(ang);
-    }
+    const float ang = __fmul_rn(p, inv[segs.inv_off[s] + j]);
+    sn[j] = sinf(ang);
+    sn[half + j] = cosf(ang);
   }
   __syncthreads();
   const T* src = table + (long long)id * width;
@@ -117,8 +126,10 @@ extern "C" int gather_rope(const void* table, const void* ids, const void* pos,
     segs.hd[s] = static_cast<const int*>(seg_hd)[s];
     segs.inv_off[s] = static_cast<const int*>(seg_inv_off)[s];
     segs.trig_off[s] = trig_floats;
+    segs.freq_off[s] = trig_floats / 2;
     trig_floats += segs.hd[s];
   }
+  segs.n_freq = trig_floats / 2;
   const size_t smem = sizeof(float) * (trig_floats > 0 ? trig_floats : 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);

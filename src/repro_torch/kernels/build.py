@@ -45,11 +45,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                         _P, _P, _P, _P, _I, _P)},
     'paged_attention': {
         # q, k, v, cpos, table, pos0, out, B, T, KV, G, d, NP, ps, P,
-        # scale, window, dtype_code, stream
+        # scale, window, q_code, kv_code, stream
         'paged_attention': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _I, _P),
-        # rows, head_dim -> dynamic shared bytes per block (0: too large)
-        'paged_attention_smem': (_I, _I)},
+                            _I, _I, _I, _F, _I, _I, _I, _P),
+        # q, ckv, kpe, cpos, table, pos0, out, B, T, H, r, dr, NP, ps, P,
+        # scale, window, q_code, kv_code, stream
+        'paged_attention_mla': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        # rows, q width, value width, mla -> dynamic shared bytes per block
+        # (0: too large)
+        'paged_attention_smem': (_I, _I, _I, _I)},
     'fused_page_write': {
         # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,
         # n_jobs, NP, B, ps, Sc, stream

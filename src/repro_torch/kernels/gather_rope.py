@@ -19,7 +19,9 @@ from repro_torch.kernels.common import dtype_code, on_cpu, require
 from repro_torch.models.layers import rope_freqs
 
 Segs = Tuple[Tuple[int, int, int], ...]
-MAX_SEGS = 4
+# segments per launch (csrc kMaxSegs): GQA rows have 2 (q, k); MLA rows one
+# per head's q_pe slice plus k_pe, 17 for deepseek-v2-lite-16b
+MAX_SEGS = 32
 
 
 def _check_segs(segs: Sequence[Tuple[int, int, int]], W: int) -> Segs:
@@ -81,11 +83,13 @@ def gather_rope(table: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((N, W), dtype=table.dtype, device=table.device)
     if N == 0:
         return out
-    invs = [rope_freqs(hd, theta, table.device) for _, _, hd in segs]
-    inv = torch.cat(invs).contiguous()
-    inv_off = [0]
-    for v in invs[:-1]:
-        inv_off.append(inv_off[-1] + v.numel())
+    # one inverse-frequency vector per distinct head width (MLA's 17
+    # segments share one), made on the device in this call
+    hds = sorted({hd for _, _, hd in segs})
+    inv = torch.cat([rope_freqs(hd, theta, table.device) for hd in hds])
+    starts = dict(zip(hds, [sum(h // 2 for h in hds[:i])
+                            for i in range(len(hds))]))
+    inv_off = [starts[hd] for _, _, hd in segs]
 
     def arr(vals):
         return (ctypes.c_int * MAX_SEGS)(*vals)

@@ -2,25 +2,36 @@
 that view a dense ring cache as identity-table pages.
 
 Port of ``repro/kernels/paged_attention.py::paged_attention`` (Pallas),
-without its int8 (``quant``) and MLA (``mla_split``) variants. The CUDA
-kernel is ``repro_torch/csrc/paged_attention.cu``: one block per (slot,
-kv head, tile of up to 64 of the T·G query rows) walks the slot's pages
+with its MLA (``mla_split``) variant and without its int8 (``quant``) one.
+The CUDA kernels are in ``repro_torch/csrc/paged_attention.cu``: one block
+per (slot, kv head, tile of the T·G query rows) walks the slot's pages
 through the table with an fp32 online softmax, so any chunk length and
-group size fit one launch.
+group size fit one launch. The MLA form is its own kernel and wrapper,
+:func:`paged_attention_mla`, with its own launch count.
 
-Contract (as the JAX kernel): q (B, T, KV, G, d) post-RoPE queries, lane t
+Contract (as the JAX kernel): q (B, T, KV, G, dq) post-RoPE queries, lane t
 at position ``pos0 + t``; k/v pages (NP, ps, KV, d); stored positions
 (NP, ps) int32 (-1 = empty); table (B, P) int32; pos0 (B,) int32
--> (B, T, KV, G, d) in q's dtype. A key is valid for lane t iff its stored
+-> (B, T, KV, G, dv) in q's dtype. A key is valid for lane t iff its stored
 position c has ``c >= 0``, ``c <= pos0 + t`` and, with a window,
 ``pos0 + t - c < window``; a lane with no valid key gives zeros.
+
+MLA form (``mla_split = r``): KV == 1, q rows are ``[q_abs (r) | q_pe
+(dr)]``, ``k_pages`` hold the latent ``ckv`` (NP, ps, 1, r), ``k2_pages``
+the rotary keys ``kpe`` (NP, ps, 1, dr), scores are ``q_abs·ckv +
+q_pe·kpe`` and the values are the ckv rows again; out (B, T, 1, H, r).
+q and the pages may differ in dtype (the MLA attend passes fp32 queries
+over bf16 pages); the kernels compute in fp32.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import dtype_code, on_cpu, require
+
 
 def page_validity(cpos: torch.Tensor, pos_t: torch.Tensor,
                   window: int) -> torch.Tensor:
@@ -34,12 +45,15 @@ def page_validity(cpos: torch.Tensor, pos_t: torch.Tensor,
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: torch.Tensor, cpos_pages: torch.Tensor,
-                          table: torch.Tensor, pos0: torch.Tensor, *,
-                          scale: float, window: int = 0) -> torch.Tensor:
-    """The kernel's plain version: gather each slot's pages into a dense
+                          v_pages: Optional[torch.Tensor],
+                          cpos_pages: torch.Tensor, table: torch.Tensor,
+                          pos0: torch.Tensor, *, scale: float,
+                          window: int = 0,
+                          k2_pages: Optional[torch.Tensor] = None,
+                          mla_split: int = 0) -> torch.Tensor:
+    """The kernels' plain version: gather each slot's pages into a dense
     virtual cache, then masked fp32 softmax attention (mirrors the JAX
-    oracle ``ref.paged_attention_ref``)."""
+    oracle ``ref.paged_attention_ref``, MLA form included)."""
     B, T = q.shape[:2]
     P, ps = table.shape[1], k_pages.shape[1]
     tab = table.long()
@@ -49,24 +63,60 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
     cp = virt(cpos_pages)                                        # (B, S)
     pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
-    s = torch.einsum('btkgd,bskd->bkgts', q.float(),
-                     virt(k_pages).float()) * scale
+    qf = q.float()
+    if mla_split:
+        k1 = virt(k_pages).float()                               # (B,S,1,r)
+        s = torch.einsum('btkgd,bskd->bkgts', qf[..., :mla_split], k1) \
+            + torch.einsum('btkgd,bskd->bkgts', qf[..., mla_split:],
+                           virt(k2_pages).float())
+        v = k1
+    else:
+        s = torch.einsum('btkgd,bskd->bkgts', qf, virt(k_pages).float())
+        v = virt(v_pages).float()
+    s = s * scale
     valid = page_validity(cp, pos_t, window)[:, None, None]      # (B,1,1,T,S)
     s = s.masked_fill(~valid, float('-inf'))
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid, p, torch.zeros((), device=q.device))  # empty -> 0
-    o = torch.einsum('bkgts,bskd->btkgd', p, virt(v_pages).float())
+    o = torch.einsum('bkgts,bskd->btkgd', p, v)
     return o.to(q.dtype)
 
 
+def _check_common(name: str, q: torch.Tensor, cpos_pages: torch.Tensor,
+                  table: torch.Tensor, pos0: torch.Tensor, NP: int,
+                  ps: int) -> None:
+    B = q.shape[0]
+    require(cpos_pages.shape == (NP, ps) and cpos_pages.dtype == torch.int32,
+            name, 'cpos pages must be (NP, ps) int32')
+    require(table.dim() == 2 and table.shape[0] == B
+            and table.dtype == torch.int32, name, 'table must be (B, P) int32')
+    require(pos0.shape == (B,) and pos0.dtype == torch.int32, name,
+            'pos0 must be (B,) int32')
+
+
+def _check_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    for nm, t in tensors.items():
+        require(t.is_contiguous(), name, f'{nm} must be contiguous')
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                    v_pages: torch.Tensor, cpos_pages: torch.Tensor,
-                    table: torch.Tensor, pos0: torch.Tensor, *, scale: float,
-                    window: int = 0) -> torch.Tensor:
-    """See the module docstring. CPU tensors take
-    :func:`paged_attention_plain`; CUDA tensors launch the kernel (q, K and
-    V share one dtype, float32 or bfloat16). Counts launches in
-    ``paged_attention.launches``."""
+                    v_pages: Optional[torch.Tensor],
+                    cpos_pages: torch.Tensor, table: torch.Tensor,
+                    pos0: torch.Tensor, *, scale: float, window: int = 0,
+                    k2_pages: Optional[torch.Tensor] = None,
+                    mla_split: int = 0) -> torch.Tensor:
+    """See the module docstring. ``mla_split`` goes to
+    :func:`paged_attention_mla`. CPU tensors take
+    :func:`paged_attention_plain`; CUDA tensors launch the dense-form
+    kernel (q in float32 or bfloat16; K and V pages share one of those
+    dtypes). Counts launches in ``paged_attention.launches``."""
+    if mla_split:
+        require(v_pages is None and k2_pages is not None
+                and k_pages.shape[-1] == mla_split, 'paged_attention_mla',
+                'the MLA form takes ckv pages of width mla_split as k_pages, '
+                'kpe pages as k2_pages and no v_pages')
+        return paged_attention_mla(q, k_pages, k2_pages, cpos_pages, table,
+                                   pos0, scale=scale, window=window)
     name = 'paged_attention'
     if on_cpu(name, q, k_pages, v_pages, cpos_pages, table, pos0):
         return paged_attention_plain(q, k_pages, v_pages, cpos_pages, table,
@@ -78,36 +128,78 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     require(k_pages.shape == (NP, ps, KV, d) and v_pages.shape == k_pages.shape,
             name, f'k/v pages must be (NP, ps, {KV}, {d}), got '
             f'{tuple(k_pages.shape)} / {tuple(v_pages.shape)}')
-    require(cpos_pages.shape == (NP, ps) and cpos_pages.dtype == torch.int32,
-            name, 'cpos pages must be (NP, ps) int32')
-    require(table.dim() == 2 and table.shape[0] == B
-            and table.dtype == torch.int32, name, 'table must be (B, P) int32')
-    require(pos0.shape == (B,) and pos0.dtype == torch.int32, name,
-            'pos0 must be (B,) int32')
-    require(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype, name,
-            f'q, K and V must share a dtype, got {q.dtype}, {k_pages.dtype}, '
+    _check_common(name, q, cpos_pages, table, pos0, NP, ps)
+    require(v_pages.dtype == k_pages.dtype, name,
+            f'K and V pages must share a dtype, got {k_pages.dtype}, '
             f'{v_pages.dtype}')
-    for nm, t in (('q', q), ('k_pages', k_pages), ('v_pages', v_pages),
-                  ('cpos_pages', cpos_pages), ('table', table),
-                  ('pos0', pos0)):
-        require(t.is_contiguous(), name, f'{nm} must be contiguous')
-    code = dtype_code(name, q)
+    _check_contiguous(name, q=q, k_pages=k_pages, v_pages=v_pages,
+                      cpos_pages=cpos_pages, table=table, pos0=pos0)
+    codes = dtype_code(name, q), dtype_code(name, k_pages)
     lib = build.load(name)
-    require(lib.paged_attention_smem(T * G, d) > 0, name,
+    require(lib.paged_attention_smem(T * G, d, d, 0) > 0, name,
             f'a tile of query rows of width {d} exceeds one block\'s shared '
             'memory')
     out = torch.empty_like(q)
-    P = table.shape[1]
     build.check(lib.paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
-        out.data_ptr(), B, T, KV, G, d, NP, ps, P, float(scale),
-        int(window), code, build.stream_of(q)), name)
+        out.data_ptr(), B, T, KV, G, d, NP, ps, table.shape[1], float(scale),
+        int(window), *codes, build.stream_of(q)), name)
     paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_mla(q: torch.Tensor, ckv_pages: torch.Tensor,
+                        kpe_pages: torch.Tensor, cpos_pages: torch.Tensor,
+                        table: torch.Tensor, pos0: torch.Tensor, *,
+                        scale: float, window: int = 0) -> torch.Tensor:
+    """The MLA form: q (B, T, 1, H, r + dr) rows ``[q_abs | q_pe]``, ckv
+    pages (NP, ps, 1, r), kpe pages (NP, ps, 1, dr) -> (B, T, 1, H, r) in
+    q's dtype. CPU tensors take :func:`paged_attention_plain` with
+    ``mla_split = r``; CUDA tensors launch the MLA kernel (q in float32 or
+    bfloat16; ckv and kpe pages share one of those dtypes). Counts
+    launches in ``paged_attention_mla.launches``."""
+    name = 'paged_attention_mla'
+    r = ckv_pages.shape[-1]
+    if on_cpu(name, q, ckv_pages, kpe_pages, cpos_pages, table, pos0):
+        return paged_attention_plain(q, ckv_pages, None, cpos_pages, table,
+                                     pos0, scale=scale, window=window,
+                                     k2_pages=kpe_pages, mla_split=r)
+    require(q.dim() == 5 and q.shape[2] == 1, name,
+            f'q must be (B, T, 1, H, r + dr), got {tuple(q.shape)}')
+    B, T, _, H, dq = q.shape
+    NP, ps = ckv_pages.shape[:2]
+    dr = dq - r
+    require(ckv_pages.shape == (NP, ps, 1, r) and dr > 0
+            and kpe_pages.shape == (NP, ps, 1, dr), name,
+            f'ckv / kpe pages must be (NP, ps, 1, r) / (NP, ps, 1, dr) with '
+            f'r + dr = {dq}, got {tuple(ckv_pages.shape)} / '
+            f'{tuple(kpe_pages.shape)}')
+    _check_common(name, q, cpos_pages, table, pos0, NP, ps)
+    require(kpe_pages.dtype == ckv_pages.dtype, name,
+            f'ckv and kpe pages must share a dtype, got {ckv_pages.dtype}, '
+            f'{kpe_pages.dtype}')
+    _check_contiguous(name, q=q, ckv_pages=ckv_pages, kpe_pages=kpe_pages,
+                      cpos_pages=cpos_pages, table=table, pos0=pos0)
+    codes = dtype_code(name, q), dtype_code(name, ckv_pages)
+    lib = build.load('paged_attention')
+    require(lib.paged_attention_smem(T * H, dq, r, 1) > 0, name,
+            f'a tile of query rows of width {dq} exceeds one block\'s shared '
+            'memory')
+    out = torch.empty((B, T, 1, H, r), dtype=q.dtype, device=q.device)
+    build.check(lib.paged_attention_mla(
+        q.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
+        cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+        out.data_ptr(), B, T, H, r, dr, NP, ps, table.shape[1], float(scale),
+        int(window), *codes, build.stream_of(q)), name)
+    paged_attention_mla.launches += 1
+    return out
+
+
+paged_attention_mla.launches = 0
 
 
 # ========================================== dense caches as identity pages

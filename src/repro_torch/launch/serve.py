@@ -9,6 +9,8 @@ paged KV pool with the prefix cache).
         --requests 2 --new-tokens 4                 # plain versions, CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --prefix-cache --shared-prefix 32 --fused-gather-rope   # paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --prefix-cache --fused-gather-rope  # MLA
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -52,7 +54,8 @@ def main() -> None:
                     help='paged KV pool + shared-prefix radix cache: '
                          'requests sharing a cached prompt prefix attach '
                          'its pages and skip that prefill work (configs '
-                         "whose layers are all 'global', e.g. glm4-9b)")
+                         "whose layers are all 'global': glm4-9b, "
+                         'deepseek-v2-lite-16b)')
     ap.add_argument('--page-size', type=int, default=16,
                     help='tokens per KV page (prefix-cache mode; must '
                          'divide --max-seq)')

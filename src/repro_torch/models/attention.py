@@ -118,13 +118,14 @@ def ring_chunk_lanes(Sc: int, pos0: torch.Tensor, n_valid: torch.Tensor,
     return src, slot
 
 
-def cache_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                       pos0: torch.Tensor, n_valid: torch.Tensor) -> Dict:
-    """Write a whole chunk (B, T, KV, hd) at ring indices ``(pos0 + t) %
-    Sc`` for ``t < n_valid``, in place — one scatter per leaf instead of T
-    (see :func:`ring_chunk_lanes`)."""
-    B, T = k_new.shape[:2]
-    Sc = cache['k'].shape[1]
+def ring_chunk_write(cache: Dict, vals: Dict[str, torch.Tensor],
+                     pos0: torch.Tensor, n_valid: torch.Tensor) -> Dict:
+    """Write a whole chunk of every leaf in ``vals`` (B, T, ...) — K/V, or
+    MLA's latents — at ring indices ``(pos0 + t) % Sc`` for ``t <
+    n_valid``, in place, the position leaf included: one scatter per leaf
+    instead of T (see :func:`ring_chunk_lanes`)."""
+    B, T = next(iter(vals.values())).shape[:2]
+    Sc = cache['pos'].shape[1]
     src, slot = ring_chunk_lanes(Sc, pos0, n_valid, T)
     bidx = torch.arange(B, device=slot.device)[:, None].expand(B, T)
     live = src >= 0
@@ -138,10 +139,17 @@ def cache_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
         m = live.view((B, T) + (1,) * (val.dim() - 2))
         leaf[bidx, slot] = torch.where(m, val, old)
 
-    write('k', k_new)
-    write('v', v_new)
+    for name, new in vals.items():
+        write(name, new)
     write('pos', (pos0.long()[:, None] + lane).to(torch.int32))
     return cache
+
+
+def cache_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                       pos0: torch.Tensor, n_valid: torch.Tensor) -> Dict:
+    """Write a whole chunk (B, T, KV, hd) at ring indices ``(pos0 + t) %
+    Sc`` for ``t < n_valid``, in place (:func:`ring_chunk_write`)."""
+    return ring_chunk_write(cache, {'k': k_new, 'v': v_new}, pos0, n_valid)
 
 
 # ================================================================== paged KV
@@ -264,36 +272,36 @@ def paged_scatter(cache: Dict, updates: Dict[str, torch.Tensor],
     return cache
 
 
-def paged_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                       pos0: torch.Tensor, n_valid: torch.Tensor,
-                       table: torch.Tensor, Sc: int) -> Dict:
-    """Paged form of :func:`cache_update_chunk`."""
-    return paged_scatter(cache, {'k': k_new, 'v': v_new}, pos0, n_valid,
-                         table, Sc)
+def paged_write(cache: Dict, vals: Dict[str, torch.Tensor],
+                pos0: torch.Tensor, n_valid: torch.Tensor, *, window: int,
+                paged: PageTables, backend=None) -> Dict:
+    """Chunk write of the leaves ``vals`` (B, T, ...) — K/V, or MLA's
+    latents — into pool storage through the layer's page table, in place,
+    the position leaf included. A ``fused_maintenance`` backend writes
+    with the ``fused_page_write`` job list ``paged.jobs``, which also
+    applies the step's deferred clears, and raises without it; otherwise
+    :func:`paged_scatter`."""
+    table, Sc = paged.table_for(window, cache['pos'].shape[1])
+    device = next(iter(vals.values())).device
+    if getattr(_backend(backend, device), 'fused_maintenance', False):
+        from repro_torch.kernels import paged_maintenance as PM
+        if paged.jobs is None or table is not paged.pt:
+            raise ValueError(
+                'fused paged writes need the step job list of the linear '
+                'page table: PageTables.jobs (see PageTables.with_jobs)')
+        return PM.fused_chunk_scatter(cache, vals, *paged.jobs, Sc=Sc)
+    return paged_scatter(cache, vals, pos0, n_valid, table, Sc)
 
 
 def chunk_write(cache: Dict, k_h: torch.Tensor, v_h: torch.Tensor,
                 pos0: torch.Tensor, n_valid: torch.Tensor, *, window: int,
                 paged: Optional[PageTables], backend=None) -> Dict:
     """Chunk K/V write into the stored cache, in place: the dense ring
-    update, or a write through the layer's page table in paged mode. A
-    ``fused_maintenance`` backend writes pages with the
-    ``fused_page_write`` job list ``paged.jobs``, which also applies the
-    step's deferred clears, and raises without it; otherwise
-    :func:`paged_update_chunk`."""
+    update, or :func:`paged_write` in paged mode."""
     if paged is None:
         return cache_update_chunk(cache, k_h, v_h, pos0, n_valid)
-    ps = cache['k'].shape[1]
-    table, Sc = paged.table_for(window, ps)
-    if getattr(_backend(backend, k_h.device), 'fused_maintenance', False):
-        from repro_torch.kernels import paged_maintenance as PM
-        if paged.jobs is None or table is not paged.pt:
-            raise ValueError(
-                'fused paged writes need the step job list of the linear '
-                'page table: PageTables.jobs (see PageTables.with_jobs)')
-        return PM.fused_chunk_scatter(cache, {'k': k_h, 'v': v_h},
-                                      *paged.jobs, Sc=Sc)
-    return paged_update_chunk(cache, k_h, v_h, pos0, n_valid, table, Sc)
+    return paged_write(cache, {'k': k_h, 'v': v_h}, pos0, n_valid,
+                       window=window, paged=paged, backend=backend)
 
 
 # ================================================================ decode core

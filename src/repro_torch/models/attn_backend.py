@@ -1,4 +1,4 @@
-"""Attention backends for every decode/chunk attend (port of
+"""Attention backends for every decode/chunk attend, GQA and MLA (port of
 ``repro/models/attn_backend.py`` for dense caches and the paged pool).
 
 - ``'reference'``: plain PyTorch, query lanes one at a time
@@ -9,7 +9,9 @@
   (``kernels/paged_attention.py``). Pool pages are read in place through
   the slot's page table; a dense (B, Sc, ...) cache is viewed, without a
   copy, as identity-table pages. All T query lanes of a chunk go in one
-  launch. It declares ``fused_maintenance``: paged writes go through the
+  launch. MLA layers take the kernel's MLA form (``paged_attention_mla``)
+  over the latent pages, with W_UK absorbed into the fp32 query. It
+  declares ``fused_maintenance``: paged writes go through the
   ``fused_page_write`` job list with deferred clears, and the engine's
   copy-on-write through ``cow_page_copy``
   (``kernels/paged_maintenance.py``). On CPU tensors the kernel wrappers
@@ -53,6 +55,14 @@ class AttnBackend:
         H*hd) context."""
         raise NotImplementedError
 
+    def attend_mla(self, params: Dict, q_nope: torch.Tensor,
+                   q_pe: torch.Tensor, cache: Dict, pos0: torch.Tensor,
+                   cfg: ModelConfig, *, paged=None) -> torch.Tensor:
+        """Absorbed-form MLA latent attend. q_nope (B, T, H, dn) before
+        absorption, q_pe (B, T, H, dr) post-RoPE; lane t at ``pos0 + t``.
+        -> (B, T, H, v_head_dim) context."""
+        raise NotImplementedError
+
 
 class ReferenceBackend(AttnBackend):
     name = 'reference'
@@ -66,6 +76,19 @@ class ReferenceBackend(AttnBackend):
         return A.decode_attend_chunk(q, cache, pos0, cfg,
                                      rope_theta=rope_theta, window=window,
                                      rope_applied=rope_applied)
+
+    def attend_mla(self, params, q_nope, q_pe, cache, pos0, cfg, *,
+                   paged=None):
+        from repro_torch.models import attention as A
+        from repro_torch.models import mla as M
+        if paged is not None:                  # MLA layers: append-only
+            table, Sc = paged.table_for(0, cache['ckv'].shape[1])
+            cache = A.paged_view(cache, table, Sc)
+        T = q_nope.shape[1]
+        pos_t = pos0[:, None].long() + torch.arange(T, device=q_nope.device)
+        return torch.stack(
+            [M._mla_attend_lane(params, q_nope[:, t], q_pe[:, t], cache,
+                                pos_t[:, t], cfg) for t in range(T)], dim=1)
 
 
 class CudaBackend(AttnBackend):
@@ -100,6 +123,35 @@ class CudaBackend(AttnBackend):
                               pos0.to(torch.int32).contiguous(),
                               scale=hd ** -0.5, window=window)
         return ctx.reshape(B, T, H * hd).to(q.dtype)
+
+    def attend_mla(self, params, q_nope, q_pe, cache, pos0, cfg, *,
+                   paged=None):
+        from repro_torch.kernels.paged_attention import (dense_as_pages,
+                                                         dense_identity_table,
+                                                         dense_page_split,
+                                                         paged_attention)
+        m = cfg.mla
+        ckv = cache['ckv']
+        q_abs = torch.einsum('bthd,rhd->bthr', q_nope.float(),
+                             params['wuk'].float())
+        qcat = torch.cat([q_abs, q_pe.float()], dim=-1)[:, :, None]
+        leaves = (ckv, cache['kpe'], cache['pos'])
+        if paged is not None:                 # pool pages, in place
+            table, _ = paged.table_for(0, ckv.shape[1])
+        else:                                 # dense caches as pages
+            B, Sc = ckv.shape[:2]
+            ps = dense_page_split(Sc)
+            leaves = tuple(dense_as_pages(x, ps) for x in leaves)
+            table = dense_identity_table(B, Sc, ps, ckv.device)
+        ckv_p, kpe_p, cpos = leaves
+        ctx_lat = paged_attention(
+            qcat.contiguous(), ckv_p[:, :, None], None, cpos, table,
+            pos0.to(torch.int32).contiguous(),
+            scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5,
+            k2_pages=kpe_p[:, :, None], mla_split=m.kv_lora_rank)[:, :, 0]
+        ctx_lat = ctx_lat.to(ckv.dtype)                      # (B, T, H, r)
+        return torch.einsum('bthr,rhd->bthd', ctx_lat,
+                            params['wuv'].to(ctx_lat.dtype))
 
 
 REFERENCE = ReferenceBackend()

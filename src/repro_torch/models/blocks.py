@@ -1,7 +1,8 @@
 """Per-layer blocks (port of ``repro/models/blocks.py``): the attention kinds
-``'global'`` / ``'local'`` with a serial block and a dense FFN. Other kinds
-(recurrent, hybrid), the parallel block, MoE and MLA raise
-``NotImplementedError`` until they are ported.
+``'global'`` / ``'local'`` with a serial block, GQA or MLA attention
+(``cfg.mla``) and a dense or MoE FFN (``use_moe``). Other kinds (recurrent,
+hybrid) and the parallel block raise ``NotImplementedError`` until they
+are ported.
 
 ``block_preproj`` is THE PAPER's position-independent first-layer
 computation; ``pre`` (its named pieces, gathered from the precomputed
@@ -16,18 +17,18 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as M
 from repro_torch.models.ffn import ffn_apply, ffn_schema
+from repro_torch.models.moe import moe_apply, moe_schema
 
 ATTN_KINDS = ('global', 'local')
 
 
-def _supported(cfg: ModelConfig, kind: str, use_moe: bool) -> None:
+def _supported(cfg: ModelConfig, kind: str) -> None:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f'layer kind {kind!r} is not ported yet')
-    if cfg.block_type != 'serial' or use_moe or cfg.mla is not None:
-        raise NotImplementedError(
-            'only the serial block with a dense FFN and GQA attention is '
-            'ported yet')
+    if cfg.block_type != 'serial':
+        raise NotImplementedError('only the serial block is ported yet')
 
 
 def kind_window(cfg: ModelConfig, kind: str) -> int:
@@ -43,20 +44,30 @@ def kind_theta(cfg: ModelConfig, kind: str) -> float:
 
 
 def block_schema(cfg: ModelConfig, kind: str, use_moe: bool) -> Dict:
-    _supported(cfg, kind, use_moe)
+    _supported(cfg, kind)
     d = cfg.d_model
-    return {'ln1': L.norm_schema(d, cfg.norm),
-            'attn': A.attention_schema(cfg),
-            'ln2': L.norm_schema(d, cfg.norm),
-            'ffn': ffn_schema(d, cfg.d_ff, glu=cfg.glu)}
+    sch = {'ln1': L.norm_schema(d, cfg.norm),
+           'attn': M.mla_schema(cfg) if cfg.mla else A.attention_schema(cfg),
+           'ln2': L.norm_schema(d, cfg.norm)}
+    if use_moe:
+        sch['moe'] = moe_schema(cfg)
+    else:
+        d_ff = cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff \
+            else cfg.d_ff
+        sch['ffn'] = ffn_schema(d, d_ff, glu=cfg.glu)
+    return sch
 
 
 def block_preproj(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   use_moe: bool) -> Dict[str, torch.Tensor]:
     """Position-independent first-layer computation on raw embeddings x:
-    ``{'x': x, 'q', 'k', 'v'}`` (serial block)."""
-    _supported(cfg, kind, use_moe)
+    ``{'x', 'q', 'k', 'v'}``, or ``{'x', 'q', 'ckv', 'kpe'}`` for MLA
+    (serial block)."""
+    _supported(cfg, kind)
     xn = L.norm_apply(params['ln1'], x, cfg.norm)
+    if cfg.mla:
+        q, ckv, kpe = M.compute_latents(params['attn'], xn, cfg)
+        return {'x': x, 'q': q, 'ckv': ckv, 'kpe': kpe}
     q, k, v = A.compute_qkv(params['attn'], xn, cfg)
     return {'x': x, 'q': q, 'k': k, 'v': v}
 
@@ -64,8 +75,12 @@ def block_preproj(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
                    ) -> Tuple[Tuple[str, int], ...]:
     """(name, width) pieces of one precomputed-table row, in storage order."""
-    _supported(cfg, kind, use_moe)
+    _supported(cfg, kind)
     d, q, e = cfg.d_model, cfg.q_size, cfg.kv_size
+    if cfg.mla:
+        m = cfg.mla
+        return (('x', d), ('q', q), ('ckv', m.kv_lora_rank),
+                ('kpe', m.qk_rope_dim))
     return (('x', d), ('q', q), ('k', e), ('v', e))
 
 
@@ -75,7 +90,12 @@ def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      page_size: int = 0) -> Dict:
     """``num_pages > 0`` builds paged-KV storage (a global page pool
     instead of per-slot caches)."""
-    _supported(cfg, kind, False)
+    _supported(cfg, kind)
+    if cfg.mla:
+        if num_pages:
+            return M.mla_make_paged_cache(cfg, num_pages, page_size, dtype,
+                                          device)
+        return M.mla_make_cache(cfg, batch, seq_len, dtype, device)
     if num_pages:
         return A.make_paged_cache(cfg, num_pages, page_size, dtype=dtype,
                                   device=device)
@@ -86,7 +106,9 @@ def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 def block_paged_mask(cfg: ModelConfig, kind: str) -> Dict[str, bool]:
     """Same keys as paged :func:`block_make_state`, True on page-pool
     leaves (shared, never slot-reset) — every leaf of an attention kind."""
-    _supported(cfg, kind, False)
+    _supported(cfg, kind)
+    if cfg.mla:
+        return {'ckv': True, 'kpe': True, 'pos': True}
     return {'k': True, 'v': True, 'pos': True}
 
 
@@ -94,32 +116,58 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
                  pos: torch.Tensor, cfg: ModelConfig, kind: str,
                  use_moe: bool, *, pre: Optional[Dict] = None,
                  n_valid: Optional[torch.Tensor] = None,
-                 rope_applied: bool = False, paged=None, backend=None
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 rope_applied: bool = False, paged=None,
+                 lane_valid: Optional[torch.Tensor] = None, backend=None
+                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Decode step. h (B, T, d); pos (B,) start positions. ``n_valid is
     None`` is the one-token step (T == 1); ``n_valid`` (B,) runs the
     chunked-prefill path. ``paged`` (an ``attention.PageTables``; chunked
-    path only) addresses the cache as pool pages. The cache in ``state``
-    is updated in place. -> (h_out, state)."""
-    _supported(cfg, kind, use_moe)
-    assert paged is None or n_valid is not None, \
-        'paged decode runs the chunked path'
+    path only) addresses the cache as pool pages. ``lane_valid`` (B,)
+    bool marks live slots of the one-token step, so MoE routing leaves
+    free slots out; the chunked path masks lanes ``t >= n_valid``. The
+    cache in ``state`` is updated in place. -> (h_out, state,
+    moe_dropped_token_slots)."""
+    _supported(cfg, kind)
+    chunked = n_valid is not None
+    assert paged is None or chunked, 'paged decode runs the chunked path'
 
     theta = kind_theta(cfg, kind)
     window = kind_window(cfg, kind)
-    if pre is not None:
-        xn, qkv = None, (pre['q'], pre['k'], pre['v'])
+    xn = None if pre is not None else L.norm_apply(params['ln1'], h, cfg.norm)
+    if cfg.mla:
+        lat = None if pre is None else (pre['q'], pre['ckv'], pre['kpe'])
+        if chunked:
+            attn_out, state = M.mla_decode_chunk(
+                params['attn'], xn, state, pos, n_valid, cfg,
+                rope_theta=theta, latents=lat, rope_applied=rope_applied,
+                paged=paged, backend=backend)
+        else:
+            attn_out, state = M.mla_decode_step(
+                params['attn'], xn, state, pos, cfg, rope_theta=theta,
+                latents=lat, backend=backend)
     else:
-        xn, qkv = L.norm_apply(params['ln1'], h, cfg.norm), None
-    if n_valid is not None:
-        attn_out, state = A.decode_chunk(
-            params['attn'], xn, state, pos, n_valid, cfg, rope_theta=theta,
-            window=window, qkv=qkv, rope_applied=rope_applied, paged=paged,
-            backend=backend)
-    else:
-        attn_out, state = A.decode_step(
-            params['attn'], xn, state, pos, cfg, rope_theta=theta,
-            window=window, qkv=qkv, backend=backend)
+        qkv = None if pre is None else (pre['q'], pre['k'], pre['v'])
+        if chunked:
+            attn_out, state = A.decode_chunk(
+                params['attn'], xn, state, pos, n_valid, cfg,
+                rope_theta=theta, window=window, qkv=qkv,
+                rope_applied=rope_applied, paged=paged, backend=backend)
+        else:
+            attn_out, state = A.decode_step(
+                params['attn'], xn, state, pos, cfg, rope_theta=theta,
+                window=window, qkv=qkv, backend=backend)
     h = h + attn_out
     xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
-    return h + ffn_apply(params['ffn'], xn2, act=cfg.act), state
+    if not use_moe:
+        drops = torch.zeros((), dtype=torch.int32, device=h.device)
+        return h + ffn_apply(params['ffn'], xn2, act=cfg.act), state, drops
+    if chunked:
+        T = h.shape[1]
+        lane_mask = torch.arange(T, device=h.device)[None] \
+            < n_valid.long()[:, None]
+    else:
+        lane_mask = None if lane_valid is None else lane_valid[:, None]
+    f, drops = moe_apply(params['moe'], xn2, cfg,
+                         router_mode='softmax_topk' if cfg.moe.num_shared
+                         else 'topk_softmax', lane_mask=lane_mask)
+    return h + f, state, drops

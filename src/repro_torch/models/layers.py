@@ -8,7 +8,7 @@ input dtype, as in JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = 'fan_in'            # 'fan_in' | 'normal' | 'zeros' | 'ones'
     init_scale: float = 1.0
+    dtype: Optional[str] = None     # None -> the model's dtype
 
 
 def dense_schema(d_in: int, d_out: int) -> Dict[str, ParamSpec]:

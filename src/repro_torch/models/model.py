@@ -1,6 +1,8 @@
-"""Model facade (port of ``repro/models/model.py`` for ``arch_class ==
-'dense'``): ``init`` / ``decode_step`` / ``make_states`` / ``build_table``.
-Other families raise ``NotImplementedError`` until they are ported."""
+"""Model facade (port of ``repro/models/model.py`` for the decoder-only LM
+classes ``'dense'`` and ``'moe'``): ``init`` / ``decode_step`` /
+``make_states`` / ``build_table``. Other classes (audio, vlm, ssm, hybrid)
+raise ``NotImplementedError``; which layer kinds and block structures are
+ported is decided in ``models/blocks.py``, which raises for the rest."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,10 +21,11 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.arch_class != 'dense':
+        if self.cfg.arch_class not in ('dense', 'moe'):
             raise NotImplementedError(
                 f'arch_class {self.cfg.arch_class!r} is not ported yet '
-                "(the port serves 'dense' models)")
+                "(the port serves the decoder-only 'dense' and 'moe' "
+                'classes)')
 
     def init(self, seed: int = 0, device: torch.device | str = 'cuda',
              dtype: Optional[torch.dtype] = None) -> Dict:
@@ -34,10 +37,13 @@ class Model:
                     pos: torch.Tensor, *, precomputed=None, n_valid=None,
                     return_hidden: bool = False,
                     fused_gather_rope: bool = False, paged=None,
+                    lane_valid=None, return_stats: bool = False,
                     attn_backend='auto'):
         """tokens (B, T), pos (B,) -> (logits (B, T, V), states). T == 1
         with ``n_valid=None`` is the one-token step; ``n_valid`` (B,) runs
-        the chunked-prefill path. ``paged`` (an ``attention.PageTables``)
+        the chunked-prefill path. ``lane_valid`` (B,) bool masks free slots
+        out of MoE routing in the one-token step; ``return_stats`` appends
+        ``{'moe_drops': int32 tensor}``. ``paged`` (an ``attention.PageTables``)
         addresses the caches of paged states; a ``fused_maintenance``
         backend (``'cuda'``) needs its step job list
         (``PageTables.with_jobs``) and raises without it. Caches update in
@@ -50,7 +56,9 @@ class Model:
                                 precomputed=precomputed, n_valid=n_valid,
                                 return_hidden=return_hidden,
                                 fused_gather_rope=fused_gather_rope,
-                                paged=paged, attn_backend=backend)
+                                paged=paged, lane_valid=lane_valid,
+                                return_stats=return_stats,
+                                attn_backend=backend)
 
     def make_states(self, batch: int, seq_len: int,
                     dtype: torch.dtype = torch.bfloat16, chunk: int = 1,

@@ -83,7 +83,8 @@ def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
     (num_pages, page_size, ...) pool (stacked over reps for ``body``)."""
     plan = layer_plan(cfg)
     if plan.n_head:
-        raise NotImplementedError('unstacked head layers (MoE) not ported')
+        raise NotImplementedError(
+            'unstacked head layers (first_dense_layers > 1) are not ported')
 
     def mk(kind):
         return block_make_state(cfg, kind, batch, seq_len, dtype, chunk,
@@ -116,25 +117,33 @@ def backbone_decode(params: Dict, h: torch.Tensor, states: Dict,
                     pre0: Optional[Dict] = None,
                     n_valid: Optional[torch.Tensor] = None,
                     rope_applied: bool = False, paged=None,
-                    attn_backend=None) -> Tuple[torch.Tensor, Dict]:
+                    lane_valid: Optional[torch.Tensor] = None,
+                    attn_backend=None
+                    ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """``n_valid is None``: one-token step (h is (B, 1, d)); with
     ``n_valid`` (B,): chunked step over h (B, T, d). ``paged`` (an
-    ``attention.PageTables``) addresses the caches as pool pages. Caches in
-    ``states`` are updated in place; returns (h, states)."""
+    ``attention.PageTables``) addresses the caches as pool pages;
+    ``lane_valid`` (B,) masks free slots out of MoE routing in the
+    one-token step. Caches in ``states`` are updated in place; returns (h,
+    states, MoE dropped token slots summed over layers, an int32 tensor on
+    h's device)."""
     plan = layer_plan(cfg)
-    kw = dict(n_valid=n_valid, paged=paged, backend=attn_backend)
-    h, _ = block_decode(params['layer0'], h, states['layer0'], pos, cfg,
-                        plan.kinds[0], plan.use_moe[0], pre=pre0,
-                        rope_applied=rope_applied, **kw)
+    kw = dict(n_valid=n_valid, paged=paged, lane_valid=lane_valid,
+              backend=attn_backend)
+    h, _, drops = block_decode(params['layer0'], h, states['layer0'], pos,
+                               cfg, plan.kinds[0], plan.use_moe[0], pre=pre0,
+                               rope_applied=rope_applied, **kw)
     for r in range(plan.reps):
         for s, kind in enumerate(plan.slots):
-            h, _ = block_decode(tree_slice(params['body'][s], r), h,
-                                tree_slice(states['body'][s], r), pos, cfg,
-                                kind, plan.use_moe[1], **kw)
+            h, _, d = block_decode(tree_slice(params['body'][s], r), h,
+                                   tree_slice(states['body'][s], r), pos,
+                                   cfg, kind, plan.use_moe[1], **kw)
+            drops = drops + d
     for i in range(plan.n_tail):
-        h, _ = block_decode(params['tail'][i], h, states['tail'][i], pos, cfg,
-                            plan.slots[i], plan.use_moe[-1], **kw)
-    return h, states
+        h, _, d = block_decode(params['tail'][i], h, states['tail'][i], pos,
+                               cfg, plan.slots[i], plan.use_moe[-1], **kw)
+        drops = drops + d
+    return h, states, drops
 
 
 def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
@@ -142,7 +151,8 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
                    n_valid: Optional[torch.Tensor] = None,
                    return_hidden: bool = False,
                    fused_gather_rope: bool = False, paged=None,
-                   attn_backend=None) -> Tuple[torch.Tensor, Dict]:
+                   lane_valid: Optional[torch.Tensor] = None,
+                   return_stats: bool = False, attn_backend=None):
     """tokens (B, T), pos (B,) -> (logits (B, T, V), states).
 
     ``n_valid is None`` is the one-token step (T == 1); with ``n_valid``
@@ -150,10 +160,12 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     ``pos[b] .. pos[b] + n_valid[b] - 1``, later lanes are padding (never
     written to a cache; their outputs are garbage). With ``precomputed``
     the embedding read and layer 0's projections are one row gather per
-    token; ``fused_gather_rope`` (chunked path) also rotates layer 0's q/k
-    inside that gather. ``paged`` (an ``attention.PageTables``; chunked
-    path) addresses the caches as pool pages. ``return_hidden`` skips the
-    final norm and head.
+    token; ``fused_gather_rope`` (chunked path) also rotates layer 0's
+    rotary slices inside that gather. ``paged`` (an
+    ``attention.PageTables``; chunked path) addresses the caches as pool
+    pages. ``lane_valid`` (B,) bool masks free slots out of MoE routing in
+    the one-token step. ``return_hidden`` skips the final norm and head;
+    ``return_stats`` appends ``{'moe_drops': int32 tensor}``.
     """
     rope_applied = False
     if precomputed is not None:
@@ -169,40 +181,61 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     else:
         pre0 = None
         h = embed_tokens(params, tokens, cfg)
-    h, states = backbone_decode(params['backbone'], h, states, pos, cfg,
-                                pre0=pre0, n_valid=n_valid,
-                                rope_applied=rope_applied, paged=paged,
-                                attn_backend=attn_backend)
-    return (h if return_hidden else lm_logits(params, h, cfg)), states
+    h, states, drops = backbone_decode(
+        params['backbone'], h, states, pos, cfg, pre0=pre0, n_valid=n_valid,
+        rope_applied=rope_applied, paged=paged, lane_valid=lane_valid,
+        attn_backend=attn_backend)
+    out = h if return_hidden else lm_logits(params, h, cfg)
+    if return_stats:
+        return out, states, {'moe_drops': drops}
+    return out, states
 
 
 def fused_rope_eligible(precomputed, cfg: ModelConfig) -> bool:
     """Can layer 0's row gather fold RoPE in? True for rope-positional
-    attention-first stacks whose row carries the flat q/k layout."""
-    if precomputed is None or cfg.pos != 'rope' or cfg.mla is not None:
+    attention-first stacks whose row carries the flat q/k layout (GQA) or
+    the MLA latent layout (per-head ``[qk_nope | qk_rope]`` q slices plus
+    the shared ``k_pe``)."""
+    if precomputed is None or cfg.pos != 'rope':
         return False
     if layer_plan(cfg).kinds[0] not in ATTN_KINDS:
         return False
     names = [nm for nm, _ in precomputed.layout]
+    if cfg.mla is not None:
+        return 'q' in names and 'ckv' in names and 'kpe' in names
     return 'q' in names and 'k' in names
+
+
+def fused_rope_segments(layout, cfg: ModelConfig
+                        ) -> Tuple[Tuple[int, int, int], ...]:
+    """The ``(offset, heads, head_dim)`` segments of a precomputed row
+    (``layout``: its ``(name, width)`` pieces) that the fused gather
+    rotates: the q and k heads for GQA; each head's ``qk_rope`` slice plus
+    ``k_pe`` for MLA (H + 1 segments of width qk_rope_dim)."""
+    offs, off = {}, 0
+    for nm, w in layout:
+        offs[nm] = off
+        off += w
+    if cfg.mla is not None:
+        dn, dr = cfg.mla.qk_nope_dim, cfg.mla.qk_rope_dim
+        return tuple((offs['q'] + h * (dn + dr) + dn, 1, dr)
+                     for h in range(cfg.num_heads)) + ((offs['kpe'], 1, dr),)
+    hd = cfg.head_dim
+    return ((offs['q'], cfg.num_heads, hd), (offs['k'], cfg.num_kv_heads, hd))
 
 
 def _fused_gather_rope_pre0(precomputed, tokens: torch.Tensor,
                             pos_t: torch.Tensor,
                             cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Layer-0 rows via the fused gather→RoPE kernel: one table read per
-    token with the q and k slices already rotated for their positions."""
+    token with the rotary slices (:func:`fused_rope_segments`) already
+    rotated for their positions."""
     from repro_torch.kernels.gather_rope import gather_rope
     assert fused_rope_eligible(precomputed, cfg)
-    offs, off = {}, 0
-    for nm, w in precomputed.layout:
-        offs[nm] = off
-        off += w
     theta = kind_theta(cfg, layer_plan(cfg).kinds[0])
-    hd = cfg.head_dim
-    segs = ((offs['q'], cfg.num_heads, hd), (offs['k'], cfg.num_kv_heads, hd))
     rows = gather_rope(precomputed.table,
                        tokens.reshape(-1).to(torch.int32).contiguous(),
                        pos_t.reshape(-1).to(torch.int32).contiguous(),
-                       segs=segs, theta=theta)
+                       segs=fused_rope_segments(precomputed.layout, cfg),
+                       theta=theta)
     return precomputed.split(rows.reshape(tuple(tokens.shape) + (-1,)))

@@ -13,7 +13,8 @@ list of unstacked blocks. Dense weights are ``(d_in, d_out)``.
   seeded ``torch.Generator``, with the initialisers of
   ``repro/models/layers.py:init_params`` (``fan_in`` leaves take
   ``std = scale / sqrt(prod(shape[:-1]))`` over the full, possibly stacked,
-  shape, exactly as there). The numbers differ from JAX's (another
+  shape, exactly as there; a leaf whose spec names a dtype, such as the
+  fp32 MoE router, keeps it). The numbers differ from JAX's (another
   generator); the distributions are the same.
 """
 from __future__ import annotations
@@ -50,7 +51,7 @@ def from_numpy_tree(tree, device: torch.device | str = 'cuda'):
 
 
 def lm_schema(cfg: ModelConfig) -> Dict:
-    """ParamSpec tree of a dense decoder-only LM (the layout above)."""
+    """ParamSpec tree of a decoder-only LM (the layout above)."""
     from repro_torch.models.blocks import block_schema
     from repro_torch.models.layers import dense_schema, norm_schema
     from repro_torch.models.transformer import layer_plan
@@ -60,7 +61,7 @@ def lm_schema(cfg: ModelConfig) -> Dict:
     if plan.reps:
         backbone['body'] = [
             _map(lambda s: ParamSpec((plan.reps,) + s.shape, s.init,
-                                     s.init_scale),
+                                     s.init_scale, s.dtype),
                  block_schema(cfg, k, plan.use_moe[1]))
             for k in plan.slots]
     if plan.n_tail:
@@ -77,23 +78,31 @@ def lm_schema(cfg: ModelConfig) -> Dict:
     return sch
 
 
+# largest fp32 temporary of one random draw (elements): a leaf above it is
+# drawn in slices along its leading (stacked) axis, straight into the leaf
+DRAW_SLICE = 1 << 26
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str = 'cuda',
                 dtype: torch.dtype | None = None):
     """Random weights made on ``device`` from ``torch.Generator(seed)``, in
-    ``dtype`` (default: the config's dtype). Leaves are drawn in schema
-    order, one fp32 normal draw each, then cast."""
+    ``dtype`` (default: the config's dtype; a spec's own dtype wins).
+    Leaves are drawn in schema order; each leaf is fp32 normal draws, cast
+    into the leaf in slices of whole rows along its leading axis, first to
+    last, each slice at most :data:`DRAW_SLICE` elements (or one row), so
+    the fp32 temporary stays small beside multi-GB stacked expert
+    weights."""
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def make(spec: ParamSpec) -> torch.Tensor:
+        dt = getattr(torch, spec.dtype) if spec.dtype else dtype
         if spec.init == 'zeros':
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
+            return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == 'ones':
-            return torch.ones(spec.shape, dtype=dtype, device=device)
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                        device=device)
+            return torch.ones(spec.shape, dtype=dt, device=device)
         if spec.init == 'normal':
             std = spec.init_scale
         elif spec.init == 'fan_in':
@@ -102,7 +111,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             std = spec.init_scale / math.sqrt(max(fan_in, 1))
         else:
             raise ValueError(spec.init)
-        return x.mul_(std).to(dtype)
+        out = torch.empty(spec.shape, dtype=dt, device=device)
+        row = math.prod(spec.shape[1:])
+        step = max(1, DRAW_SLICE // max(row, 1))
+        for i in range(0, spec.shape[0], step):
+            part = out[i:i + step]
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   dtype=torch.float32, device=device)
+                       .mul_(std))
+        return out
 
     return _map(make, lm_schema(cfg))
 

@@ -17,7 +17,8 @@ kernel on a CUDA device); ``fused_gather_rope=True`` also folds layer-0
 RoPE into the gather of chunked steps (the ``gather_rope`` kernel).
 
 **Paged KV + prefix caching** (``prefix_cache=True``, for configurations
-whose layers are all ``'global'`` attention): the per-slot caches become a
+whose layers are all ``'global'`` attention, GQA or MLA): the per-slot
+caches (K/V, or MLA's latent ``ckv``/``kpe``) become a
 global pool of ``page_size``-token pages per layer, addressed through
 per-slot page tables, and admission looks the prompt up in a token-prefix
 radix index (``repro_torch.serving.kvpool``). A request whose prompt
@@ -38,6 +39,11 @@ allocated pages, and copy-on-write is ``cow_page_copy``; the reference
 backend clears pages when they are allocated and writes with plain
 scatters. Windowed (ring) layers, recurrent state and meta tokens are not
 ported to paged mode and raise ``NotImplementedError``.
+
+**MoE** layers route only real tokens: chunk padding and, in the dense
+one-token step, free slots (``lane_valid``) are masked out of the expert
+dispatch. Token slots dropped for expert capacity are counted in
+``stats()['moe_token_drops']``.
 
 **Attention backend** (``attn_backend='auto' | 'reference' | 'cuda'``):
 ``'auto'`` (the default) takes the ``cuda`` kernel backend on a CUDA
@@ -277,6 +283,7 @@ class ServingEngine:
         self.n_failed = 0
         self.n_deadline = 0
         self.n_stalled = 0
+        self.moe_token_drops = 0
         # chunk-grid utilization: lanes dispatched vs lanes carrying a token
         self.lanes_dispatched = 0
         self.lane_tokens = 0
@@ -671,15 +678,18 @@ class ServingEngine:
     def _forward(self, tokens: np.ndarray, n_valid: Optional[np.ndarray],
                  temps: torch.Tensor, want_logits: bool):
         """Run one step on the device -> (sampled tokens (B,), per-lane
-        finiteness (B,), all-lane logits (B, T, V) or None)."""
+        finiteness (B,), all-lane logits (B, T, V) or None, MoE dropped
+        token slots (device scalar))."""
         dev, cfg = self.device, self.model.cfg
-        kw = dict(precomputed=self.precomputed,
+        kw = dict(precomputed=self.precomputed, return_stats=True,
                   attn_backend=self.attn_backend)
         pos_np = self.slot_pos.astype(np.int32)
         if n_valid is None:
-            tok, pos = _stage([tokens, pos_np], dev)
-            logits, _ = self.model.decode_step(self.params, tok, self.states,
-                                               pos, **kw)         # (B,1,V)
+            live = np.array([r is not None for r in self.slot_req], np.int32)
+            tok, pos, lane_valid = _stage([tokens, pos_np, live], dev)
+            logits, _, st = self.model.decode_step(
+                self.params, tok, self.states, pos,
+                lane_valid=lane_valid.bool(), **kw)               # (B,1,V)
             all_logits = logits if want_logits else None
         else:
             host = [tokens, pos_np, n_valid]
@@ -689,7 +699,7 @@ class ServingEngine:
             tok, pos, nv = staged[:3]
             if self.paged:
                 kw['paged'] = self._page_tables(staged[3:])
-            h, _ = self.model.decode_step(
+            h, _, st = self.model.decode_step(
                 self.params, tok, self.states, pos, n_valid=nv,
                 return_hidden=True, fused_gather_rope=self.fused_gather_rope,
                 **kw)
@@ -701,7 +711,7 @@ class ServingEngine:
                 else None
         nxt = sample_tokens(logits[:, 0], self.generator, temps)
         finite = torch.isfinite(logits).all(dim=2).all(dim=1)
-        return nxt, finite, all_logits
+        return nxt, finite, all_logits, st['moe_drops']
 
     def _paged_host(self, pos: np.ndarray, n_valid: np.ndarray,
                     T: int) -> List[np.ndarray]:
@@ -788,8 +798,8 @@ class ServingEngine:
             self.slot_req[s].return_logits
             and int(self.slot_pos[s]) < len(self.slot_stream[s])
             for s in active)
-        nxt, finite, logits = self._forward(tokens, n_valid, temps,
-                                            want_logits)
+        nxt, finite, logits, drops = self._forward(tokens, n_valid, temps,
+                                                   want_logits)
         self._pending_clear = []
         lanes = []
         for s in active:
@@ -800,14 +810,16 @@ class ServingEngine:
                                p_before=p_before,
                                p_after=int(self.slot_pos[s])))
         self.steps += 1
-        return nxt, finite, logits, lanes
+        return nxt, finite, logits, drops, lanes
 
     def _commit(self, nxt: torch.Tensor, finite: torch.Tensor,
-                logits: Optional[torch.Tensor], lanes: List[_Lane]) -> None:
+                logits: Optional[torch.Tensor], drops: torch.Tensor,
+                lanes: List[_Lane]) -> None:
         """Bring the step's tokens to the host (the device wait) and commit
         them: prompt logits, radix publishes, first/next tokens,
-        terminations."""
+        terminations, the MoE drop count."""
         nxt = nxt.cpu().numpy()
+        self.moe_token_drops += int(drops)
         bad = ~finite.cpu().numpy()
         logits = None if logits is None else logits.float().cpu().numpy()
         for ln in lanes:
@@ -903,6 +915,7 @@ class ServingEngine:
             'completed': len(done),
             'tokens': sum(len(r.generated) for r in done),
             'engine_steps': self.steps,
+            'moe_token_drops': self.moe_token_drops,
             'lanes_dispatched': self.lanes_dispatched,
             'lane_tokens': self.lane_tokens,
             'prefill_lane_utilization':

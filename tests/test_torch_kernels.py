@@ -8,10 +8,13 @@ mode): ``embed_gather`` bitwise, ``gather_rope`` within 1e-4 (fp32) / 3e-2
 ``paged_attention`` is also held at glm4-9b's group size (G 16): a 16-token
 chunk gives 256 query rows per (slot, kv head). The plain versions of
 ``fused_page_write`` and ``cow_page_copy`` are held against JAX in
-``tests/test_torch_paged.py``.
+``tests/test_torch_paged.py``; the MLA form of ``paged_attention`` and
+``gather_rope`` over MLA segments in ``tests/test_torch_mla.py``.
 
 Tests marked ``cuda`` hold each CUDA kernel against its plain version on a
-card and skip without one (bitwise for the two page-maintenance kernels). They import nothing of JAX, so on a machine with
+card and skip without one (bitwise for the two page-maintenance kernels;
+the MLA form of ``paged_attention`` and the 17-segment ``gather_rope`` at
+deepseek-v2-lite-16b widths). They import nothing of JAX, so on a machine with
 only the port they run with:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -29,6 +32,7 @@ from repro_torch.kernels.paged_attention import (dense_as_pages,
                                                  dense_identity_table,
                                                  dense_page_split,
                                                  paged_attention,
+                                                 paged_attention_mla,
                                                  paged_attention_plain)
 from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.models.attn_backend import KERNEL_TOL
@@ -294,6 +298,76 @@ def test_paged_attention_kernel_group16(cuda, dtype, tol, T):
     got = paged_attention(*args, scale=d ** -0.5)
     want = paged_attention_plain(*args, scale=d ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize('N', [4, 64])
+def test_gather_rope_kernel_mla_segments(cuda, dtype, tol, N):
+    """deepseek-v2-lite-16b rows (width 5696): 17 segments of width 64,
+    each head's q_pe slice between its q_nope slices, plus k_pe."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    V, W, d, H, dn, dr, r = 1000, 5696, 2048, 16, 128, 64, 512
+    tab = torch.randn((V, W), generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    pos = torch.randint(0, 32768, (N,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    segs = tuple((d + h * (dn + dr) + dn, 1, dr) for h in range(H)) \
+        + ((d + H * (dn + dr) + r, 1, dr),)
+    n0 = gather_rope.launches
+    got = gather_rope(tab, ids, pos, segs=segs, theta=1e4)
+    want = gather_rope_plain(tab, ids, pos, segs=segs, theta=1e4)
+    torch.cuda.synchronize()
+    assert gather_rope.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    rotated = torch.zeros(W, dtype=torch.bool, device=cuda)
+    for off, _, w in segs:
+        rotated[off:off + w] = True
+    rows = tab[ids.long()]
+    assert torch.equal(got[:, ~rotated], rows[:, ~rotated])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('page_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('T', [1, 16])
+def test_paged_attention_mla_kernel_matches_plain(cuda, page_dtype, T):
+    """deepseek-v2-lite-16b's MLA attend: fp32 queries (B, T, 1, 16, 576)
+    over latent pages (ckv 512, kpe 64) through a scattered table; slots
+    of 300 / 271 / 0 / 365 tokens."""
+    B, H, r, dr, ps = 4, 16, 512, 64, 16
+    lengths = [300, 271, 0, 365]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    P = 2048 // ps
+    NP = 1 + B * P
+    perm = torch.randperm(NP - 1, generator=gen, device=cuda) + 1
+    table = perm.view(B, P).to(torch.int32).clone()
+    cpos = torch.full((NP, ps), -1, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lengths):
+        table[b, -(-n // ps):] = 0
+        p = torch.arange(n, device=cuda)
+        cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    ckv = torch.randn((NP, ps, 1, r), generator=gen, device=cuda) \
+        .to(page_dtype)
+    kpe = torch.randn((NP, ps, 1, dr), generator=gen, device=cuda) \
+        .to(page_dtype)
+    ckv[0], kpe[0] = 0, 0
+    q = torch.randn((B, T, 1, H, r + dr), generator=gen, device=cuda)
+    pos0 = torch.tensor([max(n - T, 0) for n in lengths], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(scale=192 ** -0.5)
+    n0 = (paged_attention.launches, paged_attention_mla.launches)
+    got = paged_attention(q, ckv, None, cpos, table, pos0, k2_pages=kpe,
+                          mla_split=r, **kw)
+    want = paged_attention_plain(q, ckv, None, cpos, table, pos0,
+                                 k2_pages=kpe, mla_split=r, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention_mla.launches) == \
+        (n0[0], n0[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (B, T, 1, H, r)
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
     assert not got[2].any()
 
 

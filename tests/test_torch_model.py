@@ -5,6 +5,8 @@ logits within the bound of ``tests/test_precompute_equivalence.py`` (atol
 steps, with and without the precomputed table, with the fused gather→RoPE,
 through both attention backends (on the CPU the ``cuda`` backend's kernel
 wrapper runs its plain version)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,11 +43,19 @@ def _leaves(tree):
 def test_config_copy_matches_jax():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import ALL_IDS
-    assert ALL_IDS == ['mistral_7b', 'glm4_9b']
+    assert ALL_IDS == ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b']
+    # field by field, nested MLA / MoE configs included (the copies are
+    # other classes, so compare their fields and class names)
+    def fields(c):
+        return {k: (type(v).__name__, dataclasses.asdict(v))
+                if dataclasses.is_dataclass(v) else v
+                for k, v in vars(c).items()}
+
     for name in ALL_IDS:
         assert get_config(name) == get_config(name)
-        assert vars(get_config(name)) == vars(jax_config(name))
-        assert vars(get_smoke_config(name)) == vars(jax_smoke_config(name))
+        assert fields(get_config(name)) == fields(jax_config(name))
+        assert fields(get_smoke_config(name)) == \
+            fields(jax_smoke_config(name))
 
 
 def test_init_params_tree_matches_jax_schema(both):
@@ -186,12 +196,13 @@ def test_decode_matches_jax(both, jax_runs, chunk, table, fused, backend):
 
 
 def test_unported_families_raise():
-    import dataclasses
     cfg = get_smoke_config('mistral_7b')
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, arch_class='moe'))
+        Model(dataclasses.replace(cfg, arch_class='audio'))
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(cfg, block_type='parallel')).make_states(
             1, 8, device='cpu')
     with pytest.raises(NotImplementedError):
         get_config('pythia_6_9b')
+    with pytest.raises(NotImplementedError):
+        get_config('mixtral_8x7b')
