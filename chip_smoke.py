@@ -8,8 +8,8 @@ Phases, in order; any failure raises and exits non-zero:
               limit as nvidia-smi reports them.
 2. build    — compiles the CUDA kernels of the serving paths from
               src/repro_torch/csrc (one nvcc per source, in parallel):
-              embed_gather, gather_rope, paged_attention (dense and MLA
-              forms), fused_page_write, cow_page_copy.
+              embed_gather, gather_rope, paged_attention (dense, MLA and
+              int8 forms), fused_page_write, cow_page_copy.
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
@@ -24,11 +24,18 @@ Phases, in order; any failure raises and exits non-zero:
               queries over bf16 or fp32 latent pages, T 1 and 16),
               gather_rope over its 17 MLA segments (width 5696), and
               fused_page_write / cow_page_copy on its ckv / kpe / pos
-              leaves over 27 layers (bitwise).
+              leaves over 27 layers (bitwise); the int8 form of
+              paged_attention (paged_attention_quant) at mistral-7b shapes
+              on identity-table pages and at glm4-9b shapes through a
+              scattered table, and fused_page_write / cow_page_copy on the
+              five int8 leaves (k, v int8; k_scale, v_scale bf16 of 4-byte
+              rows; pos) at glm4-9b page shapes (bitwise).
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
-              prompts of 64-200 tokens, 16 new tokens each.
+              prompts of 64-200 tokens, 16 new tokens each; then the same
+              requests on the same weights with int8 KV caches
+              (kv_quant=True), every attend through paged_attention_quant.
 5. glm4     — serves glm4-9b at full width through the paged KV pool and
               the radix prefix cache (bf16, seeded random weights,
               precomputed table, page 16, max_seq 2048, chunk 16, fused
@@ -36,7 +43,8 @@ Phases, in order; any failure raises and exits non-zero:
               sharing a 256-token system prompt, one of which stops short
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
-              memory.
+              memory; then the same two waves on the same weights through
+              an int8 pool (kv_quant=True).
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
@@ -45,16 +53,21 @@ Phases, in order; any failure raises and exits non-zero:
               (so embed_gather runs on the paged path) and a pool too small
               for its slots: preemptions happen, tokens equal an
               unpressured run's.
-8. consistency — on the card, fp32 smoke configs: mistral-7b's cuda and
-              reference backends give equal greedy tokens; glm4-9b and
-              deepseek-v2-lite-16b paged with the cuda backend give dense
-              reference's tokens; pool
-              contents after the kernel write path (fused_page_write,
-              deferred clears, cow_page_copy) equal those after the plain
-              scatters with eager clears, bit for bit.
+8. consistency — on the card, fp32 smoke configs, with fp32 and then
+              int8 KV caches: mistral-7b's cuda and reference backends
+              give equal greedy tokens; glm4-9b and deepseek-v2-lite-16b
+              paged with the cuda backend give dense reference's tokens
+              through a copy-on-write and preemptions; pool contents after
+              the kernel write path (fused_page_write, deferred clears,
+              cow_page_copy) equal those after the plain scatters with
+              eager clears, bit for bit, on every leaf (five with int8);
+              deepseek's tokens are the same with kv_quant=True (its latent
+              caches ignore it).
 
 In each engine phase the launch counters are zeroed just before the run
-and read just after; every kernel of that path must have run. Ends with a
+and read just after; every kernel of that path must have run (the int8
+runs: paged_attention_quant once per attention layer and step, the dense
+form never). Ends with a
 ``{"kernels": [...]}`` line and, last, the device JSON line. Imports
 nothing of JAX or of the JAX package ``repro``.
 """
@@ -83,8 +96,10 @@ from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
                                              gather_rope_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, page_validity,
-    paged_attention, paged_attention_mla, paged_attention_plain)
-from repro_torch.models.attention import paged_view  # noqa: E402
+    paged_attention, paged_attention_mla, paged_attention_plain,
+    paged_attention_quant)
+from repro_torch.models.attention import (_quantize,  # noqa: E402
+                                          paged_view)
 from repro_torch.models.blocks import preproj_layout  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     fused_rope_segments, layer_plan)
@@ -98,7 +113,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
 KERNELS = [embed_gather, gather_rope, paged_attention, paged_attention_mla,
-           PM.fused_page_write, PM.cow_page_copy]
+           paged_attention_quant, PM.fused_page_write, PM.cow_page_copy]
 SEED = 0
 
 
@@ -370,16 +385,17 @@ def check_paged_attention(gen) -> dict:
     return row
 
 
-def attention_bound(q, k, cpos, pos0, window, dtype):
+def attention_bound(q, k, cpos, pos0, window, dtype, scale_bytes=0):
     """Least time: the bytes of q, out, positions and the K/V rows some
-    query may use, and 4*d flops per usable (query row, key) pair."""
+    query may use (with ``scale_bytes`` more per row and kv head: the int8
+    form's scales), and 4*d flops per usable (query row, key) pair."""
     B, T, KV, G, d = q.shape
     pos_t = pos0[:, None].long() + torch.arange(T, device='cuda')
     valid = page_validity(cpos, pos_t, window)               # (B, T, Sc)
     rows_used = int(valid.any(dim=1).sum())
     pairs = int(valid.sum()) * KV * G
     moved = 2 * nbytes(q) + nbytes(cpos, pos0) \
-        + 2 * rows_used * KV * d * k.element_size()
+        + rows_used * KV * (2 * d * k.element_size() + scale_bytes)
     return bound(moved, 4 * d * pairs, dtype)
 
 
@@ -823,8 +839,207 @@ def check_mla_page_writes(gen) -> None:
         del lay0, body
 
 
+# ----------------------------------------- phase 3: the int8 KV cache
+def int8_leaves(gen, lead, KV, d):
+    """int8 K/V and bf16 scales of leading shape ``lead``, as written by
+    the model's quantizer: values in [-127, 127], scales of activations
+    of magnitude ~1-10 (amax / 127)."""
+    k = torch.randint(-127, 128, lead + (KV, d), generator=gen,
+                      device='cuda', dtype=torch.int8)
+    v = torch.randint(-127, 128, lead + (KV, d), generator=gen,
+                      device='cuda', dtype=torch.int8)
+    ks = (torch.rand(lead + (KV,), generator=gen, device='cuda') * 0.08
+          + 0.005).to(torch.bfloat16)
+    vs = (torch.rand(lead + (KV,), generator=gen, device='cuda') * 0.08
+          + 0.005).to(torch.bfloat16)
+    return k, v, ks, vs
+
+
+def check_quant_case(label, args, kw, view_pos) -> dict:
+    """One int8 attend against its plain version: fp32 queries within
+    KERNEL_TOL; bf16 queries within KERNEL_TOL on top of one bf16 step of
+    the output (2^-7 of its magnitude: two fp32 sums that differ in their
+    last bits may round to neighbouring bf16 values); timed with the
+    bound. ``view_pos`` is the slots' stored positions in dense order."""
+    q, k, v, ks, vs, cpos, table, pos0 = args
+
+    def plain():
+        return paged_attention_plain(q, k, v, cpos, table, pos0, **kw,
+                                     k_scale_pages=ks, v_scale_pages=vs)
+    got = paged_attention_quant(*args, **kw)
+    want = plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * want.float().abs()
+    if q.dtype is torch.bfloat16:
+        lim = lim + want.float().abs() * 2.0 ** -7
+    assert bool((diff <= lim).all()), f'paged_attention_quant {label}: ' \
+        f'max |err| {err:.3g}'
+    assert got.dtype == q.dtype and not got[2].any(), \
+        'empty slot must attend to zeros'
+    ms = time_ms(lambda: paged_attention_quant(*args, **kw))
+    plain_ms = time_ms(plain)
+    B, T, KV, G, d = q.shape
+    # int8 K/V rows plus their two bf16 scales
+    b_ms, by = attention_bound(q, k, view_pos, pos0, kw['window'], q.dtype,
+                               scale_bytes=2 * 2)
+    log(f'[kernel] paged_attention_quant q {str(q.dtype)[6:]} {label} B={B} '
+        f'T={T} KV={KV} G={G} d={d}: max |err| {err:.3g} (KERNEL_TOL'
+        f'{" + one bf16 step" if q.dtype is torch.bfloat16 else ""}), '
+        f'empty slot zeros; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no '
+        f'library call reads int8 pages with scales, bound {b_ms:.4f} ms '
+        f'({by})')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
+def check_paged_attention_quant(gen) -> dict:
+    """The int8 form at the shapes of both int8 engine phases: mistral-7b
+    (KV 8, G 4) on dense rings of 512 viewed as identity-table pages, with
+    its 4096 window and a 300 one; glm4-9b (KV 2, G 16) through a
+    scattered table over the engine's pool. T 1 and 16; bf16 queries (the
+    engines') and fp32 ones (the smoke configs')."""
+    row = {}
+    cfg = get_config('mistral_7b')
+    KV, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim
+    B, Sc = 4, 512
+    lengths = [700, 300, 0, 549]                  # wrap, partial, empty, wrap
+    k, v, ks, vs = int8_leaves(gen, (B, Sc), KV, d)
+    cpos = torch.full((B, Sc), -1, dtype=torch.int32, device='cuda')
+    for b, n in enumerate(lengths):
+        p = torch.arange(max(0, n - Sc), n, device='cuda')
+        cpos[b, p % Sc] = p.to(torch.int32)
+    ps = dense_page_split(Sc)
+    pages = [dense_as_pages(x, ps) for x in (k, v, ks, vs, cpos)]
+    table = dense_identity_table(B, Sc, ps, 'cuda')
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in (1, 16):
+            for window in (cfg.window, 300):
+                pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                                    dtype=torch.int32, device='cuda')
+                q = torch.randn((B, T, KV, G, d), generator=gen,
+                                device='cuda').to(dtype)
+                check_quant_case(f'mistral Sc={Sc} window={window}',
+                                 (q, *pages, table, pos0),
+                                 dict(scale=d ** -0.5, window=window), cpos)
+    del k, v, ks, vs, cpos, pages
+    cfg = get_config('glm4_9b')
+    KV, d = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
+    B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
+    P = GLM_SEQ // ps
+    lengths = [300, 271, 0, 365]
+    k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    table = scattered_table(gen, B, P, NP, lengths, ps)
+    cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
+    for b, n in enumerate(lengths):
+        p = torch.arange(n, device='cuda')
+        cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    view = paged_view({'pos': cpos}, table, GLM_SEQ)
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in (1, 16):
+            pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                                dtype=torch.int32, device='cuda')
+            q = torch.randn((B, T, KV, G, d), generator=gen,
+                            device='cuda').to(dtype)
+            r = check_quant_case(f'glm4 scattered table over NP={NP}',
+                                 (q, k, v, ks, vs, cpos, table, pos0),
+                                 dict(scale=d ** -0.5, window=0),
+                                 view['pos'])
+            if dtype is torch.bfloat16 and T == 1:    # the decode step
+                row = r
+    del k, v, ks, vs, cpos
+    return row
+
+
+def check_quant_page_writes(gen) -> None:
+    """fused_page_write and cow_page_copy on glm4-9b's five int8 leaves:
+    k / v int8 (256-byte rows), k_scale / v_scale bf16 (4-byte rows: KV 2
+    x 2 bytes), pos; the chunk values as the quantizer makes them.
+    Linear and ring job lists with pending clears; copy-on-write over the
+    39 stacked layers. Bitwise against the plain versions."""
+    cfg = get_config('glm4_9b')
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
+    NP = glm_pool_pages()
+    names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+    fills = [PM.leaf_fill(nm) for nm in names]
+    k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    pos = torch.randint(0, 4096, (NP, ps), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    leaves = [k, v, ks, vs, pos]
+    for x, f in zip(leaves, fills):
+        x[0] = f                                  # the null page
+    P = GLM_SEQ // ps
+    cases = []
+    for T in (1, 16):
+        pos0 = torch.tensor([300, 272, 0, 365], dtype=torch.int32,
+                            device='cuda')
+        nv = torch.tensor([T, T, 0, 1], dtype=torch.int32, device='cuda')
+        cases.append((f'linear T={T}', GLM_SEQ, T, pos0, nv, scattered_table(
+            gen, B, P, NP, [300 + T, 272 + T, 0, 365 + T], ps)))
+    pos0 = torch.tensor([20, 3, 0, 40], dtype=torch.int32, device='cuda')
+    nv = torch.tensor([16, 9, 0, 16], dtype=torch.int32, device='cuda')
+    cases.append(('ring Sc=27 T=16', 27, 16, pos0, nv,
+                  scattered_table(gen, B, 2, NP, [27] * B, ps)))
+    for label, Sc, T, pos0, nv, table in cases:
+        start = torch.div(pos0 % Sc, ps, rounding_mode='floor').long()
+        pending = torch.stack([table[1, start[1]], table.new_tensor(NP - 1),
+                               table.new_tensor(0)]).to(torch.int32)
+        jobs = PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)
+        x = torch.randn((2, B, T, KV, d), generator=gen, device='cuda') * 3
+        (kq, kscale), (vq, vscale) = _quantize(x[0]), _quantize(x[1])
+        srcs = [kq, vq, kscale, vscale, PM.chunk_positions(pos0, T)]
+        want = [PM.fused_page_write_plain(y.clone(), src, jobs, Sc=Sc, fill=f)
+                for y, src, f in zip(leaves, srcs, fills)]
+        n0 = PM.fused_page_write.launches
+        PM.fused_page_write(leaves, srcs, jobs, Sc=Sc, fills=fills)
+        torch.cuda.synchronize()
+        assert PM.fused_page_write.launches == n0 + 1
+        for nm, g, w in zip(names, leaves, want):
+            assert torch.equal(g, w), f'fused_page_write int8 {label} {nm}'
+        msg = (f'[kernel] fused_page_write int8 leaves {label} (row bytes '
+               f'{[y[0, 0].numel() * y.element_size() for y in leaves]}), '
+               f'{jobs.shape[0]} jobs: bitwise equal')
+        if label == 'linear T=1':
+            n_w, n_f = write_counts(jobs, Sc, ps)
+            rb = [y[0, 0].numel() * y.element_size() for y in leaves]
+            b_ms, by = bound(n_w * 2 * sum(rb) + n_f * sum(rb) + nbytes(jobs),
+                             0, torch.bfloat16)
+            ms = time_ms(lambda: PM.fused_page_write(
+                leaves, srcs, jobs, Sc=Sc, fills=fills))
+            msg += f'; kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by})'
+        log(msg)
+    del leaves, k, v, ks, vs, pos
+    reps = cfg.num_layers - 1
+    k, v, ks, vs = int8_leaves(gen, (reps, NP, ps), KV, d)
+    cache = dict(zip(names, (k, v, ks, vs, torch.randint(
+        0, 4096, (reps, NP, ps), generator=gen, device='cuda',
+        dtype=torch.int32))))
+    for src, dst, rem in ((11, 900, 0), (12, 901, 7), (13, 902, ps)):
+        sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
+                            for r in range(reps)], dtype=torch.int32,
+                           device='cuda')
+        want = {nm: PM.cow_page_copy_plain(
+            x.clone().view((reps * NP,) + tuple(x.shape[2:])), sdr,
+            fill=PM.leaf_fill(nm)) for nm, x in cache.items()}
+        n0 = PM.cow_page_copy.launches
+        PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
+        torch.cuda.synchronize()
+        assert PM.cow_page_copy.launches == n0 + 1
+        for nm, x in cache.items():
+            assert torch.equal(x.reshape(want[nm].shape), want[nm]), \
+                f'cow_page_copy int8 rem={rem} {nm}'
+    log(f'[kernel] cow_page_copy int8 leaves {list(names)} over {reps} '
+        'layers, rem 0/7/16: bitwise equal, one launch per copy-on-write')
+    del cache, k, v, ks, vs
+
+
 # ----------------------------------------------------------------- phase 4
 def phase_mistral() -> dict:
+    """mistral-7b on dense ring caches, in bf16 and then, on the same
+    weights and requests, with int8 KV caches."""
     cfg = get_config('mistral_7b')
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -835,15 +1050,51 @@ def phase_mistral() -> dict:
         f'weights + table made on the card in '
         f'{time.perf_counter() - t0:.1f}s; table {tuple(table.table.shape)} '
         f'{str(table.table.dtype)[6:]}')
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        64, 201))).astype(np.int32) for _ in range(4)]
+    out = {}
+    for kv_quant in (False, True):
+        out[kv_quant] = serve_dense(model, params, table, prompts, rng,
+                                    kv_quant)
+        free()
+    (base, bytes16), (tok8, bytes8) = out[False][1:], out[True][1:]
+    log(f'[engine int8] KV cache bytes {bytes8} int8 against {bytes16} bf16 '
+        f'({bytes8 / bytes16:.3f}); greedy tokens equal to the bf16 run\'s: '
+        f'{token_share(tok8, base)} (reported, not checked)')
+    return {'mistral': out[False][0], 'mistral_int8': out[True][0]}
+
+
+def token_share(got, base) -> str:
+    """Share of greedy tokens equal, position by position, to a run on
+    the same requests."""
+    same = sum(a == b for g, w in zip(got, base) for a, b in zip(g, w))
+    total = sum(len(w) for w in base)
+    return f'{same}/{total} = {same / total:.3f}'
+
+
+def cache_bytes(eng) -> int:
+    leaves = []
+    for st in eng.states.values():
+        for layer in (st if isinstance(st, list) else [st]):
+            leaves += list(layer.values())
+    return nbytes(*leaves)
+
+
+def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
+    """One engine over ``prompts`` (16 new tokens each) on dense ring
+    caches, chunk 16, fused gather→RoPE, the cuda backend; int8 caches
+    with ``kv_quant``. -> (launches, greedy tokens, cache bytes)."""
+    cfg = model.cfg
+    tag = '[engine int8]' if kv_quant else '[engine]'
+    attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
     eng = ServingEngine(model, params, max_slots=4, max_seq=512,
                         precomputed=table, seed=SEED, dtype=torch.bfloat16,
                         chunk_size=16, fused_gather_rope=True,
-                        attn_backend='cuda', device='cuda')
+                        kv_quant=kv_quant, attn_backend='cuda', device='cuda')
     assert eng.fused_gather_rope and eng.attn_backend.name == 'cuda'
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(uid=i, prompt=rng.integers(
-        3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
-        max_new_tokens=16) for i in range(4)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
     # warm-up request (cuBLAS handles, allocator) outside the measured run
     warm = Request(uid=100, prompt=reqs[0].prompt[:20], max_new_tokens=2)
     eng.submit(warm)
@@ -863,23 +1114,28 @@ def phase_mistral() -> dict:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
         assert len(r.generated) == 16, (r.uid, len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
-    for name in ('embed_gather', 'gather_rope', 'paged_attention'):
+    for name in ('embed_gather', 'gather_rope', attn):
         assert launches[name] > 0, f'{name} never launched on the engine path'
     stats = eng.stats(reqs)
     steps = eng.steps - steps0
-    log(f'[engine] 4 requests, prompts {[len(r.prompt) for r in reqs]}, '
+    assert launches[attn] == cfg.num_layers * steps, \
+        (attn, launches[attn], steps)
+    if kv_quant:
+        assert launches['paged_attention'] == 0, launches
+    log(f'{tag} 4 requests, prompts {[len(r.prompt) for r in reqs]}, '
         f'{stats["tokens"]} new tokens in {dt:.3f}s -> '
         f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
         f'({dt / steps * 1e3:.2f} ms/step); mean TTFT '
         f'{stats["mean_ttft_s"]:.3f}s (p50 {report["p50_ttft_s"]:.3f}s); '
         f'mean latency {stats["mean_latency_s"]:.3f}s; peak memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    log(f'[engine] launches {json.dumps(launches)} over {steps} steps; all '
-        f'requests FINISHED with 16 tokens (finite logits)')
+    log(f'{tag} launches {json.dumps(launches)} over {steps} steps '
+        f'({attn}: {cfg.num_layers} a step); all requests FINISHED with 16 '
+        'tokens (finite logits)')
     profile_engine(eng, [Request(uid=10 + i, prompt=rng.integers(
         3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
         max_new_tokens=16) for i in range(4)])
-    return launches
+    return launches, [r.generated for r in reqs], cache_bytes(eng)
 
 
 def profile_engine(eng, reqs) -> None:
@@ -944,11 +1200,14 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
                     max_new_tokens=new_tokens) for i, t in enumerate(made)]
 
 
-def phase_paged(cfg, tag: str, attn_kernel: str, device='cuda',
-                dtype=torch.bfloat16) -> dict:
+def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
+                device='cuda', dtype=torch.bfloat16) -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
-    16 new tokens each; every attend goes through ``attn_kernel``."""
+    16 new tokens each; every attend goes through ``attn_kernel``. With
+    ``int8``, the same waves again on the same weights through an int8
+    pool, every attend through ``paged_attention_quant``. -> launches by
+    run (``tag``, ``tag + '_int8'``)."""
     on_card = torch.device(device).type == 'cuda'
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -965,21 +1224,48 @@ def phase_paged(cfg, tag: str, attn_kernel: str, device='cuda',
         + f', vocab {cfg.vocab_size}; weights + table made in '
         f'{time.perf_counter() - t0:.1f}s; table '
         f'{tuple(table.table.shape)} {str(table.table.dtype)[6:]}')
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
+    reqs = glm_requests(cfg, rng, system, 0)
+    warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
+    runs = [(tag, attn_kernel, False)]
+    if int8:
+        runs.append((tag + '_int8', 'paged_attention_quant', True))
+    out = {}
+    for run_tag, kernel, kv_quant in runs:
+        out[run_tag] = serve_waves(model, params, table, run_tag, kernel,
+                                   kv_quant, system, warm, reqs, rng, device,
+                                   dtype)
+        if on_card:
+            free()
+    if int8:
+        (l16, tok16, b16), (l8, tok8, b8) = out[tag], out[tag + '_int8']
+        log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
+            f'({b8 / b16:.3f}); greedy tokens equal to the bf16 run\'s: '
+            f'{token_share(tok8, tok16)} (reported, not checked)')
+    return {k: v[0] for k, v in out.items()}
+
+
+def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
+                warm, reqs, rng, device, dtype):
+    """One paged engine over the two waves of ``reqs`` (fresh Request
+    objects with their prompts). -> (launches, greedy tokens, pool
+    bytes)."""
+    cfg = model.cfg
+    on_card = torch.device(device).type == 'cuda'
     eng = ServingEngine(model, params, max_slots=GLM_SLOTS, max_seq=GLM_SEQ,
                         precomputed=table, seed=SEED, dtype=dtype,
                         chunk_size=16, fused_gather_rope=True,
                         prefix_cache=True, page_size=GLM_PS,
-                        attn_backend='cuda', device=device)
+                        kv_quant=kv_quant, attn_backend='cuda', device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint
     log(f'[{tag}] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
-        f'x {cfg.num_layers} layers')
-    rng = np.random.default_rng(SEED)
-    system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
-    reqs = glm_requests(cfg, rng, system, 0)
+        f'x {cfg.num_layers} layers, leaves '
+        f'{sorted(eng._pools[0][0])}')
+    reqs = [Request(uid=r.uid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
     # warm-up (cuBLAS handles, allocator) with tokens no request shares
-    warm = Request(uid=100, prompt=rng.integers(
-        3, cfg.vocab_size, size=40).astype(np.int32), max_new_tokens=2)
-    eng.submit(warm)
+    eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
     eng.run()
     if on_card:
         torch.cuda.synchronize()
@@ -1015,6 +1301,8 @@ def phase_paged(cfg, tag: str, attn_kernel: str, device='cuda',
     steps = eng.steps - steps0
     assert launches[attn_kernel] == cfg.num_layers * steps, \
         (attn_kernel, launches[attn_kernel], steps)
+    if kv_quant:
+        assert launches['paged_attention'] == 0, launches
     ttft = [[r.first_token_t - r.submit_t for r in w]
             for w in (reqs[:4], reqs[4:])]
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
@@ -1031,12 +1319,14 @@ def phase_paged(cfg, tag: str, attn_kernel: str, device='cuda',
         f'{stats["cow_copies"]}, pages in use {stats["pages_in_use"]}, '
         f'preemptions {stats["preemptions"]}, MoE token drops '
         f'{eng.moe_token_drops - drops0}')
-    log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps; all '
-        f'requests FINISHED with 16 tokens (finite logits)')
+    log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
+        f'({attn_kernel}: {cfg.num_layers} a step); all requests FINISHED '
+        'with 16 tokens (finite logits)')
     if on_card:
         profile_engine(eng, glm_requests(cfg, rng, system, 200,
                                          tails=(50, 17, 90, 33)))
-    return launches
+    pool_bytes = nbytes(*[x for pool, _ in eng._pools for x in pool.values()])
+    return launches, [r.generated for r in reqs], pool_bytes
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1096,6 +1386,19 @@ class ReferenceAttendKernelWrites(ReferenceBackend):
 
 
 def phase_consistency(device='cuda') -> None:
+    """The smoke configs with fp32 and then int8 KV caches; deepseek's
+    tokens (latent caches, which ignore kv_quant) must not change."""
+    ds_tokens = {kv_quant: consistency(kv_quant, device)
+                 for kv_quant in (False, True)}
+    assert ds_tokens[True] == ds_tokens[False], \
+        'deepseek tokens changed with kv_quant=True'
+    log(f'[consistency int8] {DS} fp32: kv_quant=True gives the tokens of '
+        f'kv_quant=False ({sum(map(len, ds_tokens[True]))} tokens)')
+
+
+def consistency(kv_quant: bool, device) -> list:
+    """-> deepseek's dense reference tokens."""
+    tag = '[consistency int8]' if kv_quant else '[consistency]'
     cfg = get_smoke_config('mistral_7b')
     model = Model(cfg)
     params = model.init(SEED, device=device, dtype=torch.float32)
@@ -1108,7 +1411,8 @@ def phase_consistency(device='cuda') -> None:
         eng = ServingEngine(model, params, max_slots=3, max_seq=96,
                             precomputed=table, seed=SEED, chunk_size=4,
                             fused_gather_rope=True, attn_backend=backend,
-                            dtype=torch.float32, device=device)
+                            kv_quant=kv_quant, dtype=torch.float32,
+                            device=device)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -1117,7 +1421,7 @@ def phase_consistency(device='cuda') -> None:
         assert all(r.status is RequestStatus.FINISHED for r in reqs)
         out[backend] = [r.generated for r in reqs]
     assert out['cuda'] == out['reference'], out
-    log(f'[consistency] {cfg.name} fp32: greedy tokens of the cuda and '
+    log(f'{tag} {cfg.name} fp32: greedy tokens of the cuda and '
         f'reference backends equal ({sum(map(len, out["cuda"]))} tokens, '
         f'{len(prompts)} requests)')
 
@@ -1135,7 +1439,8 @@ def phase_consistency(device='cuda') -> None:
             eng = ServingEngine(model, params, max_slots=3, max_seq=128,
                                 precomputed=table, seed=SEED, chunk_size=8,
                                 fused_gather_rope=True, attn_backend=backend,
-                                dtype=torch.float32, device=device, **kw)
+                                kv_quant=kv_quant, dtype=torch.float32,
+                                device=device, **kw)
             reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
                     for i, p in enumerate(prompts)]
             for r in reqs:
@@ -1146,6 +1451,8 @@ def phase_consistency(device='cuda') -> None:
             return [r.generated for r in reqs], eng
 
         tokens, _ = serve('reference', 0)
+        if name == DS:
+            ds_tokens = tokens
         # 16 pages: prefix hits and a copy-on-write; 12: preemptions as well
         for num_pages in (16, 12):
             runs = {'paged cuda': serve('cuda', num_pages),
@@ -1163,6 +1470,7 @@ def phase_consistency(device='cuda') -> None:
                                       ('paged cuda', False)):
                 pools = runs[label][1]._pools
                 for li, ((ca, _), (cb, _)) in enumerate(zip(plain, pools)):
+                    assert sorted(ca) == sorted(cb)
                     for nm in ca:
                         # layers past 0 store K/V (latents) computed from
                         # the attention output, which the cuda kernel
@@ -1170,14 +1478,15 @@ def phase_consistency(device='cuda') -> None:
                         if every_leaf or li == 0 or nm == 'pos':
                             assert torch.equal(ca[nm], cb[nm]), \
                                 (label, num_pages, li, nm)
-            log(f'[consistency] {cfg.name} fp32 paged, {num_pages} pages '
+            leaves = sorted(plain[0][0])
+            log(f'{tag} {cfg.name} fp32 paged, {num_pages} pages '
                 f'({eng.cow_copies} copy-on-write, {eng.preemptions} '
                 f'preemptions): greedy tokens of paged cuda, paged reference '
                 f'and dense reference equal ({sum(map(len, tokens))} tokens); '
-                'pool '
-                'leaves after the kernel write path bitwise equal to the plain '
-                'write path on every layer; paged cuda vs reference pools '
-                'bitwise on layer 0 and every position leaf')
+                f'pool leaves {leaves} after the kernel write path bitwise '
+                'equal to the plain write path on every layer; paged cuda vs '
+                'reference pools bitwise on layer 0 and every position leaf')
+    return ds_tokens
 
 
 def main() -> None:
@@ -1193,29 +1502,34 @@ def main() -> None:
     rows['cow_page_copy'] = check_cow_page_copy(gen)
     rows['paged_attention_mla'] = check_paged_attention_mla(gen)
     check_mla_page_writes(gen)
+    rows['paged_attention_quant'] = check_paged_attention_quant(gen)
+    check_quant_page_writes(gen)
     free()
-    phases = {'mistral': phase_mistral()}
+    phases = phase_mistral()
     free()
-    phases['glm4'] = phase_paged(get_config('glm4_9b'), 'glm4',
-                                 'paged_attention')
+    phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
+                              'paged_attention', int8=True))
     free()
-    phases['deepseek'] = phase_paged(get_config(DS), 'deepseek',
-                                     'paged_attention_mla')
+    phases.update(phase_paged(get_config(DS), 'deepseek',
+                              'paged_attention_mla'))
     free()
     phases['pressure'] = phase_pressure()
     phase_consistency()
     # each kernel's launches on the engine path its row was measured for
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',
-                 'cow_page_copy': 'glm4', 'paged_attention_mla': 'deepseek'}
-    sources = dict({name: f'src/repro_torch/csrc/{name}.cu' for name in rows},
-                   paged_attention_mla='src/repro_torch/csrc/'
-                   'paged_attention.cu')
+                 'cow_page_copy': 'glm4', 'paged_attention_mla': 'deepseek',
+                 'paged_attention_quant': 'glm4_int8'}
+    sources = {name: f'src/repro_torch/csrc/{name}.cu' for name in rows}
+    for form in ('paged_attention_mla', 'paged_attention_quant'):
+        sources[form] = 'src/repro_torch/csrc/paged_attention.cu'
+
     replaces = {
         'embed_gather': 'src/repro/kernels/embed_gather.py:30',
         'gather_rope': 'src/repro/kernels/gather_rope.py:60',
         'paged_attention': 'src/repro/kernels/paged_attention.py:129',
         'paged_attention_mla': 'src/repro/kernels/paged_attention.py:129',
+        'paged_attention_quant': 'src/repro/kernels/paged_attention.py:129',
         'fused_page_write': 'src/repro/kernels/paged_maintenance.py:131',
         'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217'}
     kernels = [dict(name=name, route='cuda',

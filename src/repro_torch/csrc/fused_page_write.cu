@@ -25,10 +25,11 @@
 // int32 position leaf) go in the same launch; a leaf is described by its
 // pool pointer, the byte strides of its (slot, lane) chunk rows, its row
 // width in bytes and its fill value's bytes, so elements of 4, 2 and 1
-// bytes (fp32 / bf16 K/V, int32 positions, later int8 K/V) take the same
-// code. Each leaf is moved in the widest access (16, 8, 4, 2 or 1 bytes)
-// that its row width, base addresses and strides allow: 16 bytes per
-// thread for the 512-byte K/V rows of glm4-9b, 4 for the position leaf.
+// bytes (fp32 / bf16 / int8 K/V, bf16 scales, int32 positions) take the
+// same code. Each leaf is moved in the widest access (16, 8, 4, 2 or 1
+// bytes) that its row width, base addresses and strides allow: 16 bytes per
+// thread for the 512-byte K/V rows of glm4-9b, 4 for the position leaf and
+// for its int8 cache's 4-byte scale rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

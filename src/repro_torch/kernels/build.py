@@ -52,8 +52,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # scale, window, q_code, kv_code, stream
         'paged_attention_mla': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _I, _I, _I, _P),
-        # rows, q width, value width, mla -> dynamic shared bytes per block
-        # (0: too large)
+        # q, k, v, k_scale, v_scale, cpos, table, pos0, out, B, T, KV, G,
+        # d, NP, ps, P, scale, window, q_code, stream
+        'paged_attention_quant': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        # rows, q width, value width, form (0 dense, 1 MLA, 2 int8) ->
+        # dynamic shared bytes per block (0: too large)
         'paged_attention_smem': (_I, _I, _I, _I)},
     'fused_page_write': {
         # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,

@@ -2,12 +2,13 @@
 that view a dense ring cache as identity-table pages.
 
 Port of ``repro/kernels/paged_attention.py::paged_attention`` (Pallas),
-with its MLA (``mla_split``) variant and without its int8 (``quant``) one.
-The CUDA kernels are in ``repro_torch/csrc/paged_attention.cu``: one block
-per (slot, kv head, tile of the T·G query rows) walks the slot's pages
-through the table with an fp32 online softmax, so any chunk length and
-group size fit one launch. The MLA form is its own kernel and wrapper,
-:func:`paged_attention_mla`, with its own launch count.
+with its MLA (``mla_split``) and int8 (``quant``) variants. The CUDA
+kernels are in ``repro_torch/csrc/paged_attention.cu``: one block per
+(slot, kv head, tile of the T·G query rows) walks the slot's pages through
+the table with an fp32 online softmax, so any chunk length and group size
+fit one launch. The MLA and int8 forms are their own kernels and wrappers,
+:func:`paged_attention_mla` and :func:`paged_attention_quant`, each with
+its own launch count.
 
 Contract (as the JAX kernel): q (B, T, KV, G, dq) post-RoPE queries, lane t
 at position ``pos0 + t``; k/v pages (NP, ps, KV, d); stored positions
@@ -22,6 +23,12 @@ the rotary keys ``kpe`` (NP, ps, 1, dr), scores are ``q_abs·ckv +
 q_pe·kpe`` and the values are the ckv rows again; out (B, T, 1, H, r).
 q and the pages may differ in dtype (the MLA attend passes fp32 queries
 over bf16 pages); the kernels compute in fp32.
+
+int8 form: int8 k/v pages with bf16 scales ``k_scale_pages`` /
+``v_scale_pages`` (NP, ps, KV), one per (token, kv head); scores are
+``(q·k)·k_scale·scale``, the running sum ``l`` takes the probabilities
+``p`` and the value mix ``p·v_scale`` (the JAX kernel's order); q stays in
+its own dtype (bf16 or fp32), and so does the output.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import dtype_code, on_cpu, require
+
+# kernel forms (csrc/paged_attention.cu), for paged_attention_smem
+FORM_DENSE, FORM_MLA, FORM_QUANT = 0, 1, 2
 
 
 def page_validity(cpos: torch.Tensor, pos_t: torch.Tensor,
@@ -50,10 +60,12 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           pos0: torch.Tensor, *, scale: float,
                           window: int = 0,
                           k2_pages: Optional[torch.Tensor] = None,
+                          k_scale_pages: Optional[torch.Tensor] = None,
+                          v_scale_pages: Optional[torch.Tensor] = None,
                           mla_split: int = 0) -> torch.Tensor:
     """The kernels' plain version: gather each slot's pages into a dense
     virtual cache, then masked fp32 softmax attention (mirrors the JAX
-    oracle ``ref.paged_attention_ref``, MLA form included)."""
+    oracle ``ref.paged_attention_ref``, MLA and int8 forms included)."""
     B, T = q.shape[:2]
     P, ps = table.shape[1], k_pages.shape[1]
     tab = table.long()
@@ -72,12 +84,18 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
         v = k1
     else:
         s = torch.einsum('btkgd,bskd->bkgts', qf, virt(k_pages).float())
+        if k_scale_pages is not None:
+            ks = virt(k_scale_pages).float()                     # (B,S,KV)
+            s = s * ks.transpose(1, 2)[:, :, None, None, :]
         v = virt(v_pages).float()
     s = s * scale
     valid = page_validity(cp, pos_t, window)[:, None, None]      # (B,1,1,T,S)
     s = s.masked_fill(~valid, float('-inf'))
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid, p, torch.zeros((), device=q.device))  # empty -> 0
+    if v_scale_pages is not None:
+        vs = virt(v_scale_pages).float()
+        p = p * vs.transpose(1, 2)[:, :, None, None, :]
     o = torch.einsum('bkgts,bskd->btkgd', p, v)
     return o.to(q.dtype)
 
@@ -92,6 +110,20 @@ def _check_common(name: str, q: torch.Tensor, cpos_pages: torch.Tensor,
             and table.dtype == torch.int32, name, 'table must be (B, P) int32')
     require(pos0.shape == (B,) and pos0.dtype == torch.int32, name,
             'pos0 must be (B,) int32')
+
+
+def _check_kv_types(name: str, k_pages: torch.Tensor,
+                    k_scale_pages: Optional[torch.Tensor],
+                    v_scale_pages: Optional[torch.Tensor]) -> None:
+    """int8 pages come with both scale leaves and only they do, on the CPU
+    as on the card: an int8 cache never runs without its scales."""
+    int8 = k_pages.dtype == torch.int8
+    scales = (k_scale_pages is not None, v_scale_pages is not None)
+    require(not int8 or all(scales), name,
+            'int8 K/V pages need k_scale_pages and v_scale_pages '
+            '(paged_attention_quant)')
+    require(int8 or not any(scales), name,
+            f'scales go with int8 K/V pages only, got {k_pages.dtype} pages')
 
 
 def _check_contiguous(name: str, **tensors: torch.Tensor) -> None:
@@ -118,6 +150,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_mla(q, k_pages, k2_pages, cpos_pages, table,
                                    pos0, scale=scale, window=window)
     name = 'paged_attention'
+    _check_kv_types(name, k_pages, None, None)
     if on_cpu(name, q, k_pages, v_pages, cpos_pages, table, pos0):
         return paged_attention_plain(q, k_pages, v_pages, cpos_pages, table,
                                      pos0, scale=scale, window=window)
@@ -136,7 +169,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                       cpos_pages=cpos_pages, table=table, pos0=pos0)
     codes = dtype_code(name, q), dtype_code(name, k_pages)
     lib = build.load(name)
-    require(lib.paged_attention_smem(T * G, d, d, 0) > 0, name,
+    require(lib.paged_attention_smem(T * G, d, d, FORM_DENSE) > 0, name,
             f'a tile of query rows of width {d} exceeds one block\'s shared '
             'memory')
     out = torch.empty_like(q)
@@ -186,7 +219,7 @@ def paged_attention_mla(q: torch.Tensor, ckv_pages: torch.Tensor,
                       cpos_pages=cpos_pages, table=table, pos0=pos0)
     codes = dtype_code(name, q), dtype_code(name, ckv_pages)
     lib = build.load('paged_attention')
-    require(lib.paged_attention_smem(T * H, dq, r, 1) > 0, name,
+    require(lib.paged_attention_smem(T * H, dq, r, FORM_MLA) > 0, name,
             f'a tile of query rows of width {dq} exceeds one block\'s shared '
             'memory')
     out = torch.empty((B, T, 1, H, r), dtype=q.dtype, device=q.device)
@@ -200,6 +233,61 @@ def paged_attention_mla(q: torch.Tensor, ckv_pages: torch.Tensor,
 
 
 paged_attention_mla.launches = 0
+
+
+def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, k_scale_pages: torch.Tensor,
+                          v_scale_pages: torch.Tensor,
+                          cpos_pages: torch.Tensor, table: torch.Tensor,
+                          pos0: torch.Tensor, *, scale: float,
+                          window: int = 0) -> torch.Tensor:
+    """The int8 form: q (B, T, KV, G, d) in float32 or bfloat16, int8 k/v
+    pages (NP, ps, KV, d), bf16 scales (NP, ps, KV) -> (B, T, KV, G, d) in
+    q's dtype. CPU tensors take :func:`paged_attention_plain` with the
+    scales; CUDA tensors launch the int8 kernel. Counts launches in
+    ``paged_attention_quant.launches``."""
+    name = 'paged_attention_quant'
+    _check_kv_types(name, k_pages, k_scale_pages, v_scale_pages)
+    if on_cpu(name, q, k_pages, v_pages, k_scale_pages, v_scale_pages,
+              cpos_pages, table, pos0):
+        return paged_attention_plain(q, k_pages, v_pages, cpos_pages, table,
+                                     pos0, scale=scale, window=window,
+                                     k_scale_pages=k_scale_pages,
+                                     v_scale_pages=v_scale_pages)
+    require(q.dim() == 5, name, f'q must be (B, T, KV, G, d), got '
+            f'{tuple(q.shape)}')
+    B, T, KV, G, d = q.shape
+    NP, ps = k_pages.shape[:2]
+    require(k_pages.shape == (NP, ps, KV, d) and v_pages.shape == k_pages.shape
+            and v_pages.dtype == torch.int8, name,
+            f'k/v pages must be int8 (NP, ps, {KV}, {d}), got '
+            f'{tuple(k_pages.shape)} / {tuple(v_pages.shape)} {v_pages.dtype}')
+    for nm, sc in (('k_scale_pages', k_scale_pages),
+                   ('v_scale_pages', v_scale_pages)):
+        require(sc.shape == (NP, ps, KV) and sc.dtype == torch.bfloat16, name,
+                f'{nm} must be bfloat16 (NP, ps, {KV}), got '
+                f'{tuple(sc.shape)} {sc.dtype}')
+    _check_common(name, q, cpos_pages, table, pos0, NP, ps)
+    _check_contiguous(name, q=q, k_pages=k_pages, v_pages=v_pages,
+                      k_scale_pages=k_scale_pages,
+                      v_scale_pages=v_scale_pages, cpos_pages=cpos_pages,
+                      table=table, pos0=pos0)
+    lib = build.load('paged_attention')
+    require(lib.paged_attention_smem(T * G, d, d, FORM_QUANT) > 0, name,
+            f'a tile of query rows of width {d} exceeds one block\'s shared '
+            'memory')
+    out = torch.empty_like(q)
+    build.check(lib.paged_attention_quant(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+        cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+        out.data_ptr(), B, T, KV, G, d, NP, ps, table.shape[1], float(scale),
+        int(window), dtype_code(name, q), build.stream_of(q)), name)
+    paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0
 
 
 # ========================================== dense caches as identity pages

@@ -19,7 +19,8 @@ merge job covers the page, and page 0 always holds the fill value.
 
 Unlike the Pallas kernel, the CUDA kernel writes only the rows a job
 changes and never copies a page back, and one launch writes every leaf of
-a layer's cache (k, v and the position leaf) from the shared job list.
+a layer's cache (k, v, the int8 cache's k_scale / v_scale, and the
+position leaf) from the shared job list.
 """
 from __future__ import annotations
 

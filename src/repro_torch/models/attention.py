@@ -1,12 +1,18 @@
 """Grouped-query attention with RoPE against dense (ring) KV caches and the
 paged KV pool — the dense-cache and paged parts of
-``repro/models/attention.py`` (without int8 caches and packed prefill).
+``repro/models/attention.py`` (without packed prefill).
 
 Caches are dicts ``{'k': (B, Sc, KV, hd), 'v': (B, Sc, KV, hd),
 'pos': (B, Sc) int32}``; ``pos`` holds each entry's token position (-1 =
 never written), which is all the attend needs to mask ring wraparound,
 windows and unwritten rows. Sliding-window layers keep a ring of
 ``cache_len(window, seq, chunk)`` entries; position p lives at ``p % Sc``.
+
+**int8 caches** (``quant=True``): K/V are int8 with a bf16 scale per
+(token, kv head) in ``k_scale`` / ``v_scale`` (B, Sc, KV), made by
+:func:`_quantize` at every write; the scale leaves are written wherever
+K/V are. The attend folds ``k_scale`` into the scores and ``v_scale`` into
+the probabilities (:func:`_attend_lanes`).
 
 **Caches are updated in place.** JAX returns new cache arrays; PyTorch runs
 eagerly, so :func:`cache_update` and :func:`cache_update_chunk` write the
@@ -69,28 +75,65 @@ def cache_len(window: int, seq_len: int, chunk: int = 1) -> int:
     return min(window + max(0, chunk - 1), seq_len)
 
 
-def make_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window: int = 0,
-               dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
-               device: torch.device | str = 'cuda'
-               ) -> Dict[str, torch.Tensor]:
-    Sc = cache_len(window, seq_len, chunk)
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
-        'k': torch.zeros((batch, Sc, KV, hd), dtype=dtype, device=device),
-        'v': torch.zeros((batch, Sc, KV, hd), dtype=dtype, device=device),
-        'pos': torch.full((batch, Sc), -1, dtype=torch.int32, device=device),
+def _kv_leaves(lead: Tuple[int, ...], KV: int, hd: int, dtype: torch.dtype,
+               quant: bool, device) -> Dict[str, torch.Tensor]:
+    """K/V leaves (and, for int8, their bf16 scales) of leading shape
+    ``lead``, plus the position leaf (-1 = never written)."""
+    kv_dtype = torch.int8 if quant else dtype
+    cache = {
+        'k': torch.zeros(lead + (KV, hd), dtype=kv_dtype, device=device),
+        'v': torch.zeros(lead + (KV, hd), dtype=kv_dtype, device=device),
+        'pos': torch.full(lead, -1, dtype=torch.int32, device=device),
     }
+    if quant:
+        cache['k_scale'] = torch.zeros(lead + (KV,), dtype=torch.bfloat16,
+                                       device=device)
+        cache['v_scale'] = torch.zeros(lead + (KV,), dtype=torch.bfloat16,
+                                       device=device)
+    return cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window: int = 0,
+               dtype: torch.dtype = torch.bfloat16, quant: bool = False,
+               chunk: int = 1, device: torch.device | str = 'cuda'
+               ) -> Dict[str, torch.Tensor]:
+    """Dense (ring) KV cache. ``quant=True``: int8 entries plus bf16
+    per-(token, head) scales."""
+    Sc = cache_len(window, seq_len, chunk)
+    return _kv_leaves((batch, Sc), cfg.num_kv_heads, cfg.head_dim, dtype,
+                      quant, device)
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 values + bf16 symmetric scale per row (...),
+    bitwise as JAX's ``_quantize``: the amax and the division in fp32 by
+    the fp32 scale, round half to even, then the scale stored as bf16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def kv_values(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """The leaf values a K/V write stores: ``k_new``/``v_new`` as they
+    are, or, for an int8 cache, quantized with their scales."""
+    if 'k_scale' not in cache:
+        return {'k': k_new, 'v': v_new}
+    kq, ks = _quantize(k_new)
+    vq, vs = _quantize(v_new)
+    return {'k': kq, 'v': vq, 'k_scale': ks, 'v_scale': vs}
 
 
 def cache_update(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: torch.Tensor) -> Dict:
     """Write one decode step (B, 1, KV, hd) at ring index ``pos % Sc``, in
-    place."""
-    Sc = cache['k'].shape[1]
+    place (int8 caches: with the scales)."""
+    Sc = cache['pos'].shape[1]
     idx = (pos.long() % Sc)
-    bidx = torch.arange(cache['k'].shape[0], device=idx.device)
-    cache['k'][bidx, idx] = k_new[:, 0].to(cache['k'].dtype)
-    cache['v'][bidx, idx] = v_new[:, 0].to(cache['v'].dtype)
+    bidx = torch.arange(cache['pos'].shape[0], device=idx.device)
+    for nm, val in kv_values(cache, k_new[:, 0], v_new[:, 0]).items():
+        cache[nm][bidx, idx] = val.to(cache[nm].dtype)
     cache['pos'][bidx, idx] = pos.to(torch.int32)
     return cache
 
@@ -148,8 +191,10 @@ def ring_chunk_write(cache: Dict, vals: Dict[str, torch.Tensor],
 def cache_update_chunk(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                        pos0: torch.Tensor, n_valid: torch.Tensor) -> Dict:
     """Write a whole chunk (B, T, KV, hd) at ring indices ``(pos0 + t) %
-    Sc`` for ``t < n_valid``, in place (:func:`ring_chunk_write`)."""
-    return ring_chunk_write(cache, {'k': k_new, 'v': v_new}, pos0, n_valid)
+    Sc`` for ``t < n_valid``, in place (:func:`ring_chunk_write`; int8
+    caches: quantized, with the scales)."""
+    return ring_chunk_write(cache, kv_values(cache, k_new, v_new), pos0,
+                            n_valid)
 
 
 # ================================================================== paged KV
@@ -202,21 +247,14 @@ class PageTables:
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
-                     dtype: torch.dtype = torch.bfloat16,
+                     dtype: torch.dtype = torch.bfloat16, quant: bool = False,
                      device: torch.device | str = 'cuda'
                      ) -> Dict[str, torch.Tensor]:
     """Pool-shaped KV storage: the leaves of :func:`make_cache` with
     leading axes (num_pages, page_size). Page 0 is the null page and must
     stay in this initial state."""
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
-        'k': torch.zeros((num_pages, page_size, KV, hd), dtype=dtype,
-                         device=device),
-        'v': torch.zeros((num_pages, page_size, KV, hd), dtype=dtype,
-                         device=device),
-        'pos': torch.full((num_pages, page_size), -1, dtype=torch.int32,
-                          device=device),
-    }
+    return _kv_leaves((num_pages, page_size), cfg.num_kv_heads, cfg.head_dim,
+                      dtype, quant, device)
 
 
 def paged_view(cache: Dict, table: torch.Tensor, Sc: int
@@ -297,10 +335,11 @@ def chunk_write(cache: Dict, k_h: torch.Tensor, v_h: torch.Tensor,
                 pos0: torch.Tensor, n_valid: torch.Tensor, *, window: int,
                 paged: Optional[PageTables], backend=None) -> Dict:
     """Chunk K/V write into the stored cache, in place: the dense ring
-    update, or :func:`paged_write` in paged mode."""
+    update, or :func:`paged_write` in paged mode (int8 caches: quantized,
+    with the scales)."""
     if paged is None:
         return cache_update_chunk(cache, k_h, v_h, pos0, n_valid)
-    return paged_write(cache, {'k': k_h, 'v': v_h}, pos0, n_valid,
+    return paged_write(cache, kv_values(cache, k_h, v_h), pos0, n_valid,
                        window=window, paged=paged, backend=backend)
 
 
@@ -327,10 +366,17 @@ def decode_step(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
 def _attend_lanes(q: torch.Tensor, cache: Dict, pos_t: torch.Tensor,
                   cfg: ModelConfig, window: int) -> torch.Tensor:
     """Masked softmax attention of (B, T', KV, G, hd) post-RoPE queries at
-    positions ``pos_t`` (B, T') against the cache -> (B, T', KV, G, hd)."""
+    positions ``pos_t`` (B, T') against the cache -> (B, T', KV, G, hd).
+    int8 caches: the scores are multiplied by ``k_scale`` and then by
+    ``hd**-0.5``; ``v_scale`` multiplies the probabilities after the
+    softmax; the output takes q's dtype (as JAX)."""
     hd = cfg.head_dim
-    scores = torch.einsum('btkgd,bskd->bkgts', q.float(),
-                          cache['k'].float()) * hd ** -0.5
+    quant = 'k_scale' in cache
+    scores = torch.einsum('btkgd,bskd->bkgts', q.float(), cache['k'].float())
+    if quant:
+        scores = scores * cache['k_scale'].float() \
+            .transpose(1, 2)[:, :, None, None, :]
+    scores = scores * hd ** -0.5
     cp = cache['pos'][:, None, None, None, :]                # (B,1,1,1,Sc)
     qp = pos_t[:, None, None, :, None]                       # (B,1,1,T',1)
     valid = (cp >= 0) & (cp <= qp)
@@ -339,6 +385,10 @@ def _attend_lanes(q: torch.Tensor, cache: Dict, pos_t: torch.Tensor,
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     v = cache['v']
+    if quant:
+        pv = probs * cache['v_scale'].float() \
+            .transpose(1, 2)[:, :, None, None, :]
+        return torch.einsum('bkgts,bskd->btkgd', pv, v.float()).to(q.dtype)
     return torch.einsum('bkgts,bskd->btkgd', probs.to(v.dtype), v)
 
 

@@ -9,11 +9,13 @@
   (``kernels/paged_attention.py``). Pool pages are read in place through
   the slot's page table; a dense (B, Sc, ...) cache is viewed, without a
   copy, as identity-table pages. All T query lanes of a chunk go in one
-  launch. MLA layers take the kernel's MLA form (``paged_attention_mla``)
-  over the latent pages, with W_UK absorbed into the fp32 query. It
-  declares ``fused_maintenance``: paged writes go through the
-  ``fused_page_write`` job list with deferred clears, and the engine's
-  copy-on-write through ``cow_page_copy``
+  launch. int8 caches take the kernel's int8 form
+  (``paged_attention_quant``) with the scale leaves, the queries in the
+  model's dtype. MLA layers take the kernel's MLA form
+  (``paged_attention_mla``) over the latent pages, with W_UK absorbed into
+  the fp32 query. It declares ``fused_maintenance``: paged writes go
+  through the ``fused_page_write`` job list with deferred clears, and the
+  engine's copy-on-write through ``cow_page_copy``
   (``kernels/paged_maintenance.py``). On CPU tensors the kernel wrappers
   run their plain versions, so the backend's plumbing is testable without
   a card.
@@ -97,10 +99,9 @@ class CudaBackend(AttnBackend):
 
     def attend_chunk(self, q, cache, pos0, cfg, *, rope_theta, window=0,
                      rope_applied=False, paged=None):
-        from repro_torch.kernels.paged_attention import (dense_as_pages,
-                                                         dense_identity_table,
-                                                         dense_page_split,
-                                                         paged_attention)
+        from repro_torch.kernels.paged_attention import (
+            dense_as_pages, dense_identity_table, dense_page_split,
+            paged_attention, paged_attention_quant)
         B, T = q.shape[0], q.shape[1]
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q = q.reshape(B, T, H, hd)
@@ -108,20 +109,25 @@ class CudaBackend(AttnBackend):
             pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
             q = L.apply_rope(q, pos_t, rope_theta)
         k = cache['k']
-        # the kernel reads q, K and V in one dtype: queries follow the cache
-        qg = q.reshape(B, T, KV, H // KV, hd).to(k.dtype).contiguous()
+        quant = 'k_scale' in cache
+        names = ('k', 'v', 'k_scale', 'v_scale', 'pos') if quant \
+            else ('k', 'v', 'pos')
         if paged is not None:                 # pool pages, in place
             table, _ = paged.table_for(window, k.shape[1])
-            pages = (k, cache['v'], cache['pos'])
+            pages = [cache[nm] for nm in names]
         else:                                 # dense caches as pages
             Sc = k.shape[1]
             ps = dense_page_split(Sc)
-            pages = (dense_as_pages(k, ps), dense_as_pages(cache['v'], ps),
-                     dense_as_pages(cache['pos'], ps))
+            pages = [dense_as_pages(cache[nm], ps) for nm in names]
             table = dense_identity_table(B, Sc, ps, q.device)
-        ctx = paged_attention(qg, *pages, table,
-                              pos0.to(torch.int32).contiguous(),
-                              scale=hd ** -0.5, window=window)
+        pos0 = pos0.to(torch.int32).contiguous()
+        qg = q.reshape(B, T, KV, H // KV, hd)
+        if quant:                             # q keeps its dtype over int8
+            ctx = paged_attention_quant(qg.contiguous(), *pages, table, pos0,
+                                        scale=hd ** -0.5, window=window)
+        else:       # one dtype for q, K and V: queries follow the cache
+            ctx = paged_attention(qg.to(k.dtype).contiguous(), *pages, table,
+                                  pos0, scale=hd ** -0.5, window=window)
         return ctx.reshape(B, T, H * hd).to(q.dtype)
 
     def attend_mla(self, params, q_nope, q_pe, cache, pos0, cfg, *,

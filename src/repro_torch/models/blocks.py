@@ -87,9 +87,10 @@ def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
 def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
                      device: torch.device | str = 'cuda', num_pages: int = 0,
-                     page_size: int = 0) -> Dict:
+                     page_size: int = 0, quant: bool = False) -> Dict:
     """``num_pages > 0`` builds paged-KV storage (a global page pool
-    instead of per-slot caches)."""
+    instead of per-slot caches); ``quant`` makes K/V caches int8 with
+    scales (MLA latent caches ignore it, as in JAX)."""
     _supported(cfg, kind)
     if cfg.mla:
         if num_pages:
@@ -98,18 +99,22 @@ def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
         return M.mla_make_cache(cfg, batch, seq_len, dtype, device)
     if num_pages:
         return A.make_paged_cache(cfg, num_pages, page_size, dtype=dtype,
-                                  device=device)
+                                  quant=quant, device=device)
     return A.make_cache(cfg, batch, seq_len, window=kind_window(cfg, kind),
-                        dtype=dtype, chunk=chunk, device=device)
+                        dtype=dtype, quant=quant, chunk=chunk, device=device)
 
 
-def block_paged_mask(cfg: ModelConfig, kind: str) -> Dict[str, bool]:
+def block_paged_mask(cfg: ModelConfig, kind: str,
+                     quant: bool = False) -> Dict[str, bool]:
     """Same keys as paged :func:`block_make_state`, True on page-pool
     leaves (shared, never slot-reset) — every leaf of an attention kind."""
     _supported(cfg, kind)
     if cfg.mla:
         return {'ckv': True, 'kpe': True, 'pos': True}
-    return {'k': True, 'v': True, 'pos': True}
+    m = {'k': True, 'v': True, 'pos': True}
+    if quant:
+        m.update(k_scale=True, v_scale=True)
+    return m
 
 
 def block_decode(params: Dict, h: torch.Tensor, state: Dict,

@@ -63,17 +63,18 @@ class Model:
     def make_states(self, batch: int, seq_len: int,
                     dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
                     device: torch.device | str = 'cuda', num_pages: int = 0,
-                    page_size: int = 0) -> Dict:
+                    page_size: int = 0, kv_quant: bool = False) -> Dict:
         """``num_pages > 0`` builds paged-KV storage: attention caches
         become a global (num_pages, page_size, ...) pool addressed through
-        page tables."""
+        page tables. ``kv_quant``: int8 K/V with bf16 per-(token, head)
+        scales (MLA latent caches stay in ``dtype``)."""
         return T.backbone_make_states(self.cfg, batch, seq_len, dtype, chunk,
-                                      device, num_pages, page_size)
+                                      device, num_pages, page_size, kv_quant)
 
-    def paged_state_mask(self) -> Dict:
+    def paged_state_mask(self, kv_quant: bool = False) -> Dict:
         """Bool tree matching paged ``make_states``: True on page-pool
         leaves, False on per-slot state."""
-        return T.backbone_paged_mask(self.cfg)
+        return T.backbone_paged_mask(self.cfg, kv_quant)
 
     def build_table(self, params: Dict) -> PC.PrecomputedTable:
         return PC.build_precomputed_table(params, self.cfg)

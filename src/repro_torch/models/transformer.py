@@ -78,9 +78,11 @@ def lm_logits(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
                          dtype: torch.dtype = torch.bfloat16, chunk: int = 1,
                          device: torch.device | str = 'cuda',
-                         num_pages: int = 0, page_size: int = 0) -> Dict:
+                         num_pages: int = 0, page_size: int = 0,
+                         quant: bool = False) -> Dict:
     """Per-layer caches; ``num_pages > 0`` makes every attention cache a
-    (num_pages, page_size, ...) pool (stacked over reps for ``body``)."""
+    (num_pages, page_size, ...) pool (stacked over reps for ``body``);
+    ``quant`` makes K/V caches int8 with scales."""
     plan = layer_plan(cfg)
     if plan.n_head:
         raise NotImplementedError(
@@ -88,7 +90,7 @@ def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
 
     def mk(kind):
         return block_make_state(cfg, kind, batch, seq_len, dtype, chunk,
-                                device, num_pages, page_size)
+                                device, num_pages, page_size, quant)
 
     st: Dict[str, Any] = {'layer0': mk(plan.kinds[0])}
     if plan.reps:
@@ -99,15 +101,16 @@ def backbone_make_states(cfg: ModelConfig, batch: int, seq_len: int,
     return st
 
 
-def backbone_paged_mask(cfg: ModelConfig) -> Dict:
+def backbone_paged_mask(cfg: ModelConfig, quant: bool = False) -> Dict:
     """Bool tree matching paged :func:`backbone_make_states`: True on
     page-pool leaves, False on per-slot state."""
     plan = layer_plan(cfg)
-    st: Dict[str, Any] = {'layer0': block_paged_mask(cfg, plan.kinds[0])}
+    st: Dict[str, Any] = {
+        'layer0': block_paged_mask(cfg, plan.kinds[0], quant)}
     if plan.reps:
-        st['body'] = [block_paged_mask(cfg, k) for k in plan.slots]
+        st['body'] = [block_paged_mask(cfg, k, quant) for k in plan.slots]
     if plan.n_tail:
-        st['tail'] = [block_paged_mask(cfg, plan.slots[i])
+        st['tail'] = [block_paged_mask(cfg, plan.slots[i], quant)
                       for i in range(plan.n_tail)]
     return st
 

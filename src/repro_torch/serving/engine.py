@@ -62,9 +62,15 @@ clock; a lane whose sampled logits are not finite fails only its request
 budget expires ``FAILED('stalled')``. ``score()`` returns all-position
 prompt logits (logits on demand); scoring requests always prefill cold.
 
+**int8 KV** (``kv_quant=True``): K/V caches and pools hold int8 entries
+with bf16 per-(token, kv head) scales, quantized at every write; slot
+reset, page clears, copy-on-write and preemption treat the scale leaves
+as they treat K/V, and the ``cuda`` backend attends through the int8 form
+of the kernel (``paged_attention_quant``). MLA latent caches ignore it.
+
 Not ported yet, and rejected with ``NotImplementedError``: device meshes,
-the async host loop, segment-packed prefill, the int8 KV cache, telemetry
-recording and fault injection.
+the async host loop, segment-packed prefill, telemetry recording and fault
+injection.
 """
 from __future__ import annotations
 
@@ -184,7 +190,7 @@ class ServingEngine:
                  mesh=None, async_loop: bool = False,
                  device: torch.device | str = 'cuda'):
         unported = {'mesh': mesh, 'async_loop': async_loop,
-                    'pack_prefill': pack_prefill, 'kv_quant': kv_quant,
+                    'pack_prefill': pack_prefill,
                     'telemetry': telemetry, 'fault_injector': fault_injector}
         for name, val in unported.items():
             if val is not None and val is not False:
@@ -235,9 +241,11 @@ class ServingEngine:
                                  'COW/linear headroom)')
             self.kv = PrefixCache(num_pages, page_size)
             self.num_pages = num_pages
+        self.kv_quant = bool(kv_quant)
         self.states = model.make_states(
             max_slots, max_seq, dtype, chunk=chunk_size, device=self.device,
-            num_pages=self.num_pages, page_size=page_size if self.paged else 0)
+            num_pages=self.num_pages, page_size=page_size if self.paged else 0,
+            kv_quant=self.kv_quant)
         # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
         # slot reset; the page pool is never slot-reset (pages are cleared
         # when they are allocated instead)
@@ -245,7 +253,7 @@ class ServingEngine:
         # (pool leaves, reps) of every layer's page pool: reps > 0 for
         # leaves stacked over the layers of a pattern slot
         self._pools = []
-        mask = model.paged_state_mask() if self.paged else None
+        mask = model.paged_state_mask(self.kv_quant) if self.paged else None
         for part, st in self.states.items():
             layers = st if isinstance(st, list) else [st]
             masks = [{}] * len(layers) if mask is None else \

@@ -12,9 +12,12 @@ chunk gives 256 query rows per (slot, kv head). The plain versions of
 ``gather_rope`` over MLA segments in ``tests/test_torch_mla.py``.
 
 Tests marked ``cuda`` hold each CUDA kernel against its plain version on a
-card and skip without one (bitwise for the two page-maintenance kernels;
-the MLA form of ``paged_attention`` and the 17-segment ``gather_rope`` at
-deepseek-v2-lite-16b widths). They import nothing of JAX, so on a machine with
+card and skip without one (bitwise for the two page-maintenance kernels,
+also on the int8 cache's five leaves; the MLA form of ``paged_attention``
+and the 17-segment ``gather_rope`` at deepseek-v2-lite-16b widths; the
+int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths). The
+int8 form's plain version is held against JAX in
+``tests/test_torch_quant.py``. They import nothing of JAX, so on a machine with
 only the port they run with:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -33,7 +36,8 @@ from repro_torch.kernels.paged_attention import (dense_as_pages,
                                                  dense_page_split,
                                                  paged_attention,
                                                  paged_attention_mla,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 paged_attention_quant)
 from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.models.attn_backend import KERNEL_TOL
 
@@ -433,3 +437,145 @@ def test_cow_page_copy_kernel_bitwise(cuda, dtype):
         assert PM.cow_page_copy.launches == n0 + 1
         for nm in cache:
             assert torch.equal(cache[nm], want[nm]), (nm, rem)
+
+
+# ---------------------------------------------------- the int8 KV cache
+def _int8_pages(gen, lead, KV, d, cuda):
+    k = torch.randint(-127, 128, lead + (KV, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, lead + (KV, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    ks = (torch.rand(lead + (KV,), generator=gen, device=cuda) * 0.08
+          + 0.005).to(torch.bfloat16)
+    vs = (torch.rand(lead + (KV,), generator=gen, device=cuda) * 0.08
+          + 0.005).to(torch.bfloat16)
+    return k, v, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('T', [1, 16])
+@pytest.mark.parametrize('shape', ['mistral', 'glm4'])
+def test_paged_attention_quant_kernel_matches_plain(cuda, shape, T, dtype):
+    """int8 pages with bf16 scales: mistral-7b (KV 8, G 4) on dense rings
+    of 512 as identity-table pages, window 300; glm4-9b (KV 2, G 16)
+    through a scattered table. fp32 queries within KERNEL_TOL; bf16 ones
+    within KERNEL_TOL plus one bf16 step of the output (2^-7 of its
+    magnitude): two fp32 sums that differ in their last bits may round to
+    neighbouring bf16 values."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    lengths = [700, 300, 0, 549] if shape == 'mistral' else [300, 271, 0,
+                                                             365]
+    B, d = 4, 128
+    if shape == 'mistral':
+        KV, G, Sc, window = 8, 4, 512, 300
+        k, v, ks, vs = _int8_pages(gen, (B, Sc), KV, d, cuda)
+        cpos = torch.full((B, Sc), -1, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lengths):
+            p = torch.arange(max(0, n - Sc), n, device=cuda)
+            cpos[b, p % Sc] = p.to(torch.int32)
+        ps = dense_page_split(Sc)
+        k, v, ks, vs, cpos = (dense_as_pages(x, ps)
+                              for x in (k, v, ks, vs, cpos))
+        table = dense_identity_table(B, Sc, ps, cuda)
+    else:
+        KV, G, ps, window = 2, 16, 16, 0
+        P = 2048 // ps
+        NP = 1 + B * P
+        k, v, ks, vs = _int8_pages(gen, (NP, ps), KV, d, cuda)
+        table = (torch.randperm(NP - 1, generator=gen, device=cuda) + 1) \
+            .view(B, P).to(torch.int32)
+        cpos = torch.full((NP, ps), -1, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lengths):
+            table[b, -(-n // ps):] = 0
+            p = torch.arange(n, device=cuda)
+            cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    q = torch.randn((B, T, KV, G, d), generator=gen, device=cuda).to(dtype)
+    pos0 = torch.tensor([max(n - T, 0) for n in lengths], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(scale=d ** -0.5, window=window)
+    n0 = (paged_attention.launches, paged_attention_quant.launches)
+    got = paged_attention_quant(q, k, v, ks, vs, cpos, table, pos0, **kw)
+    want = paged_attention_plain(q, k, v, cpos, table, pos0, k_scale_pages=ks,
+                                 v_scale_pages=vs, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention_quant.launches) == \
+        (n0[0], n0[1] + 1)
+    assert got.dtype == dtype and not got[2].any()
+    lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * want.float().abs()
+    if dtype is torch.bfloat16:
+        lim = lim + want.float().abs() * 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_paged_attention_quant_kernel_rejects_int8_without_scales(cuda):
+    k = torch.zeros((4, 8, 2, 16), dtype=torch.int8, device=cuda)
+    q = torch.zeros((1, 1, 2, 2, 16), device=cuda)
+    cpos = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    pos0 = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    n0 = paged_attention.launches
+    with pytest.raises(ValueError, match='need k_scale_pages'):
+        paged_attention(q, k, k, cpos, table, pos0, scale=1.0)
+    assert paged_attention.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ps,Sc,T', [(16, 2048, 16), (16, 2048, 1),
+                                     (16, 27, 16)])
+def test_fused_page_write_kernel_int8_leaves_bitwise(cuda, ps, Sc, T):
+    """glm4-9b's five int8 pool leaves in one launch: int8 k / v, bf16
+    k_scale / v_scale rows of 4 bytes (KV 2), int32 positions."""
+    B, KV, d = 4, 2, 128
+    P = -(-Sc // ps)
+    NP = 1 + B * P + 4
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    leaves = list(_int8_pages(gen, (NP, ps), KV, d, cuda)) + [
+        torch.randint(0, 99, (NP, ps), generator=gen, device=cuda,
+                      dtype=torch.int32)]
+    fills = [0, 0, 0, 0, -1]
+    for x, f in zip(leaves, fills):
+        x[0] = f
+    table = (torch.arange(B * P, dtype=torch.int32, device=cuda)
+             .view(B, P) + 1)
+    pos0 = torch.tensor([Sc - 2, 0, 5, 0], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([T, max(T - 1, 1), T, 0], dtype=torch.int32,
+                           device=cuda)
+    pending = torch.tensor([int(table[1, 0]), NP - 1, 0], dtype=torch.int32,
+                           device=cuda)
+    vals = list(_int8_pages(gen, (B, T), KV, d, cuda)) + [
+        PM.chunk_positions(pos0, T)]
+    jobs = PM.build_jobs(pos0, n_valid, table, Sc, ps, T, pending)
+    want = [PM.fused_page_write_plain(x.clone(), val, jobs, Sc=Sc, fill=f)
+            for x, val, f in zip(leaves, vals, fills)]
+    n0 = PM.fused_page_write.launches
+    PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills)
+    torch.cuda.synchronize()
+    assert PM.fused_page_write.launches == n0 + 1
+    for g, w in zip(leaves, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cow_page_copy_kernel_int8_leaves_bitwise(cuda):
+    reps, NP, ps, KV, d = 39, 20, 16, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+    cache = dict(zip(names, list(_int8_pages(gen, (reps, NP, ps), KV, d,
+                                             cuda))
+                     + [torch.randint(0, 99, (reps, NP, ps), generator=gen,
+                                      device=cuda, dtype=torch.int32)]))
+    for src, dst, rem in ((3, 7, 0), (4, 8, 7), (5, 9, 16)):
+        sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
+                            for r in range(reps)], dtype=torch.int32,
+                           device=cuda)
+        want = {nm: PM.cow_page_copy_plain(
+            x.clone().view((reps * NP,) + x.shape[2:]), sdr,
+            fill=PM.leaf_fill(nm)) for nm, x in cache.items()}
+        n0 = PM.cow_page_copy.launches
+        PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
+        torch.cuda.synchronize()
+        assert PM.cow_page_copy.launches == n0 + 1
+        for nm, x in cache.items():
+            assert torch.equal(x.view(want[nm].shape), want[nm]), (nm, rem)

@@ -141,7 +141,7 @@ def test_deadline_fails_only_the_expired_request(both):
 @pytest.mark.parametrize('option', [dict(prefix_cache=True),
                                     dict(mesh='1x1'), dict(async_loop=True),
                                     dict(pack_prefill=True),
-                                    dict(kv_quant=True), dict(telemetry=True),
+                                    dict(telemetry=True),
                                     dict(fault_injector=object())])
 def test_unported_engine_options_raise(both, option):
     """Options not ported yet raise; ``prefix_cache=True`` is ported for
