@@ -6,10 +6,11 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device   — requires a CUDA device; prints the card's name and power
               limit as nvidia-smi reports them.
-2. build    — compiles the CUDA kernels of the serving paths from
-              src/repro_torch/csrc (one nvcc per source, in parallel):
-              embed_gather, gather_rope, paged_attention (dense, MLA and
-              int8 forms), fused_page_write, cow_page_copy.
+2. build    — compiles the CUDA kernels of the serving paths and the
+              full-sequence forward from src/repro_torch/csrc (one nvcc per
+              source, in parallel): embed_gather, gather_rope,
+              paged_attention (dense, MLA and int8 forms), fused_page_write,
+              cow_page_copy, rmsnorm_matmul, flash_attention.
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
@@ -29,13 +30,24 @@ Phases, in order; any failure raises and exits non-zero:
               on identity-table pages and at glm4-9b shapes through a
               scattered table, and fused_page_write / cow_page_copy on the
               five int8 leaves (k, v int8; k_scale, v_scale bf16 of 4-byte
-              rows; pos) at glm4-9b page shapes (bitwise).
+              rows; pos) at glm4-9b page shapes (bitwise); flash_attention
+              at the shapes of the Model.apply phases (mistral-7b S 8192,
+              32 heads over 8 kv heads, window 4096; glm4-9b S 4096 over 2
+              kv heads, causal) and at a ragged S 4097, bf16 and fp32.
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
               prompts of 64-200 tokens, 16 new tokens each; then the same
-              requests on the same weights with int8 KV caches
-              (kv_quant=True), every attend through paged_attention_quant.
+              requests on the same weights without the table (the
+              baseline) and with int8 KV caches (kv_quant=True), every
+              attend through paged_attention_quant. On the same weights:
+              the paper's layer-0 comparison (embedding rows +
+              rmsnorm_matmul, and F.rms_norm + torch.matmul, against
+              embed_gather of table rows; rmsnorm_matmul held against its
+              plain version) at N 1, 4, 64, 4096, 8192, and Model.apply at
+              B 1, S 8192, baseline and precomputed: ms per forward, launch
+              counts, logits of the two against each other and against the
+              engine's chunked decode of the same prompt.
 5. glm4     — serves glm4-9b at full width through the paged KV pool and
               the radix prefix cache (bf16, seeded random weights,
               precomputed table, page 16, max_seq 2048, chunk 16, fused
@@ -44,7 +56,9 @@ Phases, in order; any failure raises and exits non-zero:
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
               memory; then the same two waves on the same weights through
-              an int8 pool (kv_quant=True).
+              an int8 pool (kv_quant=True); then the layer-0 comparison
+              (N 1, 4, 64, 4096) and Model.apply at B 1, S 4096 as in
+              phase 4.
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
@@ -67,7 +81,9 @@ Phases, in order; any failure raises and exits non-zero:
 In each engine phase the launch counters are zeroed just before the run
 and read just after; every kernel of that path must have run (the int8
 runs: paged_attention_quant once per attention layer and step, the dense
-form never). Ends with a
+form never; the baseline run: no gather). Each Model.apply forward is
+counted on its own: flash_attention once a layer, rmsnorm_matmul once a
+layer without the table and once less with it. Ends with a
 ``{"kernels": [...]}`` line and, last, the device JSON line. Imports
 nothing of JAX or of the JAX package ``repro``.
 """
@@ -92,12 +108,16 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import paged_maintenance as PM  # noqa: E402
 from repro_torch.kernels.embed_gather import (embed_gather,  # noqa: E402
                                               embed_gather_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
                                              gather_rope_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, page_validity,
     paged_attention, paged_attention_mla, paged_attention_plain,
     paged_attention_quant)
+from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
+    EPS, rmsnorm_matmul, rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attention import (_quantize,  # noqa: E402
                                           paged_view)
 from repro_torch.models.blocks import preproj_layout  # noqa: E402
@@ -113,7 +133,8 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
 KERNELS = [embed_gather, gather_rope, paged_attention, paged_attention_mla,
-           paged_attention_quant, PM.fused_page_write, PM.cow_page_copy]
+           paged_attention_quant, PM.fused_page_write, PM.cow_page_copy,
+           rmsnorm_matmul, flash_attention]
 SEED = 0
 
 
@@ -1036,10 +1057,354 @@ def check_quant_page_writes(gen) -> None:
     del cache, k, v, ks, vs
 
 
+# --------------------------------- phase 3: full-sequence flash attention
+# (config, S, window): the shapes Model.apply gives the flash kernel
+# (mistral-7b S 8192 with its 4096 window, glm4-9b S 4096 causal) and a
+# ragged S (not a multiple of any tile)
+FLASH_CASES = (('mistral_7b', 8192, 4096), ('glm4_9b', 4096, 0),
+               ('glm4_9b', 4097, 0))
+# tests/test_kernels.py's tolerances (2e-5 fp32, 3e-2 bf16); and in bf16 a
+# limit scaled by the output, |err| <= 0.02 rms(row) + 0.016 |want|: the
+# kernel rounds its probabilities to bf16 (2^-9 relative), an error that
+# scales with the row's RMS, and its output (one bf16 step is at most
+# 2^-7 |o|). At 4096 keys a row's RMS is ~0.026 (randn inputs), so the
+# limit there is ~5e-4 where 3e-2 is as large as the output; a skipped
+# 64-key tile moves a row by ~8 / sqrt(keys) of its RMS.
+# scripts/flash_mutants.py runs planted faults against it.
+FLASH_TOL = {torch.bfloat16: dict(atol=3e-2, rtol=3e-2),
+             torch.float32: dict(atol=2e-5, rtol=2e-5)}
+FLASH_ROW_TOL = dict(row=0.02, rtol=0.016)
+
+
+def flash_pairs(S: int, window: int) -> int:
+    """Visible (query, key) pairs of one head, causal, within the window:
+    the work this run's inputs need."""
+    i = torch.arange(S, dtype=torch.int64)
+    lo = (i - window + 1).clamp(min=0) if window else torch.zeros_like(i)
+    return int((i - lo + 1).sum())
+
+
+def flash_error(got, want):
+    """The largest |got - want|, and the largest share of the limit
+    ``FLASH_ROW_TOL['row'] * rms(row of want) + FLASH_ROW_TOL['rtol'] *
+    |want|`` that any element uses (over 1 fails)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = (FLASH_ROW_TOL['row'] * rms
+             + FLASH_ROW_TOL['rtol'] * want.abs()).clamp_min(1e-30)
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def check_flash(got, want, dtype) -> tuple:
+    """Holds flash_attention's output against its plain version:
+    ``FLASH_TOL``, and in bf16 also ``FLASH_ROW_TOL``. Returns
+    :func:`flash_error`."""
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    err, share = flash_error(got, want)
+    if dtype is torch.bfloat16 and share > 1:
+        raise AssertionError(f'flash_attention: max |err| {err:.3g} uses '
+                             f'{share:.3f} of the limit {FLASH_ROW_TOL}')
+    return err, share
+
+
+def library_flash_ms(q, k, v, window) -> float:
+    """F.scaled_dot_product_attention with enable_gqa: is_causal for a
+    causal layer, a boolean band mask for a windowed one — a yardstick
+    only; the port never calls it."""
+    S = q.shape[1]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        i = torch.arange(S, device='cuda')
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=band, enable_gqa=True), 3, 3)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 3, 3)
+
+
+def check_flash_attention(gen) -> dict:
+    """flash_attention against its plain version at the shapes of the
+    Model.apply phases and a ragged S, bf16 and fp32 (:func:`check_flash`);
+    timed with the plain version, the library call (bf16) and the
+    bound."""
+    row = {}
+    for name, S, window in FLASH_CASES:
+        cfg = get_config(name)
+        H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        pos = torch.arange(S, dtype=torch.int32, device='cuda')[None]
+        pairs = flash_pairs(S, window)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((1, S, H, d), generator=gen,
+                            device='cuda').to(dtype)
+            k = torch.randn((1, S, KV, d), generator=gen,
+                            device='cuda').to(dtype)
+            v = torch.randn((1, S, KV, d), generator=gen,
+                            device='cuda').to(dtype)
+            kw = dict(window=window)
+            got = flash_attention(q, k, v, pos, **kw)
+            want = flash_attention_plain(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            err, share = check_flash(got, want, dtype)
+            del got, want
+            ms = time_ms(lambda: flash_attention(q, k, v, pos, **kw), 3, 3)
+            plain = time_ms(lambda: flash_attention_plain(q, k, v, pos, **kw),
+                            1, 2)
+            lib = library_flash_ms(q, k, v, window) \
+                if dtype is torch.bfloat16 else None
+            b_ms, by = bound(2 * nbytes(q) + nbytes(k, v, pos),
+                             4 * d * H * pairs, dtype)
+            log(f'[kernel] flash_attention {str(dtype)[6:]} {cfg.name} B=1 '
+                f'S={S} H={H} KV={KV} d={d} window={window} ({pairs} visible '
+                f'pairs a head): max |err| {err:.3g} (tol {FLASH_TOL[dtype]}'
+                + (f'; {share:.3f} of the limit {FLASH_ROW_TOL}'
+                   if dtype is torch.bfloat16 else '') + '); kernel '
+                f'{ms:.4f} ms, plain {plain:.4f} ms, sdpa '
+                + (f'{lib:.4f} ms' if lib is not None else 'not timed')
+                + f', bound {b_ms:.4f} ms ({by})')
+            if (name, S, dtype) == ('mistral_7b', 8192, torch.bfloat16):
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+            del q, k, v
+            free()
+    return row
+
+
+# --------------------- phases 4-5: layer 0, baseline against precomputed
+LAYER0_COUNTS = (1, 4, 64, 4096)
+RMS_TOL = 3e-2                       # bf16, tests/test_kernels.py
+COLD_COPIES = 3                      # weight sets rotated between launches
+
+
+def check_layer0(model, params, table, counts, rows) -> None:
+    """The paper's layer-0 comparison at full width on the model's own
+    weights and table: baseline = the embedding row read + rmsnorm_matmul
+    over [Wq|Wk|Wv] (three weight pointers, one launch); library baseline
+    = the same rows + F.rms_norm + torch.matmul over the concatenated
+    weights (made once, outside the timing); precomputed = embed_gather of
+    the table's rows. Holds rmsnorm_matmul against its plain version (bf16
+    tolerance of tests/test_kernels.py) at each N and times kernel, plain
+    version, library call and bound. Launches rotate over COLD_COPIES
+    weight copies and 16 id sets, so each replay reads its weights and
+    rows from device memory, as a decode step that ran other layers
+    between two layer-0 reads would."""
+    cfg = model.cfg
+    lay0 = params['backbone']['layer0']
+    scale = lay0['ln1']['scale']
+    ws = [lay0['attn'][nm]['w'] for nm in ('wq', 'wk', 'wv')]
+    sets = [ws] + [[w.clone() for w in ws] for _ in range(COLD_COPIES - 1)]
+    cats = [torch.cat(s, dim=1) for s in sets]
+    embed, rows_tab = params['embed']['table'], table.table
+    d, W, es = cfg.d_model, cats[0].shape[1], embed.element_size()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    for n in counts:
+        ids = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device='cuda', dtype=torch.int32)
+               for _ in range(16)]
+        x = embed[ids[0].long()]
+        got = rmsnorm_qkv(x, scale, *ws)
+        want = rmsnorm_qkv_plain(x, scale, *ws)
+        torch.cuda.synchronize()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=RMS_TOL,
+                                       rtol=RMS_TOL)
+        del got, want
+        calls = [0]
+
+        def pick():
+            calls[0] += 1
+            return calls[0] % COLD_COPIES, ids[calls[0] % 16]
+        it = (20, 5) if n <= 64 else (3, 3)
+
+        def kernel():
+            i, _ = pick()
+            return rmsnorm_qkv(x, scale, *sets[i])
+
+        def plain():
+            i, _ = pick()
+            return rmsnorm_qkv_plain(x, scale, *sets[i])
+
+        def library():
+            i, _ = pick()
+            return torch.matmul(F.rms_norm(x, (d,), scale, EPS), cats[i])
+
+        def baseline():
+            i, t = pick()
+            return rmsnorm_qkv(embed[t.long()], scale, *sets[i])
+
+        def baseline_lib():
+            i, t = pick()
+            return torch.matmul(F.rms_norm(embed[t.long()], (d,), scale, EPS),
+                                cats[i])
+
+        def precomputed():
+            return embed_gather(rows_tab, pick()[1])
+        ms, plain_ms, lib_ms = (time_ms(f, *it)
+                                for f in (kernel, plain, library))
+        b_ms, by = bound(nbytes(x, scale, cats[0]) + n * W * es,
+                         2 * n * d * W, x.dtype)
+        log(f'[kernel] rmsnorm_matmul bf16 {cfg.name} N={n} d={d} W={W} '
+            f'(q/k/v {[w.shape[1] for w in ws]}): max |err| {err:.3g} (tol '
+            f'{RMS_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+            f'F.rms_norm + torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms '
+            f'({by})')
+        if (cfg.name, n) == ('mistral-7b', counts[-1]):
+            rows['rmsnorm_matmul'] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=lib_ms)
+        base, base_lib, pre = (time_ms(f, *it) for f in
+                               (baseline, baseline_lib, precomputed))
+        base_bytes = n * d * es + d * es + d * W * es
+        pre_bytes = n * rows_tab.shape[1] * es
+        log(f'[layer0] {cfg.name} N={n}: baseline (embedding rows + '
+            f'rmsnorm_matmul) {base:.4f} ms, {base_bytes} bytes read; library '
+            f'baseline (rows + F.rms_norm + torch.matmul) {base_lib:.4f} ms; '
+            f'precomputed (embed_gather of {rows_tab.shape[1]}-wide rows) '
+            f'{pre:.4f} ms, {pre_bytes} bytes read; baseline / precomputed '
+            f'{base / pre:.1f}x, library baseline / precomputed '
+            f'{base_lib / pre:.1f}x, bytes {base_bytes / pre_bytes:.1f}x')
+        del x, ids
+    del sets, cats
+    free()
+
+
+# logits of two bf16 forwards (or of a forward and the engine) that differ in
+# rounding only: logits are ~N(0, 1) at these random weights and bf16 steps
+# are 2^-6..2^-5 at magnitudes 2..8; 32-40 bf16 layers carry a rounding
+# difference of layer 0 forward
+APPLY_TOL = dict(atol=0.1, rtol=0.05)
+
+
+def argmax_check(got, want, tol) -> str:
+    """Argmax equal at every position where ``want``'s top-1 margin exceeds
+    what the tolerance allows a difference to close; -> a summary."""
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    lim = 2 * (tol['atol'] + tol['rtol'] * top2[:, 0].abs())
+    same = got.argmax(-1) == want.argmax(-1)
+    decided = margin > lim
+    assert bool(same[decided].all()), \
+        f'argmax differs where the margin exceeds the tolerance: ' \
+        f'{(~same & decided).nonzero().flatten().tolist()}'
+    return (f'argmax equal at {int(same.sum())}/{len(same)} positions '
+            f'(required at the {int(decided.sum())} whose top-1 margin '
+            f'exceeds 2x the tolerance)')
+
+
+def diff_text(got, want) -> str:
+    dd = (got - want).abs()
+    return (f'max |diff| {dd.max().item():.4g}, mean |diff| '
+            f'{dd.mean().item():.3g}, max |logit| {want.abs().max().item():.3g}')
+
+
+def profile_apply(fn) -> str:
+    """Device ms by kernel group over one forward (torch.profiler, device
+    activity only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {'flash_attention': 0.0, 'rmsnorm_matmul': 0.0,
+              'matmul': 0.0, 'other': 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU or not e.self_device_time_total:
+            continue
+        key = e.key
+        name = ('flash_attention' if 'flash_' in key else
+                'rmsnorm_matmul' if 'rmsnorm_matmul' in key else
+                'matmul' if ('gemm' in key.lower() or 'cutlass' in key
+                             or 'nvjet' in key) else 'other')
+        groups[name] += e.self_device_time_total / 1e3
+    return json.dumps({k: round(v, 2) for k, v in groups.items()})
+
+
+def phase_apply(model, params, table, S: int, tag: str) -> dict:
+    """Model.apply at full width, B 1 and S tokens, baseline and with the
+    table: launch counts per forward (flash_attention once a layer,
+    rmsnorm_matmul once a layer without the table and once less with it),
+    ms per forward in turns, the last 64 positions' logits of the two
+    against each other, and the precomputed forward's against the
+    engine's chunked decode (score) of the same prompt. -> launches by
+    run."""
+    cfg = model.cfg
+    nl = cfg.num_layers
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(3, cfg.vocab_size, size=S).astype(np.int32)
+    batch = {'tokens': torch.from_numpy(prompt)[None].to('cuda')}
+    last, launches = {}, {}
+    times = {'baseline': [], 'precomputed': []}
+    order = ('baseline', 'precomputed') + ('baseline', 'precomputed',
+                                           'precomputed', 'baseline') * 2
+    for i, mode in enumerate(order):
+        pre = table if mode == 'precomputed' else None
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, aux = model.apply(params, batch, precomputed=pre)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        ln = read_launches()
+        assert ln['flash_attention'] == nl, (mode, ln)
+        assert ln['rmsnorm_matmul'] == (nl if pre is None else nl - 1), \
+            (mode, ln)
+        if i < 2:                    # first of each: checks, not timed
+            assert logits.shape == (1, S, cfg.vocab_size), logits.shape
+            assert bool(torch.isfinite(logits).all()), f'{mode} logits'
+            assert aux.dtype == torch.float32 and float(aux) == 0.0
+            last[mode] = logits[0, -64:].float()
+            launches[f'{tag}_apply' + ('_pre' if pre is not None else '')] \
+                = ln
+        else:
+            times[mode].append(dt)
+        del logits
+    mean = {m: float(np.mean(t)) for m, t in times.items()}
+    log(f'[apply] {cfg.name} B=1 S={S}: ms per forward baseline '
+        f'{[round(t, 2) for t in times["baseline"]]} (mean '
+        f'{mean["baseline"]:.2f}), precomputed '
+        f'{[round(t, 2) for t in times["precomputed"]]} (mean '
+        f'{mean["precomputed"]:.2f}); baseline - precomputed '
+        f'{mean["baseline"] - mean["precomputed"]:.2f} ms; launches a '
+        f'forward: flash_attention {nl}, rmsnorm_matmul {nl} baseline / '
+        f'{nl - 1} precomputed')
+    base, pre = last['baseline'], last['precomputed']
+    log(f'[apply] {cfg.name} last 64 positions, precomputed vs baseline '
+        f'logits: {diff_text(pre, base)} (tol {APPLY_TOL}); '
+        + argmax_check(pre, base, APPLY_TOL))
+    torch.testing.assert_close(pre, base, **APPLY_TOL)
+    log(f'[apply] {cfg.name} baseline forward, device ms by group: '
+        + profile_apply(lambda: model.apply(params, batch)))
+    free()
+    eng = ServingEngine(model, params, max_slots=1, max_seq=S + 16,
+                        precomputed=table, seed=SEED, dtype=torch.bfloat16,
+                        chunk_size=256, fused_gather_rope=True,
+                        attn_backend='cuda', device='cuda')
+    t0 = time.perf_counter()
+    scored = torch.from_numpy(eng.score([prompt])[0][-64:]).to('cuda')
+    dt = time.perf_counter() - t0
+    log(f'[apply] {cfg.name} engine chunked decode (chunk 256, cuda '
+        f'backend, the table with fused gather-RoPE) of the same prompt in '
+        f'{dt:.2f}s ({eng.steps} steps); last position vs the precomputed '
+        f'forward: {diff_text(scored[-1:], pre[-1:])}; last 64: '
+        f'{diff_text(scored, pre)} (tol {APPLY_TOL}); '
+        + argmax_check(scored, pre, APPLY_TOL))
+    torch.testing.assert_close(scored, pre, **APPLY_TOL)
+    del eng
+    free()
+    return launches
+
+
 # ----------------------------------------------------------------- phase 4
-def phase_mistral() -> dict:
-    """mistral-7b on dense ring caches, in bf16 and then, on the same
-    weights and requests, with int8 KV caches."""
+def phase_mistral(rows) -> dict:
+    """mistral-7b on dense ring caches, in bf16 with the table, without it
+    (the baseline: embedding read and layer 0's norm and projections at
+    run time) and with int8 KV caches, on the same weights and requests;
+    then, on the same weights, the layer-0 comparison and Model.apply at
+    S 8192."""
     cfg = get_config('mistral_7b')
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -1054,15 +1419,23 @@ def phase_mistral() -> dict:
     prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
         64, 201))).astype(np.int32) for _ in range(4)]
     out = {}
-    for kv_quant in (False, True):
-        out[kv_quant] = serve_dense(model, params, table, prompts, rng,
-                                    kv_quant)
+    for run, tab, kv_quant in (('mistral', table, False),
+                               ('mistral_baseline', None, False),
+                               ('mistral_int8', table, True)):
+        out[run] = serve_dense(model, params, tab, prompts, rng, kv_quant)
         free()
-    (base, bytes16), (tok8, bytes8) = out[False][1:], out[True][1:]
+    (base, bytes16), (tok8, bytes8) = out['mistral'][1:], \
+        out['mistral_int8'][1:]
     log(f'[engine int8] KV cache bytes {bytes8} int8 against {bytes16} bf16 '
         f'({bytes8 / bytes16:.3f}); greedy tokens equal to the bf16 run\'s: '
         f'{token_share(tok8, base)} (reported, not checked)')
-    return {'mistral': out[False][0], 'mistral_int8': out[True][0]}
+    log(f'[engine baseline] greedy tokens equal to the precomputed run\'s: '
+        f'{token_share(out["mistral_baseline"][1], base)} (reported, not '
+        'checked)')
+    phases = {run: v[0] for run, v in out.items()}
+    check_layer0(model, params, table, LAYER0_COUNTS + (8192,), rows)
+    phases.update(phase_apply(model, params, table, 8192, 'mistral'))
+    return phases
 
 
 def token_share(got, base) -> str:
@@ -1084,15 +1457,18 @@ def cache_bytes(eng) -> int:
 def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
     """One engine over ``prompts`` (16 new tokens each) on dense ring
     caches, chunk 16, fused gather→RoPE, the cuda backend; int8 caches
-    with ``kv_quant``. -> (launches, greedy tokens, cache bytes)."""
+    with ``kv_quant``; ``table`` None runs the baseline (no table, no
+    gathers). -> (launches, greedy tokens, cache bytes)."""
     cfg = model.cfg
-    tag = '[engine int8]' if kv_quant else '[engine]'
+    tag = '[engine int8]' if kv_quant else '[engine]' if table is not None \
+        else '[engine baseline]'
     attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
     eng = ServingEngine(model, params, max_slots=4, max_seq=512,
                         precomputed=table, seed=SEED, dtype=torch.bfloat16,
                         chunk_size=16, fused_gather_rope=True,
                         kv_quant=kv_quant, attn_backend='cuda', device='cuda')
-    assert eng.fused_gather_rope and eng.attn_backend.name == 'cuda'
+    assert eng.fused_gather_rope == (table is not None) \
+        and eng.attn_backend.name == 'cuda'
     reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     # warm-up request (cuBLAS handles, allocator) outside the measured run
@@ -1114,8 +1490,11 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
         assert len(r.generated) == 16, (r.uid, len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
-    for name in ('embed_gather', 'gather_rope', attn):
+    gathers = ('embed_gather', 'gather_rope')
+    for name in (gathers if table is not None else ()) + (attn,):
         assert launches[name] > 0, f'{name} never launched on the engine path'
+    if table is None:
+        assert all(launches[name] == 0 for name in gathers), launches
     stats = eng.stats(reqs)
     steps = eng.steps - steps0
     assert launches[attn] == cfg.num_layers * steps, \
@@ -1201,13 +1580,16 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
 
 
 def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
-                device='cuda', dtype=torch.bfloat16) -> dict:
+                device='cuda', dtype=torch.bfloat16, rows=None,
+                apply_seq: int = 0) -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
     16 new tokens each; every attend goes through ``attn_kernel``. With
     ``int8``, the same waves again on the same weights through an int8
-    pool, every attend through ``paged_attention_quant``. -> launches by
-    run (``tag``, ``tag + '_int8'``)."""
+    pool, every attend through ``paged_attention_quant``. With
+    ``apply_seq``, then the layer-0 comparison and Model.apply at that S on
+    the same weights. -> launches by run (``tag``, ``tag + '_int8'``, the
+    apply runs)."""
     on_card = torch.device(device).type == 'cuda'
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -1243,7 +1625,11 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
         log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
             f'({b8 / b16:.3f}); greedy tokens equal to the bf16 run\'s: '
             f'{token_share(tok8, tok16)} (reported, not checked)')
-    return {k: v[0] for k, v in out.items()}
+    phases = {k: v[0] for k, v in out.items()}
+    if apply_seq:
+        check_layer0(model, params, table, LAYER0_COUNTS, rows)
+        phases.update(phase_apply(model, params, table, apply_seq, tag))
+    return phases
 
 
 def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
@@ -1504,11 +1890,13 @@ def main() -> None:
     check_mla_page_writes(gen)
     rows['paged_attention_quant'] = check_paged_attention_quant(gen)
     check_quant_page_writes(gen)
+    rows['flash_attention'] = check_flash_attention(gen)
     free()
-    phases = phase_mistral()
+    phases = phase_mistral(rows)
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
-                              'paged_attention', int8=True))
+                              'paged_attention', int8=True, rows=rows,
+                              apply_seq=4096))
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
                               'paged_attention_mla'))
@@ -1519,7 +1907,9 @@ def main() -> None:
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',
                  'cow_page_copy': 'glm4', 'paged_attention_mla': 'deepseek',
-                 'paged_attention_quant': 'glm4_int8'}
+                 'paged_attention_quant': 'glm4_int8',
+                 'rmsnorm_matmul': 'mistral_apply',
+                 'flash_attention': 'mistral_apply'}
     sources = {name: f'src/repro_torch/csrc/{name}.cu' for name in rows}
     for form in ('paged_attention_mla', 'paged_attention_quant'):
         sources[form] = 'src/repro_torch/csrc/paged_attention.cu'
@@ -1531,7 +1921,9 @@ def main() -> None:
         'paged_attention_mla': 'src/repro/kernels/paged_attention.py:129',
         'paged_attention_quant': 'src/repro/kernels/paged_attention.py:129',
         'fused_page_write': 'src/repro/kernels/paged_maintenance.py:131',
-        'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217'}
+        'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217',
+        'rmsnorm_matmul': 'src/repro/kernels/rmsnorm_qkv.py:34',
+        'flash_attention': 'src/repro/kernels/flash_attention.py:80'}
     kernels = [dict(name=name, route='cuda',
                     source=sources[name],
                     replaces=replaces[name],

@@ -1,0 +1,147 @@
+"""Does chip_smoke.py's bf16 check of the flash_attention kernel catch a
+faulty kernel?
+
+Builds deliberately broken copies of src/repro_torch/csrc/flash_attention.cu
+in a temporary directory (the checkout's source is not touched), runs each
+through the ``flash_attention`` wrapper at chip_smoke.py's ``FLASH_CASES``
+in bf16, and prints for each the largest error against the plain version,
+the share of chip_smoke's row-scaled limit (``FLASH_ROW_TOL``) it uses,
+whether chip_smoke's check (``check_flash``) rejects it, and whether
+tests/test_kernels.py's atol = rtol = 3e-2 alone would. Fails unless the
+unbroken source passes chip_smoke's check and every mutant fails it. Needs
+one CUDA card and nvcc.
+
+    python3 scripts/flash_mutants.py
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as smoke  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+
+NAME = 'flash_attention'
+LOOSE = dict(atol=3e-2, rtol=3e-2)            # tests/test_kernels.py
+LOOP = 'for (int j0 = lo; j0 < hi; j0 += kBk) {'
+# name -> (text of the bf16 kernel, its replacement): first occurrence only,
+# which is in flash_bf16
+MUTANTS = {
+    'none': None,
+    # the second key tile of a block that walks more than 60 (3840 keys) is
+    # never read: 64 keys of 3840-4096, which moves a typical output (sigma
+    # ~0.026) by ~13 / keys (~3e-3), far under test_kernels.py's 3e-2
+    'skip_tile_late': (LOOP, LOOP + '\n    if (j0 == lo + kBk && hi - lo > '
+                       '60 * kBk) continue;'),
+    # the accumulator in shared memory is not rescaled when the max rises
+    'no_rescale': ('for (int c = lane; c < D; c += 32) sO[r * L::kLdO + c] '
+                   '*= corr;', ''),
+    # neither the accumulator nor the running sum is rescaled
+    'no_correction': ('const float corr = expf(m_prev - m_new);',
+                      'const float corr = 1.f;'),
+}
+
+
+def compile_all(tmp: Path) -> dict:
+    """One nvcc per mutant, all started together; name -> library path."""
+    src = (build.CSRC / f'{NAME}.cu').read_text()
+    procs = {}
+    for name, edit in MUTANTS.items():
+        text = src
+        if edit is not None:
+            if edit[0] not in text:
+                raise RuntimeError(f'{name}: its anchor is no longer in '
+                                   f'{NAME}.cu')
+            text = text.replace(edit[0], edit[1], 1)
+        cu, so = tmp / f'{name}.cu', tmp / f'{name}.so'
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, '-o', str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'nvcc failed for {name}:\n{out}')
+        libs[name] = so
+    return libs
+
+
+def use(path: Path) -> None:
+    """Make the wrapper launch the library at ``path``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in build.SIGNATURES[NAME].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    build._LIBS[NAME] = lib
+
+
+def passes(check) -> bool:
+    try:
+        check()
+        return True
+    except AssertionError:
+        return False
+
+
+def main() -> int:
+    smoke.phase_device()
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = compile_all(Path(tmp))
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(smoke.SEED)
+        try:
+            for cfg_name, S, window in smoke.FLASH_CASES:
+                ok &= run_case(libs, gen, cfg_name, S, window)
+        finally:
+            build._LIBS.pop(NAME, None)
+    smoke.log(json.dumps({'flash_mutants_ok': bool(ok)}))
+    return 0 if ok else 1
+
+
+def run_case(libs, gen, cfg_name: str, S: int, window: int) -> bool:
+    """Every library of ``libs`` on one of chip_smoke's flash shapes;
+    True if the unbroken one passes chip_smoke's check and every mutant
+    fails it."""
+    cfg = get_config(cfg_name)
+    H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos = torch.arange(S, dtype=torch.int32, device='cuda')[None]
+    q, k, v = (torch.randn((1, S, n, d), generator=gen, device='cuda')
+               .to(torch.bfloat16) for n in (H, KV, KV))
+    want = flash_attention_plain(q, k, v, pos, window=window)
+    ok = True
+    for name, path in libs.items():
+        use(path)
+        got = flash_attention(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        err, share = smoke.flash_error(got, want)
+        row = dict(case=f'{cfg_name} S {S} window {window}', mutant=name,
+                   max_abs_err=err, limit_share=share,
+                   fails_smoke=not passes(lambda: smoke.check_flash(
+                       got, want, torch.bfloat16)),
+                   fails_3e_2=not passes(lambda: torch.testing.assert_close(
+                       got.float(), want.float(), **LOOSE)))
+        smoke.log(json.dumps(row))
+        ok &= row['fails_smoke'] == (name != 'none')
+        del got
+    del q, k, v, want
+    smoke.free()
+    return ok
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -64,6 +64,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # n_jobs, NP, B, ps, Sc, stream
         'fused_page_write': (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                              _P)},
+    'rmsnorm_matmul': {
+        # x, scale, w0, w1, w2, out0, out1, out2, W0, W1, W2, n_mats, N, d,
+        # eps, dtype_code, stream
+        'rmsnorm_matmul': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _P)},
+    'flash_attention': {
+        # q, k, v, pos, out, B, S, H, KV, d, causal, window, scale,
+        # dtype_code, stream
+        'flash_attention': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P)},
     'cow_page_copy': {
         # pools[n], n_pages[n], row_bytes[n], fills[n], n, sdr, n_jobs, ps,
         # stream

@@ -1,6 +1,11 @@
-"""Grouped-query attention with RoPE against dense (ring) KV caches and the
-paged KV pool — the dense-cache and paged parts of
+"""Grouped-query attention with RoPE: the full-sequence cores of the forward
+pass and the attend against dense (ring) KV caches and the paged KV pool —
+the full-sequence, dense-cache and paged parts of
 ``repro/models/attention.py`` (without packed prefill).
+
+The full-sequence core (:func:`attention_core`) takes the naive O(S^2)
+path below ``BLOCKED_THRESHOLD`` tokens and the blocked one
+(``kernels.flash_attention``) from there on, as in JAX.
 
 Caches are dicts ``{'k': (B, Sc, KV, hd), 'v': (B, Sc, KV, hd),
 'pos': (B, Sc) int32}``; ``pos`` holds each entry's token position (-1 =
@@ -37,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30   # large-negative that survives bf16
@@ -63,6 +69,95 @@ def compute_qkv(params: Dict, x_normed: torch.Tensor, cfg: ModelConfig
         raise NotImplementedError('qk_norm is not ported yet')
     return (L.dense(params['wq'], x_normed), L.dense(params['wk'], x_normed),
             L.dense(params['wv'], x_normed))
+
+
+# ============================================================ full-seq core
+BLOCKED_THRESHOLD = 2048     # use the blocked (flash) core for S >= this
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig, *,
+                   rope_theta: float, window: int = 0,
+                   causal: bool = True) -> torch.Tensor:
+    """Dispatch: the naive core for short sequences, the blocked flash core
+    for long causal ones."""
+    if q.shape[1] >= BLOCKED_THRESHOLD and causal:
+        return blocked_attention_core(q, k, v, positions, cfg,
+                                      rope_theta=rope_theta, window=window)
+    return naive_attention_core(q, k, v, positions, cfg,
+                                rope_theta=rope_theta, window=window,
+                                causal=causal)
+
+
+def _heads_with_rope(q, k, v, positions, cfg: ModelConfig, rope_theta):
+    """Flat (B, S, ·) q/k/v -> per-head (B, S, H|KV, hd), q and k rotated."""
+    B, S = q.shape[0], q.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.pos == 'rope':
+        q = L.apply_rope(q, positions, rope_theta)
+        k = L.apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def naive_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor, cfg: ModelConfig, *,
+                         rope_theta: float, window: int = 0,
+                         causal: bool = True) -> torch.Tensor:
+    """RoPE + masked softmax attention over a full sequence, O(S^2) memory.
+
+    q (B, S, q_size), k/v (B, S, e) flat; positions (B, S) -> (B, S,
+    attn_out_size) flat. fp32 scores; the probabilities take v's dtype
+    before the value mix, as in JAX."""
+    B, S = q.shape[0], q.shape[1]
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _heads_with_rope(q, k, v, positions, cfg, rope_theta)
+    q = q.reshape(B, S, KV, cfg.num_heads // KV, hd)
+    scores = torch.einsum('bqkgd,bskd->bkgqs', q.float(),
+                          k.float()) * hd ** -0.5
+    i = positions[:, None, None, :, None]          # query positions
+    j = positions[:, None, None, None, :]          # key positions
+    mask = torch.ones((B, 1, 1, S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= (i - j) < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum('bkgqs,bskd->bqkgd', probs, v)
+    return ctx.reshape(B, S, cfg.num_heads * hd)
+
+
+def blocked_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           positions: torch.Tensor, cfg: ModelConfig, *,
+                           rope_theta: float, window: int = 0
+                           ) -> torch.Tensor:
+    """Flash-style blocked causal attention, O(S * tile) memory: RoPE as in
+    :func:`naive_attention_core`, then ``kernels.flash_attention`` — the
+    CUDA kernel on the card, its plain version on the CPU (JAX's blocked
+    core is the jnp mirror of the same Pallas kernel). Output in v's
+    dtype."""
+    B, S = q.shape[0], q.shape[1]
+    q, k, v = _heads_with_rope(q, k, v, positions, cfg, rope_theta)
+    ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          positions.to(torch.int32).contiguous(),
+                          causal=True, window=window)
+    return ctx.reshape(B, S, cfg.num_heads * cfg.head_dim)
+
+
+def full_attention(params: Dict, x_normed: Optional[torch.Tensor],
+                   positions: torch.Tensor, cfg: ModelConfig, *,
+                   rope_theta: float, window: int = 0,
+                   qkv: Optional[Tuple] = None) -> torch.Tensor:
+    """Full-sequence attention with the output projection (prefill).
+    ``qkv`` supplies the (q, k, v) projections — precomputed rows, or the
+    fused ``rmsnorm_qkv`` — instead of projecting ``x_normed``."""
+    q, k, v = compute_qkv(params, x_normed, cfg) if qkv is None else qkv
+    ctx = attention_core(q, k, v, positions, cfg, rope_theta=rope_theta,
+                         window=window)
+    return L.dense(params['wo'], ctx)
 
 
 # ================================================================== KV cache

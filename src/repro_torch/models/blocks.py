@@ -6,7 +6,10 @@ are ported.
 
 ``block_preproj`` is THE PAPER's position-independent first-layer
 computation; ``pre`` (its named pieces, gathered from the precomputed
-table) short-circuits layer 0's norm and projections in ``block_decode``.
+table) short-circuits layer 0's norm and projections in ``block_decode``
+and in the full-sequence ``block_apply_full`` (GQA serial blocks with a
+dense FFN; MLA and MoE raise there until ``mla_full`` and the MoE aux loss
+are ported).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.rmsnorm_qkv import rmsnorm_qkv
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
@@ -82,6 +86,36 @@ def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
         return (('x', d), ('q', q), ('ckv', m.kv_lora_rank),
                 ('kpe', m.qk_rope_dim))
     return (('x', d), ('q', q), ('k', e), ('v', e))
+
+
+def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
+                     cfg: ModelConfig, kind: str, use_moe: bool, *,
+                     pre: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence serial block: h (B, S, d), positions (B, S) -> (h_out,
+    aux loss, a float32 zero). ``pre`` (precomputed rows) supplies layer
+    0's q/k/v; otherwise LN1 and the Q/K/V projections are one fused
+    ``rmsnorm_qkv`` (the ``rmsnorm_matmul`` kernel on the card), so the
+    baseline and the precomputed forward differ only in layer 0."""
+    _supported(cfg, kind)
+    if cfg.mla or use_moe:
+        raise NotImplementedError(
+            'the full-sequence forward of MLA (mla_full) and MoE (with its '
+            'aux loss) blocks is not ported yet')
+    if cfg.qk_norm:
+        raise NotImplementedError('qk_norm is not ported yet')
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if pre is not None:
+        qkv = (pre['q'], pre['k'], pre['v'])
+    else:
+        a = params['attn']
+        qkv = rmsnorm_qkv(h, params['ln1']['scale'], a['wq']['w'],
+                          a['wk']['w'], a['wv']['w'])
+    h = h + A.full_attention(params['attn'], None, positions, cfg,
+                             rope_theta=kind_theta(cfg, kind),
+                             window=kind_window(cfg, kind), qkv=qkv)
+    xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
+    return h + ffn_apply(params['ffn'], xn2, act=cfg.act), aux
 
 
 def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,

@@ -1,6 +1,6 @@
 """Model facade (port of ``repro/models/model.py`` for the decoder-only LM
-classes ``'dense'`` and ``'moe'``): ``init`` / ``decode_step`` /
-``make_states`` / ``build_table``. Other classes (audio, vlm, ssm, hybrid)
+classes ``'dense'`` and ``'moe'``): ``init`` / ``apply`` / ``decode_step``
+/ ``make_states`` / ``build_table``. Other classes (audio, vlm, ssm, hybrid)
 raise ``NotImplementedError``; which layer kinds and block structures are
 ported is decided in ``models/blocks.py``, which raises for the rest."""
 from __future__ import annotations
@@ -31,6 +31,19 @@ class Model:
              dtype: Optional[torch.dtype] = None) -> Dict:
         """Random weights made on ``device`` from a seeded generator."""
         return PR.init_params(self.cfg, seed, device, dtype)
+
+    @torch.no_grad()
+    def apply(self, params: Dict, batch: Dict[str, torch.Tensor], *,
+              precomputed=None, return_hidden: bool = False):
+        """The full-sequence forward: ``batch['tokens']`` (B, S) -> (logits
+        (B, S, V), aux loss, a float32 scalar on the tokens' device). With
+        ``precomputed`` (``build_table``) layer 0 reads table rows instead of
+        running its norm and projections; the logits equal the baseline's
+        (the paper's contract). Serial GQA blocks with a dense FFN; MLA and
+        MoE blocks raise ``NotImplementedError``."""
+        return T.lm_apply(params, batch['tokens'], self.cfg,
+                          precomputed=precomputed,
+                          return_hidden=return_hidden)
 
     @torch.no_grad()
     def decode_step(self, params: Dict, tokens: torch.Tensor, states: Dict,

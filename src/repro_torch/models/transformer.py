@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for decode/serving (port of the decode half of
-``repro/models/transformer.py``).
+"""Decoder-only LM assembly (port of ``repro/models/transformer.py``): the
+full-sequence forward (``lm_apply``) and decode/serving (``lm_decode_step``).
 
 Layer 0 is always unstacked: with a precomputed table it consumes gathered
 ``[x, q, k, v]`` rows instead of running its norm and projections, and
@@ -18,9 +18,9 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import (ATTN_KINDS, block_decode,
-                                       block_make_state, block_paged_mask,
-                                       kind_theta)
+from repro_torch.models.blocks import (ATTN_KINDS, block_apply_full,
+                                       block_decode, block_make_state,
+                                       block_paged_mask, kind_theta)
 from repro_torch.params import tree_slice
 
 
@@ -72,6 +72,56 @@ def lm_head(params: Dict, h_normed: torch.Tensor,
 def lm_logits(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return lm_head(params, L.norm_apply(params['final_norm'], h, cfg.norm),
                    cfg)
+
+
+# ================================================================== full seq
+def backbone_apply(params: Dict, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, *, pre0: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run every layer on initial hidden states h (B, S, d); ``pre0`` holds
+    layer 0's precomputed rows. -> (h, aux loss summed over layers)."""
+    plan = layer_plan(cfg)
+    if plan.n_head:
+        raise NotImplementedError(
+            'unstacked head layers (first_dense_layers > 1) are not ported')
+    h, aux = block_apply_full(params['layer0'], h, positions, cfg,
+                              plan.kinds[0], plan.use_moe[0], pre=pre0)
+    for r in range(plan.reps):
+        for s, kind in enumerate(plan.slots):
+            h, a = block_apply_full(tree_slice(params['body'][s], r), h,
+                                    positions, cfg, kind, plan.use_moe[1])
+            aux = aux + a
+    for i in range(plan.n_tail):
+        h, a = block_apply_full(params['tail'][i], h, positions, cfg,
+                                plan.slots[i], plan.use_moe[-1])
+        aux = aux + a
+    return h, aux
+
+
+def lm_apply(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+             precomputed=None, return_hidden: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) at positions 0 .. S-1 -> (logits (B, S, V), aux
+    loss). With ``precomputed`` (a ``core.precompute.PrecomputedTable``,
+    the paper's feature) the embedding read and layer 0's norm and Q/K/V
+    projections are one row gather per token. ``return_hidden`` returns
+    the final-normed hidden states instead of logits."""
+    B, S = tokens.shape
+    if cfg.num_meta_tokens:
+        raise NotImplementedError('meta tokens are not ported yet')
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    if precomputed is not None:
+        pre0 = precomputed.gather(tokens)
+        h = pre0['x']
+    else:
+        pre0 = None
+        h = embed_tokens(params, tokens, cfg)
+    h, aux = backbone_apply(params['backbone'], h, positions, cfg, pre0=pre0)
+    h = L.norm_apply(params['final_norm'], h, cfg.norm)
+    if return_hidden:
+        return h, aux
+    return lm_head(params, h, cfg), aux
 
 
 # ==================================================================== decode

@@ -39,7 +39,14 @@ from repro_torch.kernels.paged_attention import (dense_as_pages,
                                                  paged_attention_plain,
                                                  paged_attention_quant)
 from repro_torch.kernels import paged_maintenance as PM
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm_qkv import (rmsnorm_matmul,
+                                             rmsnorm_matmul_plain,
+                                             rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attn_backend import KERNEL_TOL
+
+from _torch_scenarios import cow_retaken_run
 
 
 @pytest.fixture(scope='module')
@@ -226,6 +233,156 @@ def test_build_flags_and_entry_points():
             assert m, f'{fn} missing from {name}.cu'
             assert len(m.group(1).split(',')) == len(argtypes), fn
         assert build.library_path(name).name.startswith(name + '-')
+
+
+# ---------------------------------------------------- rmsnorm_qkv (plain)
+RMS_SHAPES = [(64, 64, 64, 32), (128, 128, 256, 64), (33, 96, 96, 24)]
+RMS_TOL = {'float32': 1e-5, 'bfloat16': 3e-2}
+
+
+def _rms_inputs(N, d, q, e, lead=()):
+    """x, scale, wq, wk, wv as float32 numpy (the shapes and scales of
+    ``tests/test_kernels.py::test_rmsnorm_qkv``)."""
+    rng = np.random.default_rng(N + d + q + e)
+    x = rng.standard_normal(lead + (N, d)).astype(np.float32)
+    scale = (rng.standard_normal(d) * 0.1 + 1.0).astype(np.float32)
+    return (x, scale) + tuple(rng.standard_normal((d, w)).astype(np.float32)
+                              for w in (q, e, e))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('N,d,q,e', RMS_SHAPES)
+def test_rmsnorm_qkv_plain_matches_jax(jx, N, d, q, e, dtype):
+    """The plain rmsnorm_qkv against ``ops.rmsnorm_qkv`` (the Pallas kernel
+    in interpret mode) and ``ref.rmsnorm_qkv_ref``; the plain
+    rmsnorm_matmul over [Wq|Wk|Wv] equals it."""
+    jax, jnp, ops, _ = jx
+    from repro.kernels import ref
+    arrs = _rms_inputs(N, d, q, e)
+    jargs = [jnp.asarray(a).astype(dtype) for a in arrs]
+    targs = [torch.from_numpy(a).to(_tdtype(dtype)) for a in arrs]
+    got = rmsnorm_qkv(*targs)
+    tol = RMS_TOL[dtype]
+    for want in (ops.rmsnorm_qkv(*jargs), ref.rmsnorm_qkv_ref(*jargs)):
+        for g, w in zip(got, want):
+            assert g.dtype == targs[0].dtype
+            np.testing.assert_allclose(g.float().numpy(),
+                                       np.asarray(w.astype(jnp.float32)),
+                                       atol=tol, rtol=tol)
+    fused = rmsnorm_matmul(targs[0], targs[1], torch.cat(targs[2:], dim=1))
+    assert torch.equal(fused, torch.cat(got, dim=1))
+
+
+def test_rmsnorm_qkv_plain_leading_dims(jx):
+    """x (2, 7, 64): outputs keep the leading dims, rows as ``ref``."""
+    jax, jnp, ops, _ = jx
+    from repro.kernels import ref
+    x, scale, wq, wk, wv = _rms_inputs(7, 64, 64, 32, lead=(2,))
+    q, k, v = rmsnorm_qkv(*map(torch.from_numpy, (x, scale, wq, wk, wv)))
+    assert q.shape == (2, 7, 64) and k.shape == v.shape == (2, 7, 32)
+    want = ref.rmsnorm_qkv_ref(*map(jnp.asarray, (x.reshape(-1, 64), scale,
+                                                  wq, wk, wv)))
+    for g, w in zip((q, k, v), want):
+        np.testing.assert_allclose(g.reshape(14, -1).numpy(), np.asarray(w),
+                                   atol=1e-5, rtol=1e-5)
+    jq, _, _ = ops.rmsnorm_qkv(*map(jnp.asarray, (x, scale, wq, wk, wv)))
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq), atol=1e-5,
+                               rtol=1e-5)
+
+
+# ------------------------------------------------ flash_attention (plain)
+FLASH_SHAPES = [(1, 128, 2, 2, 32, 0), (2, 256, 4, 2, 32, 0),
+                (2, 256, 4, 1, 64, 40), (1, 192, 8, 2, 16, 64),
+                (1, 100, 4, 2, 32, 40)]
+FLASH_TOL = {'float32': 2e-5, 'bfloat16': 3e-2}
+
+
+def _assert_flash_close(got, want):
+    """The flash kernel against its plain version: ``FLASH_TOL``, and in
+    bf16 also chip_smoke.py's limit scaled by the output, |err| <= 0.02
+    rms(row) + 0.016 |want|, under which a skipped key tile or a lost
+    rescale cannot hide."""
+    tol = FLASH_TOL[str(want.dtype)[6:]]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if want.dtype == torch.bfloat16:
+        w = want.float()
+        limit = 0.02 * w.pow(2).mean(-1, keepdim=True).sqrt() + 0.016 * w.abs()
+        share = ((got.float() - w).abs() / limit.clamp_min(1e-30)).max()
+        assert share <= 1, f'{share.item():.3f} of the row-scaled limit'
+
+
+def _flash_inputs(B, S, H, KH, d, seed=0):
+    rng = np.random.default_rng(seed + S + H + d)
+    return (rng.standard_normal((B, S, H, d)).astype(np.float32),
+            rng.standard_normal((B, S, KH, d)).astype(np.float32),
+            rng.standard_normal((B, S, KH, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('B,S,H,KH,d,window', FLASH_SHAPES)
+def test_flash_attention_plain_matches_jax(jx, B, S, H, KH, d, window,
+                                           dtype):
+    """The plain flash_attention (positions = arange) against
+    ``ops.flash_attention_bshd(block=64)`` (the Pallas kernel in interpret
+    mode) and ``ref.flash_attention_ref``; GQA, windows 40 / 64 and S 100,
+    which is not a multiple of 64."""
+    jax, jnp, ops, _ = jx
+    from repro.kernels import ref
+    arrs = _flash_inputs(B, S, H, KH, d)
+    jargs = [jnp.asarray(a).astype(dtype) for a in arrs]
+    targs = [torch.from_numpy(a).to(_tdtype(dtype)) for a in arrs]
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    got = flash_attention(*targs, pos, window=window)
+    assert got.dtype == targs[0].dtype and got.shape == (B, S, H, d)
+    tol = FLASH_TOL[dtype]
+    for want in (ops.flash_attention_bshd(*jargs, window=window, block=64),
+                 ref.flash_attention_ref(*jargs, window=window)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   atol=tol, rtol=tol)
+
+
+def test_flash_attention_plain_masks_by_position():
+    """The mask reads positions, not indices: positions shifted by an
+    offset give the same output, and a sequence whose positions skip
+    ahead sees through the window by position; ``causal=False`` with a
+    window keeps future keys."""
+    q, k, v = map(torch.from_numpy, _flash_inputs(2, 70, 4, 2, 16))
+    pos = torch.arange(70, dtype=torch.int32)[None].expand(2, 70)
+    base = flash_attention(q, k, v, pos, window=9)
+    torch.testing.assert_close(flash_attention(q, k, v, pos + 1000,
+                                               window=9), base)
+    gap = pos.clone()
+    gap[:, 40:] += 9                 # keys before index 40 leave the window
+    out = flash_attention(q, k, v, gap, window=9)
+    torch.testing.assert_close(out[:, :40], base[:, :40])
+    alone = flash_attention(q[:, 40:], k[:, 40:], v[:, 40:], gap[:, 40:],
+                            window=9)
+    torch.testing.assert_close(out[:, 40:], alone)
+    # non-causal: the window bounds the past only, as in the TPU kernel
+    ahead = flash_attention(q, k, v, pos, causal=False, window=9)
+    everything = flash_attention(q, k, v, pos, causal=False)
+    assert not torch.allclose(ahead, base)
+    torch.testing.assert_close(ahead[:, -1], base[:, -1])
+    torch.testing.assert_close(ahead[:, 0], everything[:, 0])
+
+
+def test_flash_attention_plain_applies_index_rule():
+    """The rules hold on indices as well as on positions — the CUDA kernel
+    skips key tiles by index — so positions that do not rise give the same
+    answer on the card and here: equal positions leave the index mask alone,
+    and falling positions leave each query only its own key."""
+    B, S, H, KH, d = 2, 70, 4, 2, 16
+    q, k, v = map(torch.from_numpy, _flash_inputs(B, S, H, KH, d))
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    flat = torch.zeros_like(pos)
+    for window in (0, 9):
+        torch.testing.assert_close(
+            flash_attention(q, k, v, flat, window=window),
+            flash_attention(q, k, v, pos, window=window))
+    own = flash_attention(q, k, v, S - 1 - pos, window=9)
+    want = v.repeat_interleave(H // KH, dim=2)
+    torch.testing.assert_close(own, want)
 
 
 # ---------------------------------------------------- CUDA kernel vs plain
@@ -579,3 +736,157 @@ def test_cow_page_copy_kernel_int8_leaves_bitwise(cuda):
         assert PM.cow_page_copy.launches == n0 + 1
         for nm, x in cache.items():
             assert torch.equal(x.view(want[nm].shape), want[nm]), (nm, rem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('N,d,q,e', RMS_SHAPES + [(5, 4096, 4096, 1024),
+                                                  (70, 4096, 4096, 256),
+                                                  (1, 40, 20, 12),
+                                                  (9, 72, 40, 8),
+                                                  (130, 64, 200, 72)])
+def test_rmsnorm_matmul_kernel_matches_plain(cuda, N, d, q, e, dtype):
+    """rmsnorm_qkv (three weight pointers, one launch) and rmsnorm_matmul
+    (one matrix) against their plain versions at the tolerances of
+    ``tests/test_kernels.py`` (1e-5 fp32, 3e-2 bf16), ragged N and W
+    included; the model widths with fan-in scaled weights."""
+    arrs = _rms_inputs(N, d, q, e)
+    if d >= 1024:
+        arrs = arrs[:2] + tuple(w / np.sqrt(d) for w in arrs[2:])
+    x, scale, wq, wk, wv = [torch.from_numpy(np.ascontiguousarray(a))
+                            .to(cuda, dtype) for a in arrs]
+    tol = RMS_TOL[str(dtype)[6:]]
+    n0 = rmsnorm_matmul.launches
+    got = rmsnorm_qkv(x, scale, wq, wk, wv)
+    torch.cuda.synchronize()
+    assert rmsnorm_matmul.launches == n0 + 1
+    for g, w in zip(got, rmsnorm_qkv_plain(x, scale, wq, wk, wv)):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    one = rmsnorm_matmul(x, scale, wk)
+    torch.testing.assert_close(one.float(),
+                               rmsnorm_matmul_plain(x, scale, wk).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,S,H,KH,d,window', FLASH_SHAPES + [
+    (1, 1000, 32, 8, 128, 300), (1, 577, 32, 2, 128, 0),
+    (1, 130, 64, 1, 64, 0), (3, 77, 4, 4, 16, 5), (2, 65, 6, 3, 32, 64),
+    (1, 300, 8, 8, 128, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KH, d, window,
+                                              dtype):
+    """The flash kernel against its plain version (``_assert_flash_close``),
+    ragged S included; mistral-7b and glm4-9b head layouts (G 4 and 16,
+    d 128), the largest group (64 query heads per kv head, one position a
+    block), heads without grouping, batches of 2-3, a window of one tile;
+    and on positions that do not rise."""
+    q, k, v = [torch.from_numpy(a).to(cuda, dtype)
+               for a in _flash_inputs(B, S, H, KH, d)]
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None] \
+        .expand(B, S).contiguous()
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, pos, window=window)
+    assert got.dtype == dtype
+    _assert_flash_close(got, want)
+    shifted = flash_attention(q, k, v, pos + 37, window=window)
+    torch.testing.assert_close(shifted, got)
+    # positions that do not rise: the index rules keep kernel and plain equal
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    odd = torch.randint(0, S, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    _assert_flash_close(flash_attention(q, k, v, odd, window=window),
+                        flash_attention_plain(q, k, v, odd, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('window', [0, 40])
+def test_flash_attention_kernel_not_causal(cuda, window, dtype):
+    """``causal=False``: every key to S (the window bounds only the past),
+    ragged S, against the plain version."""
+    B, S, H, KH, d = 2, 150, 8, 2, 64
+    q, k, v = [torch.from_numpy(a).to(cuda, dtype)
+               for a in _flash_inputs(B, S, H, KH, d)]
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None] \
+        .expand(B, S).contiguous()
+    got = flash_attention(q, k, v, pos, causal=False, window=window)
+    _assert_flash_close(got, flash_attention_plain(q, k, v, pos, causal=False,
+                                                   window=window))
+    assert not torch.equal(got, flash_attention(q, k, v, pos, window=window))
+
+
+def _flash_bad_args(cuda):
+    """Inputs the kernel does not take, each with the reason: the wrapper
+    must raise on them rather than fall back."""
+    def qkv(H=4, KH=2, d=32, dtype=torch.bfloat16):
+        return [torch.zeros((1, 8, n, d), device=cuda, dtype=dtype)
+                for n in (H, KH, KH)]
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    q, k, v = qkv()
+    return {
+        'head_width': (*qkv(d=48), pos),
+        'group': (*qkv(H=130, KH=2), pos),
+        'dtype': (q, k.float(), v, pos),
+        'half': (*qkv(dtype=torch.float16), pos),
+        'strided': (q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                    pos),
+        'positions_int64': (q, k, v, pos.long()),
+        'positions_on_cpu': (q, k, v, pos.cpu()),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['head_width', 'group', 'dtype', 'half',
+                                  'strided', 'positions_int64',
+                                  'positions_on_cpu'])
+def test_flash_attention_kernel_rejects(cuda, case):
+    """On CUDA tensors the wrapper launches the kernel or raises: a head
+    width, group, dtype, layout or positions the kernel does not take, or
+    tensors on two devices, raise ValueError and launch nothing."""
+    args = _flash_bad_args(cuda)[case]
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(*args)
+    assert flash_attention.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['dtype', 'scale_shape', 'weight_rows',
+                                  'strided_weight', 'weight_on_cpu'])
+def test_rmsnorm_matmul_kernel_rejects(cuda, case):
+    """As for flash_attention: mixed dtypes, a scale or weight of the
+    wrong shape, a strided weight and tensors on two devices raise
+    ValueError and launch nothing."""
+    N, d, W = 4, 64, 32
+    x = torch.zeros((N, d), device=cuda, dtype=torch.bfloat16)
+    scale = torch.ones(d, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((d, W), device=cuda, dtype=torch.bfloat16)
+    args = {'dtype': (x, scale, w.float()),
+            'scale_shape': (x, scale[:-1], w),
+            'weight_rows': (x, scale, w[:-1]),
+            'strided_weight': (x, scale, torch.zeros(
+                (W, d), device=cuda, dtype=torch.bfloat16).t()),
+            'weight_on_cpu': (x, scale, w.cpu())}[case]
+    n0 = rmsnorm_matmul.launches
+    with pytest.raises(ValueError):
+        rmsnorm_matmul(*args)
+    assert rmsnorm_matmul.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True])
+def test_cow_page_freed_and_retaken_in_one_pass_on_card(cuda, kv_quant):
+    """The twin of ``tests/test_torch_paged.py``'s test of the same name:
+    on the card, through fused_page_write, the deferred clears and
+    cow_page_copy, the page freed and taken again in one admission pass
+    leaves ``_pending_clear`` when it is copied on write, and the greedy
+    tokens equal the dense engine's."""
+    got, dense, seen = cow_retaken_run('cuda', 'cuda', kv_quant)
+    assert seen['cow'] and seen['page'] not in seen['after']
+    assert seen['before'].count(seen['page']) == 1
+    assert got == dense

@@ -37,6 +37,8 @@ from repro_torch.params import from_numpy_tree
 from repro_torch.serving.engine import Request, RequestStatus, ServingEngine
 from repro_torch.serving.kvpool import PrefixCache
 
+from _torch_scenarios import cow_retaken_run
+
 PS = 8
 MAX_SEQ = 64
 
@@ -441,3 +443,24 @@ def test_serve_cli_prefix_cache_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert '4 requests, 12 new tokens' in out
     assert 'prefix cache: ' in out and 'hit tokens' in out
+
+
+# ------------------- a page freed and taken again in one admission pass
+@pytest.mark.parametrize('kv_quant', [False, True])
+@pytest.mark.parametrize('backend', ['reference', 'cuda'])
+def test_cow_page_freed_and_retaken_in_one_pass(backend, kv_quant):
+    """B's copy-on-write page is the page A freed in the same admission
+    pass (``_torch_scenarios.cow_retaken_run``); with deferred clears (the
+    ``cuda`` backend) it was listed twice in ``_pending_clear``, and every
+    entry goes, so no later clear wipes the copied rows: both requests'
+    greedy tokens equal the dense engine's. On the CPU the ``cuda``
+    backend's kernel wrappers run their plain versions. The ``cuda``-marked
+    twin, which runs the kernels, is in ``tests/test_torch_kernels.py``."""
+    got, dense, seen = cow_retaken_run('cpu', backend, kv_quant)
+    assert seen['cow'] and seen['page'] is not None
+    assert seen['page'] not in seen['after']
+    if backend == 'cuda':             # deferred clears: X was pending
+        assert seen['before'].count(seen['page']) == 1
+    else:                             # eager clears: nothing is deferred
+        assert seen['before'] == seen['after'] == []
+    assert got == dense
