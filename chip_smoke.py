@@ -33,7 +33,15 @@ Phases, in order; any failure raises and exits non-zero:
               rows; pos) at glm4-9b page shapes (bitwise); flash_attention
               at the shapes of the Model.apply phases (mistral-7b S 8192,
               32 heads over 8 kv heads, window 4096; glm4-9b S 4096 over 2
-              kv heads, causal) and at a ragged S 4097, bf16 and fp32.
+              kv heads, causal) and at a ragged S 4097, bf16 and fp32;
+              sharded_paged_attention (paged_attention split over the kv
+              heads of a serving mesh: card 0 repeated, or distinct GPUs
+              where the machine has enough) at glm4-9b shapes (H 2,
+              scattered table, T 1 and 16) and mistral-7b shapes (H 2, 4,
+              8, window 4096, identity-table pages), bf16 and int8:
+              bitwise the unsharded kernel, H launches, within KERNEL_TOL
+              of its plain version, timed against the unsharded call on
+              card 0 repeated (CUDA-graph replays, as every kernel time).
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
@@ -56,9 +64,16 @@ Phases, in order; any failure raises and exits non-zero:
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
               memory; then the same two waves on the same weights through
-              an int8 pool (kv_quant=True); then the layer-0 comparison
-              (N 1, 4, 64, 4096) and Model.apply at B 1, S 4096 as in
-              phase 4.
+              an int8 pool (kv_quant=True); then both runs again under a
+              2x2 serving mesh (mesh='2x2': pool 2 x heads 2 over card 0
+              repeated, 1536 pages so that the pool axis divides): greedy
+              tokens bitwise the unsharded runs', paged_attention (or its
+              int8 form) launched once per kv-head shard, the maintenance
+              kernels as often as unsharded, the state at rest in its
+              blocks, and, from the profiler trace, the device time of the
+              copies that the gather (_rep_in) and the split (_shard_out)
+              launch; then the layer-0 comparison (N 1, 4,
+              64, 4096) and Model.apply at B 1, S 4096 as in phase 4.
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
@@ -76,7 +91,10 @@ Phases, in order; any failure raises and exits non-zero:
               cow_page_copy) equal those after the plain scatters with
               eager clears, bit for bit, on every leaf (five with int8);
               deepseek's tokens are the same with kv_quant=True (its latent
-              caches ignore it).
+              caches ignore it); glm4-9b under 2x2 and 1x2 meshes and
+              deepseek under 2x2 (MLA attends unsharded) give the dense
+              reference's tokens through the copy-on-write and the
+              preemptions.
 
 In each engine phase the launch counters are zeroed just before the run
 and read just after; every kernel of that path must have run (the int8
@@ -115,7 +133,10 @@ from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, page_validity,
     paged_attention, paged_attention_mla, paged_attention_plain,
-    paged_attention_quant)
+    paged_attention_quant, sharded_paged_attention,
+    sharded_paged_attention_plain)
+from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
+                                     parse_mesh_spec)
 from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
     EPS, rmsnorm_matmul, rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attention import (_quantize,  # noqa: E402
@@ -128,13 +149,15 @@ from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
                                         ServingEngine)
+from repro_torch.serving.kvpool import partition_pages  # noqa: E402
+from repro_torch.sharding import ShardedLeaf, gather_leaf  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
 KERNELS = [embed_gather, gather_rope, paged_attention, paged_attention_mla,
            paged_attention_quant, PM.fused_page_write, PM.cow_page_copy,
-           rmsnorm_matmul, flash_attention]
+           rmsnorm_matmul, flash_attention, sharded_paged_attention]
 SEED = 0
 
 
@@ -975,6 +998,165 @@ def check_paged_attention_quant(gen) -> dict:
     return row
 
 
+# ----------------------- phase 3: sharded_paged_attention over a mesh
+def card0_mesh(spec):
+    """The serving mesh ``spec`` over card 0 repeated: the mesh that every
+    sharded time is taken on (a CUDA graph holds one device)."""
+    p, h = parse_mesh_spec(spec)
+    return make_serving_mesh(spec,
+                             devices=[torch.device('cuda', 0)] * (p * h))
+
+
+def card_mesh(spec: str):
+    """The serving mesh ``spec`` over distinct GPUs where the machine has
+    enough of them, else over card 0 repeated."""
+    p, h = parse_mesh_spec(spec)
+    if torch.cuda.device_count() < p * h:
+        return card0_mesh(spec)
+    return make_serving_mesh(spec)
+
+
+def mesh_text(mesh) -> str:
+    devs = [str(d) for row in mesh.devices for d in row]
+    where = f'{devs[0]} repeated {len(devs)} times' if len(set(devs)) == 1 \
+        else f'{len(set(devs))} distinct GPUs ({", ".join(devs)})'
+    return f'mesh {mesh.shape[0]}x{mesh.shape[1]} over {where}'
+
+
+def check_sharded_case(label, mesh, args, kw) -> dict:
+    """One head-split call: bitwise the unsharded kernel's output, H shard
+    launches, within KERNEL_TOL (plus one bf16 step of the output for bf16
+    queries, as the int8 checks) of its plain version. Timed: the sharded
+    call, the unsharded one, and one shard's launch on its own sliced
+    inputs, all on card 0 (``card0_mesh``: the same call as on ``mesh``
+    where the machine has one card); the sharded time less H shard launches
+    is the split's copies and the join."""
+    q = args[0]
+    scales = kw.get('k_scale_pages'), kw.get('v_scale_pages')
+    base = dict(scale=kw['scale'], window=kw['window'])
+
+    def one():
+        if scales[0] is not None:
+            return paged_attention_quant(*args[:3], *scales, *args[3:],
+                                         **base)
+        return paged_attention(*args, **base)
+
+    def sharded():
+        return sharded_paged_attention(*args, mesh=mesh, **kw)
+
+    def plain():
+        return sharded_paged_attention_plain(*args, mesh=mesh, **kw)
+    n0 = sharded_paged_attention.launches
+    got = sharded()
+    torch.cuda.synchronize()
+    assert sharded_paged_attention.launches == n0 + mesh.shape[1], label
+    assert torch.equal(got, one()), \
+        f'sharded_paged_attention {label}: not bitwise the unsharded kernel'
+    want = plain()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * want.float().abs()
+    if q.dtype is torch.bfloat16:
+        lim = lim + want.float().abs() * 2.0 ** -7
+    assert bool((diff <= lim).all()), \
+        f'sharded_paged_attention {label}: max |err| {err:.3g}'
+    B, T, KV, G, d = q.shape
+    H = mesh.shape[1]
+
+    def head0(x, dim=2):
+        return None if x is None else x.narrow(dim, 0, KV // H).contiguous()
+    sq, sk, sv = head0(q), head0(args[1]), head0(args[2])
+    s_scales = head0(scales[0]), head0(scales[1])
+
+    def shard():
+        if scales[0] is not None:
+            return paged_attention_quant(sq, sk, sv, *s_scales, *args[3:],
+                                         **base)
+        return paged_attention(sq, sk, sv, *args[3:], **base)
+    on0 = card0_mesh(mesh.shape)
+    ms = time_ms(lambda: sharded_paged_attention(*args, mesh=on0, **kw))
+    ms_one, ms_shard = time_ms(one), time_ms(shard)
+    log(f'[kernel] sharded_paged_attention {label} q {str(q.dtype)[6:]} '
+        f'B={B} T={T} KV={KV} G={G} H={H}: bitwise the unsharded '
+        f'{"int8 " if scales[0] is not None else ""}kernel, {H} launches, '
+        f'max |err| against its plain version {err:.3g}; sharded {ms:.4f} '
+        f'ms = {H} shard launches of {ms_shard:.4f} ms + '
+        f'{ms - H * ms_shard:.4f} ms of slicing copies and the join; '
+        f'unsharded {ms_one:.4f} ms')
+    return dict(max_abs_err=err, ms=ms, ms_unsharded=ms_one,
+                ms_shard=ms_shard, plain=plain)
+
+
+def check_sharded_paged_attention(gen) -> dict:
+    """The head split at the shapes of the mesh phases: glm4-9b (KV 2, G
+    16, d 128, H 2) through a scattered table over the engine's pool, T 1
+    and 16, bf16 and int8 pages (bf16 queries); mistral-7b (KV 8, G 4, H
+    2 / 4 / 8, window 4096) on dense rings of 512 viewed as identity-table
+    pages, T 1 and 16, bf16 and int8. Row: glm4 bf16 T 1 (the decode step
+    of the mesh phase), with the bound and library time of the unsharded
+    kernel's row (the same work)."""
+    cfg = get_config('glm4_9b')
+    KV, d = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
+    B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
+    P = GLM_SEQ // ps
+    lengths = [300, 271, 0, 365]
+    mesh = card_mesh('1x2')
+    log(f'[kernel] sharded_paged_attention: {mesh_text(mesh)}')
+    k, v, cpos = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
+    table = scattered_table(gen, B, P, NP, lengths, ps)
+    cpos.fill_(-1)
+    for b, n in enumerate(lengths):
+        p = torch.arange(n, device='cuda')
+        cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    k8, v8, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    row = {}
+    for T in (1, 16):
+        pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                            dtype=torch.int32, device='cuda')
+        q = torch.randn((B, T, KV, G, d), generator=gen,
+                        device='cuda').to(torch.bfloat16)
+        kw = dict(scale=d ** -0.5, window=0)
+        r = check_sharded_case(f'glm4 T={T} scattered table over NP={NP}',
+                               mesh, (q, k, v, cpos, table, pos0), kw)
+        check_sharded_case(f'glm4 int8 T={T}', mesh,
+                           (q, k8, v8, cpos, table, pos0),
+                           dict(kw, k_scale_pages=ks, v_scale_pages=vs))
+        if T == 1:                                     # the decode step
+            view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, GLM_SEQ)
+            plain = time_ms(r.pop('plain'))
+            lib = library_attention_ms(q, view['k'], view['v'], view['pos'],
+                                       pos0, 0)
+            b_ms, by = attention_bound(q, view['k'], view['pos'], pos0, 0,
+                                       torch.bfloat16)
+            log(f'[kernel] sharded_paged_attention glm4 T=1: plain '
+                f'{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms '
+                f'({by})')
+            row = dict(max_abs_err=r['max_abs_err'], ms=r['ms'],
+                       plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                       library_ms=lib, ms_unsharded=r['ms_unsharded'],
+                       ms_shard=r['ms_shard'])
+    del k, v, cpos, k8, v8, ks, vs
+    cfg = get_config('mistral_7b')
+    KV, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim
+    B, Sc = 4, 512
+    lengths = [700, 300, 0, 549]                  # wrap, partial, empty, wrap
+    k8, v8, ks, vs = (dense_as_pages(x, dense_page_split(Sc))
+                      for x in int8_leaves(gen, (B, Sc), KV, d))
+    for H in (2, 4, 8):
+        mesh = card_mesh(f'1x{H}')
+        for T in (1, 16):
+            args, _ = ring_case(gen, torch.bfloat16, B, T, KV, G, d, Sc,
+                                lengths)
+            kw = dict(scale=d ** -0.5, window=cfg.window)
+            check_sharded_case(f'mistral window={cfg.window}', mesh, args, kw)
+            check_sharded_case(f'mistral int8 window={cfg.window}', mesh,
+                               (args[0], k8, v8, *args[3:]),
+                               dict(kw, k_scale_pages=ks, v_scale_pages=vs))
+    return row
+
+
 def check_quant_page_writes(gen) -> None:
     """fused_page_write and cow_page_copy on glm4-9b's five int8 leaves:
     k / v int8 (256-byte rows), k_scale / v_scale bf16 (4-byte rows: KV 2
@@ -1517,25 +1699,62 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
     return launches, [r.generated for r in reqs], cache_bytes(eng)
 
 
-def profile_engine(eng, reqs) -> None:
+def profile_engine(eng, reqs, spans=()) -> None:
     """Device time by kernel over a batch like the measured one
     (torch.profiler recording device activity only), and the device's
-    idle share of that window."""
+    idle share of that window. With ``spans`` (names of engine methods),
+    each call of them runs in a ``record_function`` range of its name, the
+    host's activity is traced too (its cost falls in the window's wall
+    time), and each span's device time is the sum of the kernels and
+    copies launched inside it: busy time, without the gaps in which the
+    stream waits for the host."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labelled(fn, label):
+        def run(*args):
+            with record_function(label):
+                return fn(*args)
+        return run
+    for name in spans:
+        setattr(eng, name, labelled(getattr(eng, name), 'engine.' + name))
+    acts = [ProfilerActivity.CUDA] + \
+        ([ProfilerActivity.CPU] if spans else [])
     torch.cuda.synchronize()
-    steps0 = eng.steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    steps0, ticks0 = eng.steps, eng.ticks
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for r in reqs:
             eng.submit(r)
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = eng.steps - steps0
+    for name in spans:
+        delattr(eng, name)
+    steps, ticks = eng.steps - steps0, eng.ticks - ticks0
+    avg = prof.key_averages()
+    labels = {'engine.' + name for name in spans}
+    for name in spans:
+        # the host-side range: device time of the kernels launched inside
+        # it; the device-side range: first kernel's start to last's end
+        ev = {e.device_type == DeviceType.CPU: e for e in avg
+              if e.key == 'engine.' + name}
+        if True not in ev:
+            log(f'[profile] {name}: no host range recorded')
+            continue
+        busy = ev[True].device_time_total / 1e3
+        span = ev[False].self_device_time_total / 1e3 if False in ev \
+            else float('nan')
+        calls = ev[True].count
+        log(f'[profile] {name}: {calls} calls over {ticks} ticks; device '
+            f'time of the copies it launched {busy:.3f} ms '
+            f'({busy / calls:.3f} ms a call, {busy / steps:.3f} ms per engine '
+            f'step); its span on the device, gaps included, {span:.3f} ms '
+            f'({span / calls:.3f} ms a call)')
     kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total]
+            for e in avg
+            if e.device_type != DeviceType.CPU and e.self_device_time_total
+            and e.key not in labels]
     busy = sum(ms for _, ms, _ in kern)
     if not busy:
         log('[profile] torch.profiler recorded no device time')
@@ -1552,7 +1771,8 @@ def profile_engine(eng, reqs) -> None:
                 'matmul' if ('gemm' in key.lower() or 'cutlass' in key
                              or 'nvjet' in key) else 'other')
         groups[name] += ms
-    log(f'[profile] window {wall_ms:.1f} ms wall over {steps} engine steps, '
+    log(f'[profile] window {wall_ms:.1f} ms wall over {steps} engine steps'
+        + (' (host traced too)' if spans else '') + ', '
         f'device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}); '
         f'device ms by group '
         f'{json.dumps({k: round(v, 2) for k, v in groups.items()})}; per '
@@ -1581,15 +1801,19 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
 
 def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                 device='cuda', dtype=torch.bfloat16, rows=None,
-                apply_seq: int = 0) -> dict:
+                apply_seq: int = 0, mesh_spec: str = '') -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
     16 new tokens each; every attend goes through ``attn_kernel``. With
     ``int8``, the same waves again on the same weights through an int8
     pool, every attend through ``paged_attention_quant``. With
-    ``apply_seq``, then the layer-0 comparison and Model.apply at that S on
-    the same weights. -> launches by run (``tag``, ``tag + '_int8'``, the
-    apply runs)."""
+    ``mesh_spec``, the same runs again on the same weights under that
+    serving mesh: greedy tokens bitwise the unsharded runs', the attention
+    kernel launched once per kv-head shard, the maintenance kernels as
+    often as unsharded. With ``apply_seq``, then the layer-0 comparison and
+    Model.apply at that S on the same weights. -> launches by run (``tag``,
+    ``tag + '_int8'``, ``tag + '_mesh'``, ``tag + '_mesh_int8'``, the apply
+    runs)."""
     on_card = torch.device(device).type == 'cuda'
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -1610,16 +1834,36 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
     system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
     reqs = glm_requests(cfg, rng, system, 0)
     warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
-    runs = [(tag, attn_kernel, False)]
+    runs = [(tag, attn_kernel, False, None)]
     if int8:
-        runs.append((tag + '_int8', 'paged_attention_quant', True))
+        runs.append((tag + '_int8', 'paged_attention_quant', True, None))
+    mesh = card_mesh(mesh_spec) if mesh_spec else None
+    if mesh is not None:
+        runs += [(t.replace(tag, tag + '_mesh', 1), k, q, mesh)
+                 for t, k, q, _ in runs]
     out = {}
-    for run_tag, kernel, kv_quant in runs:
+    for run_tag, kernel, kv_quant, run_mesh in runs:
         out[run_tag] = serve_waves(model, params, table, run_tag, kernel,
                                    kv_quant, system, warm, reqs, rng, device,
-                                   dtype)
+                                   dtype, mesh=run_mesh)
         if on_card:
             free()
+    for run_tag, kernel, _, run_mesh in runs:
+        if run_mesh is None:
+            continue
+        base_tag = run_tag.replace(tag + '_mesh', tag, 1)
+        (lb, tb, _), (lm, tm, _) = out[base_tag], out[run_tag]
+        assert tm == tb, f'{run_tag}: greedy tokens differ from {base_tag}'
+        H = run_mesh.shape[1]
+        assert lm[kernel] == lm['sharded_paged_attention'] \
+            == H * lb[kernel], (run_tag, lm, lb)
+        for name in ('fused_page_write', 'cow_page_copy', 'gather_rope'):
+            assert lm[name] == lb[name], (run_tag, name, lm, lb)
+        log(f'[{run_tag}] greedy tokens bitwise those of [{base_tag}] '
+            f'({sum(map(len, tm))} tokens); {kernel} {lm[kernel]} launches '
+            f'= {H} x {lb[kernel]} (one per kv-head shard); fused_page_write '
+            f'{lm["fused_page_write"]}, cow_page_copy {lm["cow_page_copy"]} '
+            'as unsharded')
     if int8:
         (l16, tok16, b16), (l8, tok8, b8) = out[tag], out[tag + '_int8']
         log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
@@ -1633,21 +1877,28 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
 
 
 def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
-                warm, reqs, rng, device, dtype):
+                warm, reqs, rng, device, dtype, mesh=None):
     """One paged engine over the two waves of ``reqs`` (fresh Request
-    objects with their prompts). -> (launches, greedy tokens, pool
-    bytes)."""
+    objects with their prompts); under ``mesh``, with a pool the mesh's
+    pool axis divides, the state at rest checked and the device time of
+    ``_rep_in`` / ``_shard_out`` read from the profiler's trace. ->
+    (launches, greedy tokens, pool bytes at rest)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
+    num_pages = None
+    if mesh is not None:        # the engine's default pool, cut to divide
+        num_pages = glm_pool_pages() - glm_pool_pages() % mesh.shape[0]
     eng = ServingEngine(model, params, max_slots=GLM_SLOTS, max_seq=GLM_SEQ,
                         precomputed=table, seed=SEED, dtype=dtype,
                         chunk_size=16, fused_gather_rope=True,
                         prefix_cache=True, page_size=GLM_PS,
-                        kv_quant=kv_quant, attn_backend='cuda', device=device)
+                        num_pages=num_pages, kv_quant=kv_quant,
+                        attn_backend='cuda', mesh=mesh, device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint
     log(f'[{tag}] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
-        f'x {cfg.num_layers} layers, leaves '
-        f'{sorted(eng._pools[0][0])}')
+        f'x {cfg.num_layers} layers, leaves {sorted(eng.states["layer0"])}'
+        + ('' if mesh is None else f'; {mesh_text(mesh)}, backend '
+           f'{type(eng.attn_backend).__name__}'))
     reqs = [Request(uid=r.uid, prompt=r.prompt,
                     max_new_tokens=r.max_new_tokens) for r in reqs]
     # warm-up (cuBLAS handles, allocator) with tokens no request shares
@@ -1685,7 +1936,8 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         assert launches[name] > 0, f'{name} never launched on the paged path'
     stats = eng.stats(reqs)
     steps = eng.steps - steps0
-    assert launches[attn_kernel] == cfg.num_layers * steps, \
+    shards = 1 if mesh is None else mesh.shape[1]
+    assert launches[attn_kernel] == shards * cfg.num_layers * steps, \
         (attn_kernel, launches[attn_kernel], steps)
     if kv_quant:
         assert launches['paged_attention'] == 0, launches
@@ -1706,13 +1958,53 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         f'preemptions {stats["preemptions"]}, MoE token drops '
         f'{eng.moe_token_drops - drops0}')
     log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
-        f'({attn_kernel}: {cfg.num_layers} a step); all requests FINISHED '
-        'with 16 tokens (finite logits)')
+        f'({attn_kernel}: {shards * cfg.num_layers} a step); all requests '
+        'FINISHED with 16 tokens (finite logits)')
+    if mesh is not None:
+        check_at_rest(eng, mesh, tag)
+        leaves = [b for leaf in state_leaves(eng.states)
+                  for row in leaf.blocks for b in row]
+    else:
+        leaves = [x for pool, _ in eng._pools for x in pool.values()]
     if on_card:
         profile_engine(eng, glm_requests(cfg, rng, system, 200,
-                                         tails=(50, 17, 90, 33)))
-    pool_bytes = nbytes(*[x for pool, _ in eng._pools for x in pool.values()])
-    return launches, [r.generated for r in reqs], pool_bytes
+                                         tails=(50, 17, 90, 33)),
+                       spans=() if mesh is None else ('_rep_in',
+                                                      '_shard_out'))
+    return launches, [r.generated for r in reqs], nbytes(*leaves)
+
+
+def state_leaves(states) -> list:
+    return [leaf for st in states.values()
+            for layer in (st if isinstance(st, list) else [st])
+            for leaf in layer.values()]
+
+
+def check_at_rest(eng, mesh, tag) -> None:
+    """Between steps every pool leaf is a grid of blocks on the mesh's
+    devices: pages ``partition_pages(NP, P)[i]`` and kv-head block ``h`` of
+    the gathered leaf, bit for bit."""
+    P, H = mesh.shape
+    parts = partition_pages(eng.num_pages, P)
+    n = 0
+    for leaf in state_leaves(eng.states):
+        assert isinstance(leaf, ShardedLeaf), type(leaf)
+        full = gather_leaf(leaf, eng.device)
+        lead = leaf.spec.index('pool')
+        for i in range(P):
+            for h in range(H):
+                b = leaf.blocks[i][h]
+                assert b.device == mesh.devices[i][h] and b.is_contiguous()
+                want = full.narrow(lead, parts[i].start, len(parts[i]))
+                if 'heads' in leaf.spec:
+                    dim = leaf.spec.index('heads')
+                    per = full.shape[dim] // H
+                    want = want.narrow(dim, h * per, per)
+                assert torch.equal(b, want), (tag, i, h)
+                n += 1
+    log(f'[{tag}] at rest: {n} blocks of {len(state_leaves(eng.states))} '
+        f'leaves on their mesh devices, pages {[str(r) for r in parts]} '
+        'and kv-head blocks of the gathered leaves')
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1819,14 +2111,14 @@ def consistency(kv_quant: bool, device) -> list:
         prompts = pressure_prompts(cfg, SEED + 3)
         prompts.append(prompts[0][:44].copy())   # stops inside a cached page
 
-        def serve(backend, num_pages):
+        def serve(backend, num_pages, mesh=None):
             kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
                 if num_pages else {}
             eng = ServingEngine(model, params, max_slots=3, max_seq=128,
                                 precomputed=table, seed=SEED, chunk_size=8,
                                 fused_gather_rope=True, attn_backend=backend,
                                 kv_quant=kv_quant, dtype=torch.float32,
-                                device=device, **kw)
+                                mesh=mesh, device=device, **kw)
             reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
                     for i, p in enumerate(prompts)]
             for r in reqs:
@@ -1872,6 +2164,24 @@ def consistency(kv_quant: bool, device) -> list:
                 f'pool leaves {leaves} after the kernel write path bitwise '
                 'equal to the plain write path on every layer; paged cuda vs '
                 'reference pools bitwise on layer 0 and every position leaf')
+            # the mesh engine: MLA (deepseek) falls back to one-device
+            # attends; 12 pages preempt under the mesh too
+            for spec in ('2x2', '1x2') if name == 'glm4_9b' else ('2x2',):
+                mesh = card_mesh(spec)
+                n0 = sharded_paged_attention.launches
+                tok, eng = serve('cuda', num_pages, mesh)
+                assert tok == tokens, f'mesh {spec} ({num_pages} pages): ' \
+                    'tokens differ from dense reference'
+                assert eng.cow_copies > 0 if num_pages == 16 \
+                    else eng.preemptions > 0
+                split = sharded_paged_attention.launches - n0
+                assert (split > 0) == (cfg.mla is None), split
+                log(f'{tag} {cfg.name} fp32 paged, {num_pages} pages, '
+                    f'{mesh_text(mesh)}: greedy tokens of the dense '
+                    f'reference ({eng.cow_copies} copy-on-write, '
+                    f'{eng.preemptions} preemptions; {split} shard '
+                    'launches of sharded_paged_attention'
+                    + (', MLA attends unsharded)' if cfg.mla else ')'))
     return ds_tokens
 
 
@@ -1890,13 +2200,14 @@ def main() -> None:
     check_mla_page_writes(gen)
     rows['paged_attention_quant'] = check_paged_attention_quant(gen)
     check_quant_page_writes(gen)
+    rows['sharded_paged_attention'] = check_sharded_paged_attention(gen)
     rows['flash_attention'] = check_flash_attention(gen)
     free()
     phases = phase_mistral(rows)
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
                               'paged_attention', int8=True, rows=rows,
-                              apply_seq=4096))
+                              apply_seq=4096, mesh_spec='2x2'))
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
                               'paged_attention_mla'))
@@ -1909,9 +2220,11 @@ def main() -> None:
                  'cow_page_copy': 'glm4', 'paged_attention_mla': 'deepseek',
                  'paged_attention_quant': 'glm4_int8',
                  'rmsnorm_matmul': 'mistral_apply',
-                 'flash_attention': 'mistral_apply'}
+                 'flash_attention': 'mistral_apply',
+                 'sharded_paged_attention': 'glm4_mesh'}
     sources = {name: f'src/repro_torch/csrc/{name}.cu' for name in rows}
-    for form in ('paged_attention_mla', 'paged_attention_quant'):
+    for form in ('paged_attention_mla', 'paged_attention_quant',
+                 'sharded_paged_attention'):
         sources[form] = 'src/repro_torch/csrc/paged_attention.cu'
 
     replaces = {
@@ -1923,7 +2236,8 @@ def main() -> None:
         'fused_page_write': 'src/repro/kernels/paged_maintenance.py:131',
         'cow_page_copy': 'src/repro/kernels/paged_maintenance.py:217',
         'rmsnorm_matmul': 'src/repro/kernels/rmsnorm_qkv.py:34',
-        'flash_attention': 'src/repro/kernels/flash_attention.py:80'}
+        'flash_attention': 'src/repro/kernels/flash_attention.py:80',
+        'sharded_paged_attention': 'src/repro/kernels/paged_attention.py:210'}
     kernels = [dict(name=name, route='cuda',
                     source=sources[name],
                     replaces=replaces[name],

@@ -29,9 +29,15 @@ int8 form: int8 k/v pages with bf16 scales ``k_scale_pages`` /
 ``(q·k)·k_scale·scale``, the running sum ``l`` takes the probabilities
 ``p`` and the value mix ``p·v_scale`` (the JAX kernel's order); q stays in
 its own dtype (bf16 or fp32), and so does the output.
+
+Over a ``('pool', 'heads')`` serving mesh, :func:`sharded_paged_attention`
+splits one call over kv heads: each head shard runs the same kernel on its
+device's copy of the queries and pages, bitwise equal to one unsharded
+call (port of the JAX ``shard_map`` of the kernel).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -289,6 +295,130 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_attention_quant.launches = 0
 
+
+
+# ================================================== head-parallel over a mesh
+def _head_shards(mesh, q, k_pages, v_pages, cpos_pages, table, pos0,
+                 k_scale_pages, v_scale_pages):
+    """Per head shard h: (``mesh.devices[0][h]``, its arguments there) —
+    q's and each K/V (and scale) leaf's contiguous slice of kv heads
+    ``h*KV/H : (h+1)*KV/H``, and device-local copies of the positions,
+    the table and pos0."""
+    H = mesh.shape[1]
+    per = q.shape[2] // H
+    for h in range(H):
+        dev = mesh.devices[0][h]
+
+        def part(x, dim):
+            return x.narrow(dim, h * per, per).to(dev).contiguous()
+        scales = None if k_scale_pages is None else \
+            (part(k_scale_pages, 2), part(v_scale_pages, 2))
+        yield dev, (part(q, 2), part(k_pages, 2), part(v_pages, 2),
+                    cpos_pages.to(dev), table.to(dev), pos0.to(dev)), scales
+
+
+def _unsharded(mesh, q, mla_split) -> bool:
+    """JAX's fallbacks: no mesh, a heads axis of 1, MLA (one latent head),
+    kv heads that the heads axis does not divide. Raises ValueError for a
+    mesh on another type of device than q's."""
+    if mesh is not None and mesh.primary.type != q.device.type:
+        raise ValueError(f'mesh devices are {mesh.primary.type}, the '
+                         f'queries are on {q.device}')
+    H = 1 if mesh is None else mesh.shape[1]
+    return H == 1 or bool(mla_split) or q.shape[2] % H != 0
+
+
+def sharded_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: Optional[torch.Tensor],
+                            cpos_pages: torch.Tensor, table: torch.Tensor,
+                            pos0: torch.Tensor, *, mesh, scale: float,
+                            window: int = 0,
+                            k2_pages: Optional[torch.Tensor] = None,
+                            k_scale_pages: Optional[torch.Tensor] = None,
+                            v_scale_pages: Optional[torch.Tensor] = None,
+                            mla_split: int = 0) -> torch.Tensor:
+    """Head-parallel :func:`paged_attention` over a ``('pool', 'heads')``
+    mesh (``launch.mesh.ServingMesh``); port of the JAX package's
+    ``sharded_paged_attention``, whose ``shard_map`` over ``'heads'`` this
+    dispatch replaces.
+
+    Every kv head's running softmax is independent, so kv-head shard ``h``
+    runs the unsharded kernel (:func:`paged_attention`, or
+    :func:`paged_attention_quant` with the int8 scales) on ``KV / H`` heads
+    on ``mesh.devices[0][h]``, with device-local copies of the table, the
+    stored positions and pos0; the outputs are joined along the kv-head
+    axis on q's device. No reduction crosses a shard, so the result is
+    bitwise the unsharded kernel's. Falls back to one unsharded call
+    without a mesh, with a heads axis of 1, for MLA (``mla_split``), and
+    when the heads axis does not divide KV.
+
+    Each shard's launch is the unsharded kernel's at KV / H heads, as bound
+    as that kernel (few blocks at decode shapes); on one card repeated in
+    the mesh the H launches run one after another, and the slices' copies
+    come on top (PERF.md row 3b).
+
+    CPU tensors take the plain version in every shard; CUDA tensors launch
+    the kernel in every shard or raise. Counts the shard launches in
+    ``sharded_paged_attention.launches`` (each also counts in its kernel's
+    own count); a fallback counts only there."""
+    quant = k_scale_pages is not None
+    if _unsharded(mesh, q, mla_split):
+        if quant:
+            return paged_attention_quant(q, k_pages, v_pages, k_scale_pages,
+                                         v_scale_pages, cpos_pages, table,
+                                         pos0, scale=scale, window=window)
+        return paged_attention(q, k_pages, v_pages, cpos_pages, table, pos0,
+                               scale=scale, window=window, k2_pages=k2_pages,
+                               mla_split=mla_split)
+    outs = []
+    for dev, (qh, kh, vh, cp, tab, p0), scales in _head_shards(
+            mesh, q, k_pages, v_pages, cpos_pages, table, pos0,
+            k_scale_pages, v_scale_pages):
+        with torch.cuda.device(dev) if dev.type == 'cuda' \
+                else contextlib.nullcontext():
+            if quant:
+                o = paged_attention_quant(qh, kh, vh, *scales, cp, tab, p0,
+                                          scale=scale, window=window)
+            else:
+                o = paged_attention(qh, kh, vh, cp, tab, p0, scale=scale,
+                                    window=window)
+        if o.is_cuda:
+            sharded_paged_attention.launches += 1
+        outs.append(o.to(q.device))
+    return torch.cat(outs, dim=2)
+
+
+sharded_paged_attention.launches = 0
+
+
+def sharded_paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: Optional[torch.Tensor],
+                                  cpos_pages: torch.Tensor,
+                                  table: torch.Tensor, pos0: torch.Tensor, *,
+                                  mesh, scale: float, window: int = 0,
+                                  k2_pages: Optional[torch.Tensor] = None,
+                                  k_scale_pages: Optional[torch.Tensor] = None,
+                                  v_scale_pages: Optional[torch.Tensor] = None,
+                                  mla_split: int = 0) -> torch.Tensor:
+    """:func:`sharded_paged_attention`'s plain version: the same split (and
+    the same fallbacks) over :func:`paged_attention_plain`, on any
+    device."""
+    if _unsharded(mesh, q, mla_split):
+        return paged_attention_plain(q, k_pages, v_pages, cpos_pages, table,
+                                     pos0, scale=scale, window=window,
+                                     k2_pages=k2_pages,
+                                     k_scale_pages=k_scale_pages,
+                                     v_scale_pages=v_scale_pages,
+                                     mla_split=mla_split)
+    outs = []
+    for _, (qh, kh, vh, cp, tab, p0), scales in _head_shards(
+            mesh, q, k_pages, v_pages, cpos_pages, table, pos0,
+            k_scale_pages, v_scale_pages):
+        ks, vs = scales if scales is not None else (None, None)
+        outs.append(paged_attention_plain(
+            qh, kh, vh, cp, tab, p0, scale=scale, window=window,
+            k_scale_pages=ks, v_scale_pages=vs).to(q.device))
+    return torch.cat(outs, dim=2)
 
 # ========================================== dense caches as identity pages
 def dense_page_split(Sc: int, max_page: int = 128) -> int:

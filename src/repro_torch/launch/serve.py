@@ -11,6 +11,8 @@ paged KV pool with the prefix cache).
         --prefix-cache --shared-prefix 32 --fused-gather-rope   # paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --prefix-cache --fused-gather-rope  # MLA
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch glm4-9b --prefix-cache --mesh 2x2    # a 2x2 mesh of one CPU
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_IDS, get_smoke_config
+from repro_torch.launch.mesh import make_serving_mesh, parse_mesh_spec
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -73,11 +76,27 @@ def main() -> None:
                          'the page-maintenance kernels; "reference": plain '
                          'PyTorch, one query lane at a time; "auto": cuda on '
                          'a CUDA device, reference on the CPU')
+    ap.add_argument('--mesh', default='',
+                    help='serving device mesh "PxH" (pool x heads), e.g. '
+                         '"2x2" (prefix-cache mode): KV pool storage rests '
+                         'in blocks over P x H devices and the cuda attend '
+                         'runs over H kv-head shards; tokens stay bitwise '
+                         'the one-device engine\'s. Empty / "1x1" = no mesh. '
+                         'With --device cpu the CPU is repeated P*H times; '
+                         'on CUDA it takes the first P*H GPUs and raises '
+                         'when there are fewer. Impossible shapes raise '
+                         'ValueError')
     ap.add_argument('--deadline', type=float, default=0.0,
                     help='per-request budget in seconds (0 = none)')
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
 
+    mesh = None
+    shape = parse_mesh_spec(args.mesh)
+    if shape is not None:
+        on_cpu = torch.device(args.device).type == 'cpu'
+        mesh = make_serving_mesh(shape, devices=[torch.device('cpu')]
+                                 * (shape[0] * shape[1]) if on_cpu else None)
     cfg = get_smoke_config(args.arch)
     model = Model(cfg)
     params = model.init(args.seed, device=args.device)
@@ -95,8 +114,13 @@ def main() -> None:
                         prefix_cache=args.prefix_cache,
                         page_size=args.page_size,
                         num_pages=args.num_pages or None,
-                        attn_backend=args.attn_backend,
+                        attn_backend=args.attn_backend, mesh=mesh,
                         dtype=getattr(torch, cfg.dtype), device=args.device)
+    if eng.mesh is not None:
+        p, h = eng.mesh.shape
+        devs = [str(d) for row in eng.mesh.devices for d in row]
+        print(f'serving mesh: {p}x{h} (pool x heads) over {len(devs)} '
+              f'devices ({", ".join(devs)})')
     if eng.chunk_size > 1:
         print(f'chunked prefill: {eng.chunk_size} tokens/dispatch'
               + (' + fused gather→RoPE' if eng.fused_gather_rope else ''))

@@ -19,6 +19,9 @@
   (``kernels/paged_maintenance.py``). On CPU tensors the kernel wrappers
   run their plain versions, so the backend's plumbing is testable without
   a card.
+  ``CudaBackend(mesh)`` (not registered; the serving engine makes one
+  under a device mesh) splits every chunk attend over the mesh's kv-head
+  shards (``sharded_paged_attention``).
 - ``'auto'`` resolves by device: ``cuda`` for a CUDA device, ``reference``
   for the CPU. (JAX's ``'auto'`` picks the plain path everywhere except on
   a TPU; here the kernel is the default wherever it runs.)
@@ -97,11 +100,21 @@ class CudaBackend(AttnBackend):
     name = 'cuda'
     fused_maintenance = True
 
+    def __init__(self, mesh=None):
+        # mesh (a launch.mesh.ServingMesh): every chunk attend, on pool
+        # pages and on the int8 pool, runs one kernel launch per kv-head
+        # shard (port of the JAX package's ShardedPallasBackend). MLA keeps
+        # the one-device attend, as in JAX. Unlike JAX, fused maintenance
+        # stays on: the engine gathers the pool onto its primary device for
+        # every step, so the maintenance kernels run there on the whole
+        # pool, unchanged.
+        self.mesh = mesh
+
     def attend_chunk(self, q, cache, pos0, cfg, *, rope_theta, window=0,
                      rope_applied=False, paged=None):
         from repro_torch.kernels.paged_attention import (
             dense_as_pages, dense_identity_table, dense_page_split,
-            paged_attention, paged_attention_quant)
+            sharded_paged_attention)
         B, T = q.shape[0], q.shape[1]
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q = q.reshape(B, T, H, hd)
@@ -110,24 +123,26 @@ class CudaBackend(AttnBackend):
             q = L.apply_rope(q, pos_t, rope_theta)
         k = cache['k']
         quant = 'k_scale' in cache
-        names = ('k', 'v', 'k_scale', 'v_scale', 'pos') if quant \
+        names = ('k', 'v', 'pos', 'k_scale', 'v_scale') if quant \
             else ('k', 'v', 'pos')
         if paged is not None:                 # pool pages, in place
             table, _ = paged.table_for(window, k.shape[1])
-            pages = [cache[nm] for nm in names]
+            pages = {nm: cache[nm] for nm in names}
         else:                                 # dense caches as pages
             Sc = k.shape[1]
             ps = dense_page_split(Sc)
-            pages = [dense_as_pages(cache[nm], ps) for nm in names]
+            pages = {nm: dense_as_pages(cache[nm], ps) for nm in names}
             table = dense_identity_table(B, Sc, ps, q.device)
         pos0 = pos0.to(torch.int32).contiguous()
         qg = q.reshape(B, T, KV, H // KV, hd)
-        if quant:                             # q keeps its dtype over int8
-            ctx = paged_attention_quant(qg.contiguous(), *pages, table, pos0,
-                                        scale=hd ** -0.5, window=window)
-        else:       # one dtype for q, K and V: queries follow the cache
-            ctx = paged_attention(qg.to(k.dtype).contiguous(), *pages, table,
-                                  pos0, scale=hd ** -0.5, window=window)
+        # int8: q keeps its dtype; else one dtype for q, K and V (queries
+        # follow the cache)
+        ctx = sharded_paged_attention(
+            (qg if quant else qg.to(k.dtype)).contiguous(), pages['k'],
+            pages['v'], pages['pos'], table, pos0, mesh=self.mesh,
+            scale=hd ** -0.5, window=window,
+            k_scale_pages=pages.get('k_scale'),
+            v_scale_pages=pages.get('v_scale'))
         return ctx.reshape(B, T, H * hd).to(q.dtype)
 
     def attend_mla(self, params, q_nope, q_pe, cache, pos0, cfg, *,

@@ -68,14 +68,33 @@ reset, page clears, copy-on-write and preemption treat the scale leaves
 as they treat K/V, and the ``cuda`` backend attends through the int8 form
 of the kernel (``paged_attention_quant``). MLA latent caches ignore it.
 
-Not ported yet, and rejected with ``NotImplementedError``: device meshes,
-the async host loop, segment-packed prefill, telemetry recording and fault
-injection.
+**Sharded serving** (``mesh='PxH'``, ``(P, H)`` or a
+``launch.mesh.ServingMesh``; paged engines only): "shard storage,
+replicate compute", as the JAX engine. Between steps every state leaf is
+at rest in the layout of ``repro_torch.sharding`` — a P x H grid of
+contiguous blocks on the mesh's devices, the pool's pages over ``'pool'``
+(``kvpool.partition_pages``), K/V kv heads over ``'heads'``, a dimension
+that does not divide replicated. Each tick (``step_once``) and each
+``score`` call gathers the blocks into full leaves on the primary device
+(``_rep_in``), runs the one-device code on them, and cuts them back into
+blocks (``_shard_out``); so greedy tokens are bitwise the unsharded
+engine's. The one partitioned computation is the attend: with the ``cuda``
+backend it runs on ``CudaBackend(mesh)``, one ``paged_attention`` launch
+per kv-head shard on that shard's device. Unlike JAX, fused maintenance
+stays on: it runs on the gathered pool on the primary device. The engine's
+``device`` must be the mesh's primary device, so the gathered pool must fit
+there. Each tick copies the whole pool twice, and each layer's kv-head
+slices once more: a faithful port of the layout, not a fast one.
+
+Not ported yet, and rejected with ``NotImplementedError``: the dense
+engine under a mesh, the async host loop, segment-packed prefill,
+telemetry recording and fault injection.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -83,8 +102,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import paged_maintenance as PM
+from repro_torch.launch.mesh import make_serving_mesh, resolve_device
 from repro_torch.models.attention import PageTables
-from repro_torch.models.attn_backend import get_backend
+from repro_torch.models.attn_backend import CudaBackend, get_backend
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
                                             lm_logits)
@@ -92,6 +112,8 @@ from repro_torch.serving.kvpool import PrefixCache
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.telemetry import Histogram, latency_summary
+from repro_torch.sharding import (gather_leaf, leaf_axes, shard_leaf,
+                                  spec_for_shape)
 
 
 class RequestStatus(str, enum.Enum):
@@ -163,6 +185,29 @@ class _Lane:
     p_after: int            # ... and after
 
 
+def _on_full_states(method):
+    """Wrap an engine method that may read or write ``self.states`` (a
+    tick, a scoring run): under a mesh, gather the leaves at rest into full
+    leaves on the primary device first (``_rep_in``), run the one-device
+    code on them, and cut them back into their blocks after
+    (``_shard_out``). A nested call (``score`` runs ticks) runs inside the
+    outer one's gather."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.mesh is None or self._gathered:
+            return method(self, *args, **kwargs)
+        self.states = self._rep_in(self.states)
+        self._gathered = True
+        self._index_states()
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self._gathered = False
+            self._reset_plan = self._pools = None   # they alias full leaves
+            self.states = self._shard_out(self.states)
+    return run
+
+
 def _stage(arrays: Sequence[np.ndarray], device: torch.device
            ) -> List[torch.Tensor]:
     """Copy int32 host arrays to ``device`` in one transfer; returns views
@@ -189,8 +234,7 @@ class ServingEngine:
                  pack_prefill: bool = False, telemetry: bool = False,
                  mesh=None, async_loop: bool = False,
                  device: torch.device | str = 'cuda'):
-        unported = {'mesh': mesh, 'async_loop': async_loop,
-                    'pack_prefill': pack_prefill,
+        unported = {'async_loop': async_loop, 'pack_prefill': pack_prefill,
                     'telemetry': telemetry, 'fault_injector': fault_injector}
         for name, val in unported.items():
             if val is not None and val is not False:
@@ -204,6 +248,24 @@ class ServingEngine:
         self.attn_backend = get_backend(attn_backend, self.device)
         self.chunk_size = chunk_size
         self.paged = bool(prefix_cache)
+        # mesh: None | 'PxH' | (P, H) | a ServingMesh, resolved (and
+        # ValueError'd on impossible shapes) by make_serving_mesh
+        self.mesh = make_serving_mesh(mesh)
+        if self.mesh is not None:
+            if not self.paged:
+                raise NotImplementedError(
+                    'ServingEngine(mesh=...) is ported for the paged engine '
+                    '(prefix_cache=True); the dense engine under a mesh '
+                    '(per-slot caches over the pool axis) is not ported yet')
+            if resolve_device(self.device) != self.mesh.primary:
+                raise ValueError(
+                    f'the engine\'s device ({self.device}) must be the '
+                    f'mesh\'s primary device ({self.mesh.primary}): weights, '
+                    'compute and the gathered state live there')
+            if self.attn_backend.name == 'cuda':
+                # the attend runs one kernel launch per kv-head shard
+                self.attn_backend = CudaBackend(self.mesh)
+        self._gathered = False
         self.page_size = page_size
         # the one-token path never fuses (paged mode has none: its T == 1
         # steps run the chunk path); ineligible layouts use the plain gather
@@ -246,30 +308,13 @@ class ServingEngine:
             max_slots, max_seq, dtype, chunk=chunk_size, device=self.device,
             num_pages=self.num_pages, page_size=page_size if self.paged else 0,
             kv_quant=self.kv_quant)
-        # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
-        # slot reset; the page pool is never slot-reset (pages are cleared
-        # when they are allocated instead)
-        self._reset_plan = []
-        # (pool leaves, reps) of every layer's page pool: reps > 0 for
-        # leaves stacked over the layers of a pattern slot
-        self._pools = []
-        mask = model.paged_state_mask(self.kv_quant) if self.paged else None
-        for part, st in self.states.items():
-            layers = st if isinstance(st, list) else [st]
-            masks = [{}] * len(layers) if mask is None else \
-                mask[part] if isinstance(st, list) else [mask[part]]
-            for layer, lmask in zip(layers, masks):
-                stacked = part == 'body'
-                pool = {nm: leaf for nm, leaf in layer.items()
-                        if lmask.get(nm)}
-                if pool:
-                    reps = next(iter(pool.values())).shape[0] \
-                        if stacked else 0
-                    self._pools.append((pool, reps))
-                self._reset_plan += [(leaf, 1 if stacked else 0,
-                                      PM.leaf_fill(nm))
-                                     for nm, leaf in layer.items()
-                                     if not lmask.get(nm)]
+        self._paged_mask = model.paged_state_mask(self.kv_quant) \
+            if self.paged else None
+        if self.mesh is None:
+            self._index_states()
+        else:           # at rest in blocks; indexed while gathered
+            self._reset_plan = self._pools = None
+            self.states = self._shard_out(self.states)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_pos = np.zeros(max_slots, np.int64)       # next position
         self.slot_next_tok = np.zeros(max_slots, np.int32)  # token to feed
@@ -310,6 +355,67 @@ class ServingEngine:
             self.slot_nblocks = np.zeros(max_slots, np.int32)
             self.slot_priv: List[List[int]] = [[] for _ in range(max_slots)]
             self.slot_insert_at = np.full(max_slots, -1, np.int64)
+
+    # ------------------------------------------------------ state layout
+    def _layers(self, states):
+        """(leaves, pool mask, stacked?) of every layer of a states tree;
+        ``stacked``: the ``body`` part's leaves, stacked over the layers of
+        a pattern slot."""
+        mask = self._paged_mask
+        for part, st in states.items():
+            layers = st if isinstance(st, list) else [st]
+            masks = [{}] * len(layers) if mask is None else \
+                mask[part] if isinstance(st, list) else [mask[part]]
+            for layer, lmask in zip(layers, masks):
+                yield layer, lmask, part == 'body'
+
+    def _index_states(self) -> None:
+        """Index the leaves of ``self.states`` (full leaves) that slot
+        resets, page clears and copy-on-write touch."""
+        # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
+        # slot reset; the page pool is never slot-reset (pages are cleared
+        # when they are allocated instead)
+        self._reset_plan = []
+        # (pool leaves, reps) of every layer's page pool: reps > 0 for
+        # leaves stacked over the layers of a pattern slot
+        self._pools = []
+        for layer, lmask, stacked in self._layers(self.states):
+            pool = {nm: leaf for nm, leaf in layer.items() if lmask.get(nm)}
+            if pool:
+                reps = next(iter(pool.values())).shape[0] if stacked else 0
+                self._pools.append((pool, reps))
+            self._reset_plan += [(leaf, 1 if stacked else 0,
+                                  PM.leaf_fill(nm))
+                                 for nm, leaf in layer.items()
+                                 if not lmask.get(nm)]
+
+    def _map_states(self, states, fn):
+        """A states tree of the same structure with ``fn(leaf, name,
+        stacked, pooled)`` in place of every leaf."""
+        out = {}
+        for part, st in states.items():
+            layers = [{nm: fn(leaf, nm, stacked, bool(lmask.get(nm)))
+                       for nm, leaf in layer.items()}
+                      for layer, lmask, stacked in self._layers({part: st})]
+            out[part] = layers if isinstance(st, list) else layers[0]
+        return out
+
+    def _rep_in(self, states):
+        """Gather every leaf at rest (``sharding.ShardedLeaf``) into the
+        full leaf on the primary device: the 'replicate compute' half of
+        the layout, so each step runs the exact one-device math."""
+        return self._map_states(
+            states, lambda leaf, *_: gather_leaf(leaf, self.device))
+
+    def _shard_out(self, states):
+        """Cut every full leaf into its blocks at rest on the mesh, in the
+        layout of ``sharding.spec_for_shape`` (the JAX engine's
+        ``_place_states`` and ``_shard_out`` in one)."""
+        def place(x, name, stacked, pooled):
+            spec = spec_for_shape(self.mesh, x.shape,
+                                  leaf_axes(name, x.dim(), stacked, pooled))
+            return shard_leaf(x, spec, self.mesh)
+        return self._map_states(states, place)
 
     # ------------------------------------------------------------- plumbing
     def _validate(self, req: Request) -> Optional[str]:
@@ -673,6 +779,7 @@ class ServingEngine:
             return False
 
     # ----------------------------------------------------------------- run
+    @_on_full_states
     def step_once(self) -> None:
         """One engine tick: deadlines, admission, one dispatch, commit."""
         self.ticks += 1
@@ -890,10 +997,12 @@ class ServingEngine:
             out['p99_ttft_s'] = self._ttft_hist.percentile(99)
         return out
 
+    @_on_full_states
     def score(self, prompts: List[np.ndarray]) -> List[np.ndarray]:
         """All-position logits of each prompt: ``out[i][t]`` is the
         next-token distribution after ``prompts[i][t]``. Raises
-        :class:`ScoringError` if any prompt ends without its logits."""
+        :class:`ScoringError` if any prompt ends without its logits. Under
+        a mesh the whole scoring run works on one gather of the state."""
         reqs = [Request(uid=self._next_internal_uid(),
                         prompt=np.asarray(p, np.int32),
                         max_new_tokens=1, return_logits=True)

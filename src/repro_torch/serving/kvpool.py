@@ -1,8 +1,7 @@
 """Paged KV pool with a token-prefix radix index (host-side policy).
 
 A copy of the JAX package's ``repro/serving/kvpool.py`` (pure Python over
-numpy), without ``partition_pages`` (multi-device serving is not ported)
-and without the telemetry binding (the port records no telemetry yet).
+numpy), without the telemetry binding (the port records no telemetry yet).
 
 The serving engine's paged mode replaces every per-slot contiguous KV cache
 with a **global pool of fixed-size pages**: each attention (or MLA-latent)
@@ -49,6 +48,30 @@ import numpy as np
 from repro_torch.serving import telemetry as TM
 
 NULL_PAGE = 0     # physical page 0 is reserved: all-zero K/V, pos == -1
+
+
+def partition_pages(num_pages: int, pool_shards: int) -> List[range]:
+    """Block-partition physical page ids over ``pool_shards`` mesh shards.
+
+    Shard ``i`` owns the contiguous block ``[i * num_pages / S, (i + 1) *
+    num_pages / S)``, the block a serving mesh's ``'pool'`` axis keeps on
+    its ``i``-th row of devices (``repro_torch.sharding``). The partition
+    is a bijection onto ``range(num_pages)``: every physical page lives on
+    exactly one shard, which keeps the host-side page accounting
+    (allocator, radix index, eviction) shard-oblivious.
+
+    Raises :class:`ValueError` when ``pool_shards`` is non-positive or does
+    not divide ``num_pages`` (the serving rules replicate the pool axis in
+    that case, so an uneven partition is never meaningful).
+    """
+    if pool_shards < 1:
+        raise ValueError(f'pool_shards must be positive, got {pool_shards}')
+    if num_pages % pool_shards:
+        raise ValueError(f'{num_pages} pages do not divide over '
+                         f'{pool_shards} pool shards (GSPMD would pad; the '
+                         f'serving rules replicate instead)')
+    per = num_pages // pool_shards
+    return [range(i * per, (i + 1) * per) for i in range(pool_shards)]
 
 
 class RadixNode:

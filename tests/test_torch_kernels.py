@@ -15,7 +15,9 @@ Tests marked ``cuda`` hold each CUDA kernel against its plain version on a
 card and skip without one (bitwise for the two page-maintenance kernels,
 also on the int8 cache's five leaves; the MLA form of ``paged_attention``
 and the 17-segment ``gather_rope`` at deepseek-v2-lite-16b widths; the
-int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths). The
+int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths;
+``sharded_paged_attention`` over a mesh of the card repeated, bitwise
+against one unsharded launch). The
 int8 form's plain version is held against JAX in
 ``tests/test_torch_quant.py``. They import nothing of JAX, so on a machine with
 only the port they run with:
@@ -663,6 +665,55 @@ def test_paged_attention_quant_kernel_matches_plain(cuda, shape, T, dtype):
     if dtype is torch.bfloat16:
         lim = lim + want.float().abs() * 2.0 ** -7
     assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('H', [2, 4])
+@pytest.mark.parametrize('form', ['float32', 'bfloat16', 'int8'])
+def test_sharded_paged_attention_kernel_bitwise(cuda, form, H):
+    """``sharded_paged_attention`` on a mesh of the card repeated H times
+    (KV 4, G 4, d 128, a scattered table, T 16): bitwise one unsharded
+    launch, H shard launches, and within the unsharded checks' tolerance of
+    its plain version (KERNEL_TOL; bf16 2e-2); the int8 form takes fp32
+    queries. ``tests/test_torch_sharded.py`` holds the same split against
+    JAX on the CPU."""
+    from repro_torch.kernels.paged_attention import (
+        sharded_paged_attention, sharded_paged_attention_plain)
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh((1, H), devices=[cuda] * H)
+    B, T, KV, G, d, Sc, ps = 3, 16, 4, 4, 128, 64, 16
+    q, k, v, cpos, table, pos0 = _paged_case(6, B, T, KV, G, d, Sc, ps,
+                                             [64, 29, 0])
+    perm = np.random.default_rng(1).permutation(k.shape[0] - 1) + 1
+    inv = np.empty_like(perm)
+    inv[perm - 1] = np.arange(1, k.shape[0])
+    k[1:], v[1:], cpos[1:] = k[perm], v[perm], cpos[perm]
+    table = np.where(table > 0, inv[np.maximum(table, 1) - 1], 0) \
+        .astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, cpos, table,
+                                                    pos0)]
+    kw = dict(scale=d ** -0.5)
+    tol = dict(KERNEL_TOL)
+    if form == 'bfloat16':
+        args = [a.bfloat16() if a.is_floating_point() else a for a in args]
+        tol = dict(atol=2e-2, rtol=2e-2)
+    if form == 'int8':
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        args[1], args[2], ks, vs = _int8_pages(gen, tuple(k.shape[:2]), KV,
+                                               d, cuda)
+        kw.update(k_scale_pages=ks, v_scale_pages=vs)
+        one = paged_attention_quant(*args[:3], ks, vs, *args[3:],
+                                    scale=kw['scale'])
+    else:
+        one = paged_attention(*args, **kw)
+    n0 = sharded_paged_attention.launches
+    got = sharded_paged_attention(*args, mesh=mesh, **kw)
+    plain = sharded_paged_attention_plain(*args, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    assert sharded_paged_attention.launches == n0 + H
+    assert got.dtype == args[0].dtype and torch.equal(got, one)
+    torch.testing.assert_close(got.float(), plain.float(), **tol)
+    assert not got[2].any()
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro.serving import telemetry as JTM
 from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.attn_backend import CUDA, REFERENCE, get_backend
 from repro_torch.models.model import Model
 from repro_torch.params import from_numpy_tree
@@ -139,14 +140,17 @@ def test_deadline_fails_only_the_expired_request(both):
 
 
 @pytest.mark.parametrize('option', [dict(prefix_cache=True),
-                                    dict(mesh='1x1'), dict(async_loop=True),
+                                    dict(mesh=make_serving_mesh(
+                                        '2x2', devices=['cpu'] * 4)),
+                                    dict(async_loop=True),
                                     dict(pack_prefill=True),
                                     dict(telemetry=True),
                                     dict(fault_injector=object())])
 def test_unported_engine_options_raise(both, option):
     """Options not ported yet raise; ``prefix_cache=True`` is ported for
     all-global configurations only, and mistral-7b's layers are windowed
-    (ring pages with snapshots are not ported)."""
+    (ring pages with snapshots are not ported); a mesh is ported for the
+    paged engine only (the dense engine under a mesh is not)."""
     _, _, tm, tp = both
     assert tm.cfg.pattern == ('local',) and tm.cfg.window
     match = "all 'global'" if 'prefix_cache' in option else 'not ported'
