@@ -2,7 +2,9 @@
 faulty kernel?
 
 Builds deliberately broken copies of src/repro_torch/csrc/flash_attention.cu
-in a temporary directory (the checkout's source is not touched), runs each
+in a temporary directory (the checkout's source is not touched): a key tile
+skipped after its copies, the register accumulator not rescaled when the
+running max rises, no correction at all. Runs each
 through the ``flash_attention`` wrapper at chip_smoke.py's ``FLASH_CASES``
 in bf16, and prints for each the largest error against the plain version,
 the share of chip_smoke's row-scaled limit (``FLASH_ROW_TOL``) it uses,
@@ -35,58 +37,70 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 
 NAME = 'flash_attention'
 LOOSE = dict(atol=3e-2, rtol=3e-2)            # tests/test_kernels.py
-LOOP = 'for (int j0 = lo; j0 < hi; j0 += kBk) {'
 # name -> (text of the bf16 kernel, its replacement): first occurrence only,
 # which is in flash_bf16
+TILE = '    cp_async_commit();\n\n    const int j0 = lo + it * kBk;'
+RESCALE = """    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        o[nt][0] *= corr[0];
+        o[nt][1] *= corr[0];
+        o[nt][2] *= corr[1];
+        o[nt][3] *= corr[1];
+      }
+    }
+"""
 MUTANTS = {
     'none': None,
     # the second key tile of a block that walks more than 60 (3840 keys) is
-    # never read: 64 keys of 3840-4096, which moves a typical output (sigma
-    # ~0.026) by ~13 / keys (~3e-3), far under test_kernels.py's 3e-2
-    'skip_tile_late': (LOOP, LOOP + '\n    if (j0 == lo + kBk && hi - lo > '
-                       '60 * kBk) continue;'),
-    # the accumulator in shared memory is not rescaled when the max rises
-    'no_rescale': ('for (int c = lane; c < D; c += 32) sO[r * L::kLdO + c] '
-                   '*= corr;', ''),
-    # neither the accumulator nor the running sum is rescaled
-    'no_correction': ('const float corr = expf(m_prev - m_new);',
-                      'const float corr = 1.f;'),
+    # skipped after its copies: 64 keys of 3840-4096, which moves a typical
+    # output (sigma ~0.026) by ~13 / keys (~3e-3), far under
+    # test_kernels.py's 3e-2
+    'skip_tile_late': (TILE, TILE.replace(
+        '\n\n', '\n    if (it == 1 && n_tiles > 60) continue;\n\n')),
+    # the O registers are not rescaled when the running max rises
+    'no_rescale': (RESCALE, ''),
+    # neither the O registers nor the running sum is rescaled
+    'no_correction': ('corr[u] = exp2f(m[u] - m_new);', 'corr[u] = 1.f;'),
 }
 
 
-def compile_all(tmp: Path) -> dict:
-    """One nvcc per mutant, all started together; name -> library path."""
-    src = (build.CSRC / f'{NAME}.cu').read_text()
+def compile_all(tmp: Path, name: str = NAME, mutants=None) -> dict:
+    """One nvcc per mutant of ``csrc/<name>.cu`` (``mutants``: name ->
+    None or (anchor, replacement); default: this script's), all started
+    together; mutant -> library path."""
+    src = (build.CSRC / f'{name}.cu').read_text()
     procs = {}
-    for name, edit in MUTANTS.items():
+    for mut, edit in (MUTANTS if mutants is None else mutants).items():
         text = src
         if edit is not None:
             if edit[0] not in text:
-                raise RuntimeError(f'{name}: its anchor is no longer in '
-                                   f'{NAME}.cu')
+                raise RuntimeError(f'{mut}: its anchor is no longer in '
+                                   f'{name}.cu')
             text = text.replace(edit[0], edit[1], 1)
-        cu, so = tmp / f'{name}.cu', tmp / f'{name}.so'
+        cu, so = tmp / f'{mut}.cu', tmp / f'{mut}.so'
         cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, '-o', str(so), str(cu)],
+        procs[mut] = (subprocess.Popen(
+            build.command(cu, so),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for name, (proc, so) in procs.items():
+    for mut, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f'nvcc failed for {name}:\n{out}')
-        libs[name] = so
+            raise RuntimeError(f'nvcc failed for {mut}:\n{out}')
+        libs[mut] = so
     return libs
 
 
-def use(path: Path) -> None:
-    """Make the wrapper launch the library at ``path``."""
+def use(path: Path, name: str = NAME) -> None:
+    """Make the wrappers of ``csrc/<name>.cu`` launch the library at
+    ``path``."""
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in build.SIGNATURES[NAME].items():
+    for fn, argtypes in build.SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
-    build._LIBS[NAME] = lib
+    build._LIBS[name] = lib
 
 
 def passes(check) -> bool:

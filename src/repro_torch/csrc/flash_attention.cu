@@ -19,44 +19,62 @@
 // mistral-7b (S 8192, window 4096, 32 heads) 412 GFLOP a layer, 0.42 ms at
 // 989 TFLOP/s, against 0.05 ms for the 168 MB of q, k, v and out.
 //
-// Design: one block of 128 threads per (batch, kv head, tile of Tq query
-// positions), Tq = 64 / G (at least 1): the block's 64 rows are the G query
-// heads of those positions, so each K/V tile is loaded once for all G heads
-// that read it. The block walks keys in tiles of 64 from max(0, q0 - window +
-// 1) to the last query's own index (causal), or to S: tiles wholly outside
-// the window or in the future are never read. That skip is by index, so the
-// mask applies the rules to indices as well as to positions (as the plain
+// Design: one block per (batch, kv head, tile of Tq query positions); the
+// block's rows are the G query heads of those positions, so each K/V tile
+// is loaded once for all G heads that read it: Tq = 128 / G in bf16 (128
+// rows, 8 warps of 16), Tq = 64 / G in fp32 (64 rows, 4 warps), at least 1.
+// The block walks keys in tiles of 64 from max(0, q0 - window + 1) to the
+// last query's own index (causal), or to S: tiles wholly outside the window
+// or in the future are never read. That skip is by index, so the mask
+// applies the rules to indices as well as to positions (as the plain
 // version does), and the skipped tiles hold no visible key whatever the
 // positions; the index rule is evaluated only in the tiles where it can
-// fail. Keys past S are zero rows, masked. Each warp owns 16 of the 64 rows:
-// their scores, running max, running sum and accumulator never leave the
-// warp, so only the K/V tile loads need the whole block. The running max
-// starts at -2^30 (NEG_INF of the Pallas kernel) and masked probabilities
-// are 0, so a row that sees no key ends with l = 0 and writes 0 / max(l,
-// 1e-30) = 0, the guard of the JAX blocked core. Loads and stores are 16
-// bytes a thread.
-// bfloat16: scores and the value mix run on the tensor cores through WMMA
-// 16x16x16 fragments (mma.sync) with fp32 accumulators; each warp keeps its
-// Q fragments in registers for the whole key loop; scores go through shared
-// memory for the fp32 softmax, the probabilities are rounded to bf16 for the
-// value mix, and the fp32 accumulator lives in shared memory, rescaled there
-// by each tile's correction. float32: plain FMA with the accumulator in
-// registers (no TF32), key rows padded by one float so lanes reading
-// different keys hit different banks. A later PR can pipeline the K/V loads
-// and keep the bf16 accumulator in registers (wgmma); this is the simple form.
+// fail. Keys past S are zero rows, masked. Each warp owns 16 rows: their
+// scores, running max, running sum and accumulator never leave the warp, so
+// only the K/V tile loads need the whole block. The running max starts at
+// -2^30 (NEG_INF of the Pallas kernel) and masked probabilities are 0, so a
+// row that sees no key ends with l = 0 and writes 0 / max(l, 1e-30) = 0, the
+// guard of the JAX blocked core.
+// bfloat16 (flash_bf16): scores and the value mix run on the tensor cores
+// through mma.sync.m16n8k16 in PTX (bf16 A and B, fp32 accumulators) with the
+// documented fragment layouts, so nothing goes through shared memory but the
+// K/V tiles: each warp keeps its Q fragments (loaded once by ldmatrix), its S
+// fragments, its running max and sum and its O accumulator in registers for
+// the whole key loop; the softmax runs on the S fragments with quad shuffles,
+// in base 2 (scores times scale * log2 e, exp2f: one instruction where expf
+// takes several); P is rounded to bf16 straight from the S fragments into A
+// fragments; the rescale by each tile's correction multiplies the O registers
+// (skipped by a warp whose maxima all held: a product by 1 changes nothing). A
+// warp builds no mask for a tile whose keys are all visible to all its rows
+// (the tile's positions against its rows', and no index rule there): the
+// scores of most tiles, which the mask would leave as they are, cost no
+// compare. K fragments come by ldmatrix, V fragments by ldmatrix.trans, from
+// rows padded by 16 bytes (no bank conflicts). The K/V tiles (and their
+// positions) come by cp.async into a ring of kStages buffers, one commit group
+// a tile, waited on with cp.async.wait_group, so the copies of the next tiles
+// are in flight while the math runs on this one. Blocks start with the last
+// query tile, whose causal range is the longest, so the short ones fill in at
+// the end.
+// float32 (flash_f32): plain FMA with the accumulator in registers (no
+// TF32), key rows padded by one float so lanes reading different keys hit
+// different banks; loads and stores are 16 bytes a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;   // query rows (positions x heads) per block
-constexpr int kBk = 64;     // keys per tile
+constexpr int kThreads = 128;  // fp32 kernel
+constexpr int kRows = 64;      // query rows (positions x heads) per block, fp32
+constexpr int kThreadsBf16 = 256;
+constexpr int kRowsBf16 = 128;  // bf16: 8 warps of 16 rows
+constexpr int kStages = 3;      // bf16: K/V tiles in flight
+constexpr int kBk = 64;         // keys per tile
 constexpr int kRowsPerWarp = 16;
 constexpr float kNegInf = -1073741824.0f;  // -2^30, NEG_INF of the Pallas kernel
 constexpr int kMaxSmem = 232448;           // 227 KB per block on sm_90
@@ -84,24 +102,15 @@ __device__ __forceinline__ bool tile_needs_index_rule(int j0, int q0, int q_last
   return (causal && j0 + kBk - 1 > q0) || (window > 0 && j0 < q_last - window + 1);
 }
 
-// shared-memory layout of the bf16 kernel, in bytes (every region 32-byte aligned)
+// shared-memory layout of the bf16 kernel, in bytes: the Q rows (read once
+// into registers), then kStages buffers of (K tile, V tile, key positions)
 template <int D>
 struct Bf16Smem {
-  static constexpr int kLdQ = D + 8;     // bf16 rows of Q, K, V
-  static constexpr int kLdS = kBk + 4;   // fp32 scores
-  static constexpr int kLdP = kBk + 8;   // bf16 probabilities
-  static constexpr int kLdO = D + 4;     // fp32 accumulator
+  static constexpr int kLd = D + 8;  // bf16 per row: 16 bytes of padding
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kRows * kLdQ * 2;
-  static constexpr int kV = kK + kBk * kLdQ * 2;
-  static constexpr int kS = kV + kBk * kLdQ * 2;
-  static constexpr int kP = kS + kRows * kLdS * 4;
-  static constexpr int kO = kP + kRows * kLdP * 2;
-  static constexpr int kM = kO + kRows * kLdO * 4;
-  static constexpr int kL = kM + kRows * 4;
-  static constexpr int kPq = kL + kRows * 4;
-  static constexpr int kPk = kPq + kRows * 4;
-  static constexpr int kBytes = kPk + kBk * 4;
+  static constexpr int kStage = 2 * kBk * kLd * 2 + kBk * 4;
+  static constexpr int kBuf = kQ + kRowsBf16 * kLd * 2;
+  static constexpr int kBytes = kBuf + kStages * kStage;
 };
 
 // shared-memory layout of the fp32 kernel, in bytes
@@ -125,160 +134,229 @@ __device__ __forceinline__ void key_range(const Args& a, int q0, int& lo, int& h
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bf16(Args a) {
+__global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
   using L = Bf16Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::kP);
-  float* sO = reinterpret_cast<float*>(smem + L::kO);
-  float* sM = reinterpret_cast<float*>(smem + L::kM);
-  float* sL = reinterpret_cast<float*>(smem + L::kL);
-  int* sPq = reinterpret_cast<int*>(smem + L::kPq);
-  int* sPk = reinterpret_cast<int*>(smem + L::kPk);
 
   const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
   const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
   const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
   bf16* __restrict__ out = static_cast<bf16*>(a.out);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * a.Tq, kvh = blockIdx.y, b = blockIdx.z;
+  // the last query tile first: its causal key range is the longest
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * a.Tq, kvh = blockIdx.y, b = blockIdx.z;
   const int R = a.Tq * a.G, H = a.H, S = a.S;
-  constexpr int kVec = D / 8;   // 16-byte vectors per row
-
-  for (int e = tid; e < kRows * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 8;
-    const int t = r / a.G, i = q0 + t;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < R && i < S)
-      val = *reinterpret_cast<const uint4*>(
-          q + (((long long)b * S + i) * H + kvh * a.G + r % a.G) * D + c);
-    *reinterpret_cast<uint4*>(sQ + r * L::kLdQ + c) = val;
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    const int i = q0 + r / a.G;
-    sPq[r] = (r < R && i < S) ? a.pos[(long long)b * S + i] : 0;
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
-  }
-  for (int e = tid; e < kRows * L::kLdO; e += kThreads) sO[e] = 0.f;
-  __syncthreads();
-
-  const int r0 = warp * kRowsPerWarp;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], sQ + r0 * L::kLdQ + kk * 16, L::kLdQ);
+  constexpr int kVec = D / 8;  // 16-byte vectors per row
+  const int* __restrict__ pos = a.pos + (long long)b * S;
 
   int lo, hi;
   key_range(a, q0, lo, hi);
   const int q_last = min(S, q0 + a.Tq) - 1;
-  for (int j0 = lo; j0 < hi; j0 += kBk) {
-    const bool by_index = tile_needs_index_rule(j0, q0, q_last, a.causal, a.window);
-    __syncthreads();  // the previous tile's K/V are no longer read
-    for (int e = tid; e < kBk * kVec; e += kThreads) {
+  const int n_tiles = (hi - lo + kBk - 1) / kBk;
+
+  // K/V tile `it` (keys lo + it * kBk ...) into ring buffer it % kStages
+  auto copy_tile = [&](int it) {
+    unsigned char* buf = smem + L::kBuf + (it % kStages) * L::kStage;
+    bf16* sK = reinterpret_cast<bf16*>(buf);
+    bf16* sV = sK + kBk * L::kLd;
+    int* sPk = reinterpret_cast<int*>(sV + kBk * L::kLd);
+    const int j0 = lo + it * kBk;
+    for (int e = tid; e < kBk * kVec; e += kThreadsBf16) {
       const int jj = e / kVec, c = (e % kVec) * 8, j = j0 + jj;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (j < S) {
-        const long long off = (((long long)b * S + j) * a.KV + kvh) * D + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sK + jj * L::kLdQ + c) = kv;
-      *reinterpret_cast<uint4*>(sV + jj * L::kLdQ + c) = vv;
+      const bool ok = j < S;
+      const long long off = ok ? (((long long)b * S + j) * a.KV + kvh) * D + c : 0;
+      cp_async16(sK + jj * L::kLd + c, k + off, ok);
+      cp_async16(sV + jj * L::kLd + c, v + off, ok);
     }
-    for (int jj = tid; jj < kBk; jj += kThreads)
-      sPk[jj] = j0 + jj < S ? a.pos[(long long)b * S + j0 + jj] : 0;
-    __syncthreads();
+    for (int jj = tid; jj < kBk; jj += kThreadsBf16)
+      cp_async4(sPk + jj, pos + (j0 + jj < S ? j0 + jj : 0), j0 + jj < S);
+  };
 
-    // scores of this warp's 16 rows against the 64 keys
-#pragma unroll
-    for (int f = 0; f < kBk / 16; ++f) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fs;
-      wmma::fill_fragment(fs, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, sK + (f * 16) * L::kLdQ + kk * 16, L::kLdQ);
-        wmma::mma_sync(fs, fq[kk], fk, fs);
-      }
-      wmma::store_matrix_sync(sS + r0 * L::kLdS + f * 16, fs, L::kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time, two keys a lane
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = r0 + rr;
-      const bool row_ok = r < R && q0 + r / a.G < S;
-      const int pq = sPq[r];
-      float s[2];
-      bool ok[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int jj = lane + 32 * u;
-        ok[u] = row_ok && j0 + jj < S && visible(pq, sPk[jj], a.causal, a.window) &&
-                (!by_index || visible(q0 + r / a.G, j0 + jj, a.causal, a.window));
-        s[u] = ok[u] ? sS[r * L::kLdS + jj] * a.scale : kNegInf;
-      }
-      float mx = fmaxf(s[0], s[1]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float p = ok[u] ? expf(s[u] - m_new) : 0.f;
-        sum += p;
-        sP[r * L::kLdP + lane + 32 * u] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < D; c += 32) sO[r * L::kLdO + c] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        sL[r] = sL[r] * corr + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncwarp();
-
-    // accumulator += P V for this warp's rows
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[kBk / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk)
-      wmma::load_matrix_sync(fp[kk], sP + r0 * L::kLdP + kk * 16, L::kLdP);
-#pragma unroll
-    for (int f = 0; f < D / 16; ++f) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo;
-      wmma::load_matrix_sync(fo, sO + r0 * L::kLdO + f * 16, L::kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBk / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, sV + (kk * 16) * L::kLdQ + f * 16, L::kLdQ);
-        wmma::mma_sync(fo, fp[kk], fv, fo);
-      }
-      wmma::store_matrix_sync(sO + r0 * L::kLdO + f * 16, fo, L::kLdO, wmma::mem_row_major);
-    }
-    __syncwarp();
+  // Q rows (zeros past R or S), with tile 0 as commit group 0; tile 1 group 1
+  for (int e = tid; e < kRowsBf16 * kVec; e += kThreadsBf16) {
+    const int r = e / kVec, c = (e % kVec) * 8, i = q0 + r / a.G;
+    const bool ok = r < R && i < S;
+    const long long off = ok ? (((long long)b * S + i) * H + kvh * a.G + r % a.G) * D + c : 0;
+    cp_async16(sQ + r * L::kLd + c, q + off, ok);
   }
-  __syncwarp();
-
-  // out = acc / max(l, 1e-30), 8 bf16 a lane per store
-  for (int e = lane; e < kRowsPerWarp * kVec; e += 32) {
-    const int r = r0 + e / kVec, c = (e % kVec) * 8;
-    const int t = r / a.G, i = q0 + t;
-    if (r >= R || i >= S) continue;
-    const float inv_l = 1.f / fmaxf(sL[r], 1e-30f);
-    __align__(16) bf16 o[8];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) o[u] = __float2bfloat16(sO[r * L::kLdO + c + u] * inv_l);
-    *reinterpret_cast<uint4*>(out + (((long long)b * S + i) * H + kvh * a.G + r % a.G) * D +
-                              c) = *reinterpret_cast<const uint4*>(o);
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_tiles) copy_tile(it);
+    cp_async_commit();
+  }
+
+  // this warp's 16 rows: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1
+  const int g = lane >> 2, tq = lane & 3;
+  int rr[2], qi[2], pq[2];
+  bool rok[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    rr[u] = warp * kRowsPerWarp + g + 8 * u;
+    qi[u] = q0 + rr[u] / a.G;
+    rok[u] = rr[u] < R && qi[u] < S;
+    pq[u] = rok[u] ? pos[qi[u]] : 0;
+  }
+
+  // the range of this warp's row positions, for the tiles that need no mask
+  int pq_lo = rok[0] ? pq[0] : INT_MAX, pq_hi = rok[0] ? pq[0] : INT_MIN;
+  if (rok[1]) pq_lo = min(pq_lo, pq[1]), pq_hi = max(pq_hi, pq[1]);
+#pragma unroll
+  for (int o2 = 16; o2 > 0; o2 >>= 1) {
+    pq_lo = min(pq_lo, __shfl_xor_sync(0xffffffffu, pq_lo, o2));
+    pq_hi = max(pq_hi, __shfl_xor_sync(0xffffffffu, pq_hi, o2));
+  }
+  const float scale2 = a.scale * 1.4426950408889634f;  // scale * log2 e
+
+  cp_async_wait<kStages - 2>();
+  __syncthreads();  // Q is in shared memory
+  constexpr int kK = D / 16;  // k-steps of S = Q K^T
+  unsigned aq[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk)
+    ldsm_x4(aq[kk], sQ + (warp * kRowsPerWarp + (lane & 7) + ((lane >> 3) & 1) * 8) * L::kLd +
+                        kk * 16 + (lane >> 4) * 8);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile it has landed; tile it - 1's buffer is free
+    if (it + kStages - 1 < n_tiles) copy_tile(it + kStages - 1);
+    cp_async_commit();
+
+    const int j0 = lo + it * kBk;
+    const unsigned char* buf = smem + L::kBuf + (it % kStages) * L::kStage;
+    const bf16* sK = reinterpret_cast<const bf16*>(buf);
+    const bf16* sV = sK + kBk * L::kLd;
+    const int* sPk = reinterpret_cast<const int*>(sV + kBk * L::kLd);
+    const bool by_index = tile_needs_index_rule(j0, q0, q_last, a.causal, a.window);
+
+    // S = Q K^T for this warp's 16 rows against the 64 keys
+    float sc[kBk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int j2 = 0; j2 < kBk / 16; ++j2) {
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+        unsigned bk[4];
+        ldsm_x4(bk, sK + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * L::kLd + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma(sc[2 * j2], aq[kk], bk[0], bk[1]);
+        mma(sc[2 * j2 + 1], aq[kk], bk[2], bk[3]);
+      }
+    }
+
+    // whether every key of the tile is visible to every row of this warp,
+    // by position (its rows' positions against the tile's range) and by
+    // index (by_index false): then the tile's scores need no mask
+    int pk_lo = min(sPk[lane], sPk[lane + 32]), pk_hi = max(sPk[lane], sPk[lane + 32]);
+#pragma unroll
+    for (int o2 = 16; o2 > 0; o2 >>= 1) {
+      pk_lo = min(pk_lo, __shfl_xor_sync(0xffffffffu, pk_lo, o2));
+      pk_hi = max(pk_hi, __shfl_xor_sync(0xffffffffu, pk_hi, o2));
+    }
+    const bool open = !by_index && j0 + kBk <= S && pq_lo <= pq_hi &&
+                      (!a.causal || pk_hi <= pq_lo) && (a.window <= 0 || pq_hi - pk_lo < a.window);
+
+    // online softmax on the fragments, in base 2 (scores times scale *
+    // log2 e): element e of n-tile j is row g + 8 (e >> 1), key
+    // 8 j + 2 tq + (e & 1)
+    unsigned okbits = ~0u;
+    float mx[2] = {kNegInf, kNegInf};
+    if (open) {
+#pragma unroll
+      for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] *= scale2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+      }
+    } else {
+      okbits = 0;
+#pragma unroll
+      for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = e >> 1, jj = 8 * j + 2 * tq + (e & 1), jk = j0 + jj;
+          const bool ok = rok[u] && jk < S && visible(pq[u], sPk[jj], a.causal, a.window) &&
+                          (!by_index || visible(qi[u], jk, a.causal, a.window));
+          okbits |= (ok ? 1u : 0u) << (4 * j + e);
+          sc[j][e] = ok ? sc[j][e] * scale2 : kNegInf;
+          mx[u] = fmaxf(mx[u], sc[j][e]);
+        }
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      const float m_new = fmaxf(m[u], mx[u]);
+      corr[u] = exp2f(m[u] - m_new);
+      m[u] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (okbits >> (4 * j + e)) & 1u ? exp2f(sc[j][e] - m[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], 1);
+      sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], 2);
+      l[u] = l[u] * corr[u] + sum[u];
+    }
+    // rescale the accumulator registers (a product by 1 changes nothing,
+    // so a warp whose maxima all held skips it)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        o[nt][0] *= corr[0];
+        o[nt][1] *= corr[0];
+        o[nt][2] *= corr[1];
+        o[nt][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P (bf16) from the S fragments, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      const unsigned ap[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        unsigned bv[4];
+        ldsm_x4_t(bv, sV + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + n2 * 16 +
+                          (lane >> 4) * 8);
+        mma(o[2 * n2], ap, bv[0], bv[1]);
+        mma(o[2 * n2 + 1], ap, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // out = acc / max(l, 1e-30), two bf16 a store
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!rok[u]) continue;
+    const float inv_l = 1.f / fmaxf(l[u], 1e-30f);
+    bf16* orow = out + (((long long)b * S + qi[u]) * H + kvh * a.G + rr[u] % a.G) * D + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<unsigned*>(orow + nt * 8) =
+          pack_bf16(o[nt][2 * u] * inv_l, o[nt][2 * u + 1] * inv_l);
   }
 }
 
@@ -434,22 +512,24 @@ __global__ void __launch_bounds__(kThreads) flash_f32(Args a) {
 }
 
 template <typename Kern>
-cudaError_t launch(Kern kern, int smem, const Args& a, int B, cudaStream_t stream) {
+cudaError_t launch(Kern kern, int threads, int rows, int smem, Args a, int B,
+                   cudaStream_t stream) {
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
+  a.Tq = rows / a.G;
   dim3 grid((a.S + a.Tq - 1) / a.Tq, a.KV, B);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(const Args& a, int B, int dtype_code, cudaStream_t s) {
-  if (dtype_code == 0) return launch(flash_f32<D>, F32Smem<D>::kBytes, a, B, s);
-  return launch(flash_bf16<D>, Bf16Smem<D>::kBytes, a, B, s);
+  if (dtype_code == 0) return launch(flash_f32<D>, kThreads, kRows, F32Smem<D>::kBytes, a, B, s);
+  return launch(flash_bf16<D>, kThreadsBf16, kRowsBf16, Bf16Smem<D>::kBytes, a, B, s);
 }
 
 }  // namespace
@@ -473,7 +553,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, cons
   a.H = H;
   a.KV = KV;
   a.G = H / KV;
-  a.Tq = kRows / a.G;
   a.causal = causal;
   a.window = window;
   a.scale = scale;

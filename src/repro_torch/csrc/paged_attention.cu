@@ -28,7 +28,10 @@
 // the card's ratio of compute to bandwidth. The int8 form reads one byte per
 // K/V element plus two bytes of scale per (token, kv head).
 //
-// Design: the T*G query rows of one (slot, kv head) are split into tiles of
+// Design of the template below (the MLA and int8 forms, and the dense form
+// with fp32 pages, mixed dtypes or other widths; the dense form with bf16 q
+// and pages at d % 16 == 0, d <= 128 has its own kernel, namespace split
+// further down): the T*G query rows of one (slot, kv head) are split into tiles of
 // at most kRowTile = 64 rows (kRowTileMla = 16 in the MLA form, whose 576-wide
 // query rows and 512-wide accumulators would not fit 64 rows in shared
 // memory), one block per (slot, kv head, row tile), so any chunk length and
@@ -63,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -338,6 +343,382 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 
 }  // namespace
 
+// ===================================================================
+// Dense form, bf16 queries over bf16 pages, d % 16 == 0 and d <= 128: the
+// keys split over chunks of fixed length, on the tensor cores.
+//
+// Bound, as above: bytes. At decode shapes one (slot, kv head) has only
+// T*G query rows (4 for mistral-7b at T 1, 16 for glm4-9b), so the template
+// above, one block per (slot, kv head, row tile) walking all keys alone,
+// keeps 8-32 blocks busy on 132 SMs and waits on its loads. Here:
+//
+// - Split. The grid is (B*KV, row tiles of kRows, key chunks). Chunk z holds
+//   the virtual-cache indices [z*chunk, (z+1)*chunk) with chunk = kChunk = 64,
+//   a constant (chunk_len): the boundaries sit at multiples of kChunk in the
+//   virtual index and are never chosen from B, KV, T or the SM count (64
+//   measured fastest of 64, 128 and 256 at the engine's shapes:
+//   scripts/paged_mutants.py, PERF.md). A block first reads its chunk's table
+//   entries and stored positions; if no key is usable by any row of the block
+//   it writes an empty partial (m = NEG_INF, l = 0) for its rows and exits.
+//   Else it computes, for each of its rows, the partial (m, l, acc) over its
+//   chunk: the running max, the sum of exp(s - m) and the un-normalised value
+//   mix, all fp32, into a workspace (acc (B*KV, chunks, R, d), then (m, l)
+//   (B*KV, chunks, R)).
+// - Combine. A second launch (paged_attention_combine_kernel), one warp a
+//   query row, takes the chunks in order: m* = max m_s, l = sum l_s e^(m_s -
+//   m*), o = sum acc_s e^(m_s - m*) / max(l, 1e-30), cast to bf16. A chunk
+//   with l_s = 0 (skipped, or processed without a usable key for the row) adds
+//   nothing and its acc is not read: its exact share would be 0 * 0. So a row
+//   with no usable key anywhere writes 0.
+// - Tensor cores. Each warp owns one m16 tile of query rows (rows past R
+//   are zero and masked), held as bf16 A fragments in registers for the
+//   whole chunk. S = Q K^T runs on mma.sync.m16n8k16 (bf16, fp32
+//   accumulators) with K fragments from shared memory by ldmatrix; the fp32
+//   softmax runs on the S fragments with quad shuffles for the row max and
+//   sum; P goes straight from the S fragments into two bf16 A fragments,
+//   hi = bf16(P) and lo = bf16(P - hi), and P V runs on mma.sync as hi V +
+//   lo V with V fragments by ldmatrix.trans (P to about 16 bits: the value
+//   mix as exact as fp32 probabilities over bf16 values, for two more
+//   tensor-core products a key tile in a kernel bound by its loads); the
+//   accumulator stays in registers. All fragment layouts are PTX's
+//   documented ones.
+// - Loads. The K and V rows of the chunk come in by cp.async, 16 bytes (8
+//   bf16) a copy, each key row's address through the table (any page size,
+//   down to 1); a key with no stored position (empty ring slot, past the
+//   cache) is zero-filled, not read. The chunk's two sub-tiles of 32 keys
+//   are started at once, one commit group each, so the math on the first
+//   runs while the copies of the second are in flight. Key rows are padded
+//   by 16 bytes so ldmatrix is free of bank conflicts.
+//
+// Bitwise contracts (sharded_paged_attention equals the unsharded call; a
+// chunk of T queries equals T one-token calls): every query row's result
+// depends only on its own query, its slot's keys and the fixed chunk layout.
+// mma.sync computes each output element from its own row of A and column
+// of B; the softmax, the partial and the combine of a row read only that
+// row's values; the chunk boundaries and the chunk count ceil(P*ps /
+// kChunk) do not depend on T, B, KV, the row's place in its m16 tile or the
+// grid. Whether a block processes a chunk depends on its other rows, but
+// for a row without a usable key there a processed chunk gives m = NEG_INF,
+// l = 0 exactly (every probability is forced to 0), the same partial as a
+// skipped one, and the combine skips both. Inside a processed chunk every
+// sub-tile is processed.
+//
+// Written so the int8 form can take the same loader and split: the copy
+// of a sub-tile (copy_chunk) is the only code that touches the pages, and
+// the stored positions (sPos) are where per-key scales would sit.
+// internal linkage: no function-local static is shared between libraries
+namespace {
+namespace split {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // query rows per block: one m16 tile a warp
+constexpr int kChunk = 64;         // keys per chunk
+constexpr int kSub = 32;            // keys per sub-tile (one commit group)
+constexpr int kSubs = kChunk / kSub;
+static_assert(kSub % 16 == 0 && kSub / 2 <= 32, "one bit a score of a lane's sub-tile");
+static_assert(kChunk % kSub == 0 && kSubs <= 4, "cp_async_wait_upto takes 0-3");
+
+// The chunk length. A constant: never chosen from B, KV, T (R = T*G rows)
+// or the SM count, or the bitwise contracts above break.
+int chunk_len(int B, int KV, int R, int S) { return kChunk; }
+
+template <int D>
+struct Smem {
+  static constexpr int kLd = D + 8;  // bf16 per key row, 16 bytes of padding
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kChunk * kLd * 2;
+  static constexpr int kPos = kV + kChunk * kLd * 2;
+  static constexpr int kRow = kPos + kChunk * 4;
+  static constexpr int kBytes = kRow + kChunk * 4;
+};
+
+// The chunk's K and V rows into shared memory: sub-tile s is commit group s.
+template <int D>
+__device__ __forceinline__ void copy_chunk(bf16* sK, bf16* sV, const int* sPos, const int* sRow,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, int KV, int h) {
+  constexpr int kVec = D / 8;  // 16-byte copies per row
+#pragma unroll
+  for (int s = 0; s < kSubs; ++s) {
+    for (int e = threadIdx.x; e < kSub * kVec; e += kThreads) {
+      const int jj = s * kSub + e / kVec, c = (e % kVec) * 8;
+      const bool ok = sPos[jj] >= 0;
+      const long long off = ok ? ((long long)sRow[jj] * KV + h) * D + c : 0;
+      cp_async16(sK + jj * Smem<D>::kLd + c, k + off, ok);
+      cp_async16(sV + jj * Smem<D>::kLd + c, v + off, ok);
+    }
+    cp_async_commit();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const int* __restrict__ cpos,
+                             const int* __restrict__ table, const int* __restrict__ pos0,
+                             float* __restrict__ ws, int T_, int KV, int G, int ps, int P,
+                             int chunk, int nch, float scale, int window) {
+  using L = Smem<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  int* sPos = reinterpret_cast<int*>(smem + L::kPos);
+  int* sRow = reinterpret_cast<int*>(smem + L::kRow);
+
+  const int bh = blockIdx.x, b = bh / KV, h = bh % KV;
+  const int R = T_ * G;
+  const int rb0 = blockIdx.y * kRows, rb1 = min(R, rb0 + kRows);  // the block's rows
+  const int j0 = blockIdx.z * chunk;
+  const int S = P * ps;
+  const int n = min(chunk, S - j0);  // keys of this chunk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p0 = pos0[b];
+  // the loosest rows of the block: its last for causality, its first for the window
+  const int t_lo = rb0 / G, t_hi = (rb1 - 1) / G;
+  const long long part = ((long long)bh * nch + blockIdx.z) * R;  // this partial's row 0
+  float* acc_ws = ws + part * D;
+  float2* ml_ws = reinterpret_cast<float2*>(ws + (long long)gridDim.x * nch * R * D) + part;
+
+  bool live = false;
+  for (int jj = tid; jj < kChunk; jj += kThreads) {
+    int c = -1, row = 0;
+    if (jj < n) {
+      const int j = j0 + jj;
+      row = table[(long long)b * P + j / ps] * ps + j % ps;
+      c = cpos[row];
+    }
+    sPos[jj] = c;
+    sRow[jj] = row;
+    live |= c >= 0 && c <= p0 + t_hi && (window == 0 || p0 + t_lo - c < window);
+  }
+  if (!__syncthreads_or(live)) {  // an empty partial: no usable key for any row here
+    for (int r = rb0 + tid; r < rb1; r += kThreads) ml_ws[r] = make_float2(kNegInf, 0.f);
+    return;
+  }
+  copy_chunk<D>(sK, sV, sPos, sRow, k, v, KV, h);
+
+  // this warp's m16 tile: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1
+  const int g = lane >> 2, tq = lane & 3;
+  const int rw = rb0 + warp * 16;
+  const bool has_rows = rw < rb1;
+  int rr[2], qp[2];
+  bool rok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rr[i] = rw + g + 8 * i;
+    rok[i] = rr[i] < rb1;
+    qp[i] = p0 + (rok[i] ? rr[i] / G : 0);
+  }
+  constexpr int kK = D / 16;  // k-steps of S = Q K^T
+  unsigned aq[kK][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bf16* qr = q;
+    if (rok[i]) {
+      const int t = rr[i] / G, gg = rr[i] % G;
+      qr = q + ((((long long)b * T_ + t) * KV + h) * G + gg) * D;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        aq[kk][i + 2 * hf] =
+            rok[i] ? *reinterpret_cast<const unsigned*>(qr + kk * 16 + hf * 8 + 2 * tq) : 0u;
+    }
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kSubs; ++s) {
+    cp_async_wait_upto(kSubs - 1 - s);
+    __syncthreads();  // sub-tile s is in shared memory for every warp
+    if (!has_rows) continue;
+    const bf16* tk = sK + s * kSub * L::kLd;
+    const bf16* tv = sV + s * kSub * L::kLd;
+    const int* tp = sPos + s * kSub;
+
+    float sc[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int j2 = 0; j2 < kSub / 16; ++j2) {
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+        unsigned bk[4];
+        ldsm_x4(bk, tk + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * L::kLd + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma(sc[2 * j2], aq[kk], bk[0], bk[1]);
+        mma(sc[2 * j2 + 1], aq[kk], bk[2], bk[3]);
+      }
+    }
+
+    // fp32 online softmax on the fragments: element e of n-tile j is row
+    // g + 8 (e >> 1), key 8 j + 2 tq + (e & 1)
+    unsigned okbits = 0;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const bool ok = rok[i] && usable(tp[8 * j + 2 * tq + (e & 1)], qp[i], window);
+        okbits |= (ok ? 1u : 0u) << (4 * j + e);
+        sc[j][e] = ok ? sc[j][e] * scale : kNegInf;
+        mx[i] = fmaxf(mx[i], sc[j][e]);
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (okbits >> (4 * j + e)) & 1u ? expf(sc[j][e] - m[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * corr[i] + sum[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      o[nt][0] *= corr[0];
+      o[nt][1] *= corr[0];
+      o[nt][2] *= corr[1];
+      o[nt][3] *= corr[1];
+    }
+
+    // acc += P V with P = hi + lo, two bf16 A fragments from the S
+    // fragments (P to about 16 bits, as fp32 probabilities over bf16 V
+    // give), V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float p0 = sc[2 * kk + (f >> 1)][2 * (f & 1)];
+        const float p1 = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+        const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
+        hi[f] = (unsigned)__bfloat16_as_ushort(h0) | ((unsigned)__bfloat16_as_ushort(h1) << 16);
+        lo[f] = pack_bf16(p0 - __bfloat162float(h0), p1 - __bfloat162float(h1));
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        unsigned bv[4];
+        ldsm_x4_t(bv, tv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + n2 * 16 +
+                          (lane >> 4) * 8);
+        mma(o[2 * n2], hi, bv[0], bv[1]);
+        mma(o[2 * n2 + 1], hi, bv[2], bv[3]);
+        mma(o[2 * n2], lo, bv[0], bv[1]);
+        mma(o[2 * n2 + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+
+  if (!has_rows) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rok[i]) continue;
+    float* a = acc_ws + (long long)rr[i] * D + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(a + nt * 8) = make_float2(o[nt][2 * i], o[nt][2 * i + 1]);
+    if (tq == 0) ml_ws[rr[i]] = make_float2(m[i], l[i]);
+  }
+}
+
+// One warp per query row: the chunks' partials in chunk order -> bf16 out.
+template <int D>
+__global__ void __launch_bounds__(128)
+paged_attention_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out, int BKV,
+                               int T_, int KV, int G, int nch) {
+  const int R = T_ * G;
+  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= (long long)BKV * R) return;
+  const int lane = threadIdx.x & 31;
+  const int bh = (int)(row / R), r = (int)(row % R);
+  const float2* ml = reinterpret_cast<const float2*>(ws + (long long)BKV * nch * R * D) +
+                     (long long)bh * nch * R + r;
+  const float* acc = ws + ((long long)bh * nch * R + r) * D;
+  float mstar = kNegInf;
+  for (int s = 0; s < nch; ++s) {
+    const float2 x = ml[(long long)s * R];
+    if (x.y > 0.f) mstar = fmaxf(mstar, x.x);
+  }
+  constexpr int kCols = (D + 31) / 32;
+  float o[kCols], lsum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) o[u] = 0.f;
+  for (int s = 0; s < nch; ++s) {
+    const float2 x = ml[(long long)s * R];
+    if (!(x.y > 0.f)) continue;  // l_s = 0: acc_s = 0 there, and it was not written
+    const float w = expf(x.x - mstar);
+    lsum += x.y * w;
+    const float* a = acc + (long long)s * R * D;
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D) o[u] += a[c] * w;
+    }
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  const int b = bh / KV, h = bh % KV, t = r / G, gg = r % G;
+  bf16* orow = out + ((((long long)b * T_ + t) * KV + h) * G + gg) * D;
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) {
+    const int c = lane + 32 * u;
+    if (c < D) orow[c] = __float2bfloat16_rn(o[u] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* cpos,
+                   const int* table, const int* pos0, float* ws, void* out, int B, int T_,
+                   int KV, int G, int ps, int P, float scale, int window, cudaStream_t stream) {
+  const int R = T_ * G, S = P * ps;
+  const int chunk = chunk_len(B, KV, R, S);
+  const int nch = (S + chunk - 1) / chunk;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(paged_attention_split_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<D>::kBytes);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const dim3 grid(B * KV, (R + kRows - 1) / kRows, nch);
+  paged_attention_split_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      cpos, table, pos0, ws, T_, KV, G, ps, P, chunk, nch, scale, window);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long rows = (long long)B * KV * R;
+  paged_attention_combine_kernel<D><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+      ws, static_cast<bf16*>(out), B * KV, T_, KV, G, nch);
+  return cudaGetLastError();
+}
+
+}  // namespace split
+}  // namespace
+
 // Dense form: q (B, T, KV, G, d), k / v pages (NP, ps, KV, d), out like q.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* cpos, const void* table, const void* pos0,
@@ -384,4 +765,44 @@ extern "C" int paged_attention_quant(const void* q, const void* k, const void* v
 extern "C" int paged_attention_smem(int R, int dq, int dv, int form) {
   const size_t smem = smem_floats(R, dq, dv, form) * sizeof(float);
   return smem > (size_t)kMaxSmem ? 0 : (int)smem;
+}
+
+// Dense form, bf16 q over bf16 pages with d % 16 == 0 and d <= 128: keys
+// split over chunks (namespace split). ws: the workspace of
+// paged_attention_split_chunk's layout, (B*KV * chunks * T*G * (d + 2)) fp32
+// with chunks = ceil(P*ps / chunk).
+extern "C" int paged_attention_split(const void* q, const void* k, const void* v,
+                                     const void* cpos, const void* table, const void* pos0,
+                                     void* ws, void* out, int B, int T, int KV, int G, int d,
+                                     int NP, int ps, int P, float scale, int window,
+                                     void* stream) {
+  if (B <= 0 || KV <= 0 || T <= 0 || G <= 0) return 0;
+  if (NP <= 0 || ps <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cp = static_cast<const int*>(cpos);
+  const int* tb = static_cast<const int*>(table);
+  const int* p0 = static_cast<const int*>(pos0);
+  float* w = static_cast<float*>(ws);
+#define PA_SPLIT(D) \
+  case D:           \
+    return (int)split::launch<D>(q, k, v, cp, tb, p0, w, out, B, T, KV, G, ps, P, scale, window, s)
+  switch (d) {
+    PA_SPLIT(16);
+    PA_SPLIT(32);
+    PA_SPLIT(48);
+    PA_SPLIT(64);
+    PA_SPLIT(80);
+    PA_SPLIT(96);
+    PA_SPLIT(112);
+    PA_SPLIT(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PA_SPLIT
+}
+
+// The key chunk length paged_attention_split uses for B slots, KV kv heads,
+// R = T*G query rows per (slot, kv head) and S = P*ps keys per slot, so the
+// caller can size the workspace (a constant in fact: see split::chunk_len).
+extern "C" int paged_attention_split_chunk(int B, int KV, int R, int S) {
+  return split::chunk_len(B, KV, R, S);
 }

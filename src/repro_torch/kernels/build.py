@@ -3,9 +3,10 @@ a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own (so several builds can run side
 by side) into ``build/kernels/<name>-<hash>.so`` under the repository root,
-where the hash covers the source and the flags: an edited source never
-reuses a stale library. Nothing is compiled when a module is imported — the
-first launch of a kernel (or :func:`build_all`) builds it. There is no
+where the hash covers the source, the shared headers ``csrc/*.cuh`` and the
+flags: an edited source or header never reuses a stale library. Nothing is
+compiled when a module is imported — the first launch of a kernel (or
+:func:`build_all`) builds it. There is no
 ``--use_fast_math``: ``gather_rope`` needs accurate ``sinf``/``cosf`` at
 positions of tens of thousands of radians.
 
@@ -58,7 +59,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
         # rows, q width, value width, form (0 dense, 1 MLA, 2 int8) ->
         # dynamic shared bytes per block (0: too large)
-        'paged_attention_smem': (_I, _I, _I, _I)},
+        'paged_attention_smem': (_I, _I, _I, _I),
+        # q, k, v, cpos, table, pos0, workspace, out, B, T, KV, G, d, NP,
+        # ps, P, scale, window, stream (dense form, bf16, keys in chunks)
+        'paged_attention_split': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _I, _P),
+        # B, KV, rows T*G, keys P*ps -> key chunk length of the split form
+        'paged_attention_split_chunk': (_I, _I, _I, _I)},
     'fused_page_write': {
         # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,
         # n_jobs, NP, B, ps, Sc, stream
@@ -95,14 +102,19 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    src = (CSRC / f'{name}.cu').read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'{name}-{digest[:12]}.so'
 
 
-def _command(name: str, out: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', str(out),
-            str(CSRC / f'{name}.cu')]
+def command(src: Path, out: Path) -> List[str]:
+    """The nvcc command that builds ``src`` (which may lie outside
+    ``csrc/``; it finds the shared headers there) into ``out``."""
+    return [nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-Xptxas', '-v', '-o',
+            str(out), str(src)]
 
 
 def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
@@ -120,7 +132,7 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         procs[name] = (subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
+            command(CSRC / f'{name}.cu', tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():

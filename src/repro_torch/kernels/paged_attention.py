@@ -3,12 +3,25 @@ that view a dense ring cache as identity-table pages.
 
 Port of ``repro/kernels/paged_attention.py::paged_attention`` (Pallas),
 with its MLA (``mla_split``) and int8 (``quant``) variants. The CUDA
-kernels are in ``repro_torch/csrc/paged_attention.cu``: one block per
-(slot, kv head, tile of the T·G query rows) walks the slot's pages through
-the table with an fp32 online softmax, so any chunk length and group size
-fit one launch. The MLA and int8 forms are their own kernels and wrappers,
-:func:`paged_attention_mla` and :func:`paged_attention_quant`, each with
-its own launch count.
+kernels are in ``repro_torch/csrc/paged_attention.cu``, in two designs,
+chosen by dtype and head width alone (never by a failure):
+
+- bf16 q over bf16 K/V pages with ``d % 16 == 0`` and ``d <= 128`` (what
+  the engine runs at full width) take the split kernel: the slot's
+  virtual cache is cut into chunks of a fixed number of keys
+  (``paged_attention_split_chunk``, 64), one block per (slot, kv head,
+  tile of 64 query rows, chunk) on the tensor cores (``mma.sync``, K/V by
+  ``cp.async``), each writing its fp32 partial softmax (m, l, acc) to a
+  workspace; a second launch combines the chunks in order. One call is two
+  device kernels and counts as one launch.
+  :func:`paged_attention_chunked_plain` mirrors that arithmetic in fp32.
+- every other dense case (fp32 pages, mixed dtypes, other widths) and the
+  MLA and int8 forms take the template kernel: one block per (slot, kv
+  head, tile of the T·G query rows) walks the slot's pages through the
+  table with an fp32 online softmax, so any chunk length and group size
+  fit one launch. The MLA and int8 forms are their own wrappers,
+  :func:`paged_attention_mla` and :func:`paged_attention_quant`, each with
+  its own launch count.
 
 Contract (as the JAX kernel): q (B, T, KV, G, dq) post-RoPE queries, lane t
 at position ``pos0 + t``; k/v pages (NP, ps, KV, d); stored positions
@@ -47,6 +60,16 @@ from repro_torch.kernels.common import dtype_code, on_cpu, require
 
 # kernel forms (csrc/paged_attention.cu), for paged_attention_smem
 FORM_DENSE, FORM_MLA, FORM_QUANT = 0, 1, 2
+NEG_INF = -2.0 ** 30                    # the kernels' initial running max
+
+
+def split_form(q: torch.Tensor, k_pages: torch.Tensor,
+               v_pages: torch.Tensor) -> bool:
+    """Whether a dense-form call on the card takes the split kernel: q and
+    both page leaves bf16, head width a multiple of 16 and at most 128."""
+    d = q.shape[-1]
+    return (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16
+            and d % 16 == 0 and d <= 128)
 
 
 def page_validity(cpos: torch.Tensor, pos_t: torch.Tensor,
@@ -106,6 +129,51 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
+def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  cpos_pages: torch.Tensor,
+                                  table: torch.Tensor, pos0: torch.Tensor, *,
+                                  scale: float, window: int = 0,
+                                  chunk: int) -> torch.Tensor:
+    """The split kernel's arithmetic, in fp32, for the dense form (no path
+    runs it; the tests hold it against :func:`paged_attention_plain` and the
+    JAX oracle). The slot's virtual cache is cut at multiples of ``chunk``
+    keys; per chunk and query row the partial ``m`` (max of the usable
+    scores, ``NEG_INF`` if none), ``l = sum exp(s - m)`` and ``acc = sum
+    exp(s - m) v``; then, over the chunks with ``l > 0``, ``m* = max m``,
+    ``l* = sum l e^(m - m*)`` and ``out = sum acc e^(m - m*) / max(l*,
+    1e-30)``, in q's dtype."""
+    B, T, KV, G, d = q.shape
+    P, ps = table.shape[1], k_pages.shape[1]
+    S = P * ps
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+    tab = table.long()
+
+    def virt(pages, fill):                    # (B, nch * chunk, ...)
+        x = pages[tab].reshape((B, S) + tuple(pages.shape[2:]))
+        return torch.cat([x, x.new_full((B, pad) + x.shape[2:], fill)], 1)
+
+    cp = virt(cpos_pages, -1)
+    kf = virt(k_pages, 0).float()
+    vf = virt(v_pages, 0).float().view(B, nch, chunk, KV, d)
+    pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
+    valid = page_validity(cp, pos_t, window).view(B, 1, 1, T, nch, chunk)
+    s = torch.einsum('btkgd,bskd->bkgts', q.float(), kf) * scale
+    s = s.view(B, KV, G, T, nch, chunk).masked_fill(~valid, NEG_INF)
+    m = s.amax(-1)                                       # (B,KV,G,T,nch)
+    zero = torch.zeros((), device=q.device)
+    p = torch.where(valid, torch.exp(s - m[..., None]), zero)
+    l = p.sum(-1)
+    acc = torch.einsum('bkgtnc,bnckd->bkgtnd', p, vf)
+    live = l > 0
+    m_star = torch.where(live, m, NEG_INF).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - m_star), zero)
+    o = (acc * w[..., None]).sum(-2) \
+        / (l * w).sum(-1).clamp_min(1e-30)[..., None]       # (B,KV,G,T,d)
+    return o.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
 def _check_common(name: str, q: torch.Tensor, cpos_pages: torch.Tensor,
                   table: torch.Tensor, pos0: torch.Tensor, NP: int,
                   ps: int) -> None:
@@ -145,9 +213,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     mla_split: int = 0) -> torch.Tensor:
     """See the module docstring. ``mla_split`` goes to
     :func:`paged_attention_mla`. CPU tensors take
-    :func:`paged_attention_plain`; CUDA tensors launch the dense-form
-    kernel (q in float32 or bfloat16; K and V pages share one of those
-    dtypes). Counts launches in ``paged_attention.launches``."""
+    :func:`paged_attention_plain`; CUDA tensors launch a dense-form kernel
+    (q in float32 or bfloat16; K and V pages share one of those dtypes):
+    the split kernel and its combine where :func:`split_form` holds (bf16 q
+    and pages, d % 16 == 0, d <= 128; q and pages 16-byte aligned), else
+    the template kernel. Counts calls in ``paged_attention.launches``, one
+    a call whichever kernel runs."""
     if mla_split:
         require(v_pages is None and k2_pages is not None
                 and k_pages.shape[-1] == mla_split, 'paged_attention_mla',
@@ -175,15 +246,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                       cpos_pages=cpos_pages, table=table, pos0=pos0)
     codes = dtype_code(name, q), dtype_code(name, k_pages)
     lib = build.load(name)
-    require(lib.paged_attention_smem(T * G, d, d, FORM_DENSE) > 0, name,
-            f'a tile of query rows of width {d} exceeds one block\'s shared '
-            'memory')
+    P = table.shape[1]
     out = torch.empty_like(q)
-    build.check(lib.paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
-        out.data_ptr(), B, T, KV, G, d, NP, ps, table.shape[1], float(scale),
-        int(window), *codes, build.stream_of(q)), name)
+    if split_form(q, k_pages, v_pages):
+        require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+                name, 'bf16 q and K/V pages must be 16-byte aligned')
+        R, S = T * G, P * ps
+        nch = -(-S // lib.paged_attention_split_chunk(B, KV, R, S))
+        ws = torch.empty(B * KV * nch * R * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        build.check(lib.paged_attention_split(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), B, T, KV, G, d, NP, ps, P,
+            float(scale), int(window), build.stream_of(q)), name)
+    else:
+        require(lib.paged_attention_smem(T * G, d, d, FORM_DENSE) > 0, name,
+                f'a tile of query rows of width {d} exceeds one block\'s '
+                'shared memory')
+        build.check(lib.paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            out.data_ptr(), B, T, KV, G, d, NP, ps, P, float(scale),
+            int(window), *codes, build.stream_of(q)), name)
     paged_attention.launches += 1
     return out
 

@@ -1,0 +1,211 @@
+"""The split design of the dense bf16 ``paged_attention`` and the bf16 tiles
+of ``flash_attention``.
+
+On the CPU: :func:`paged_attention_chunked_plain`, the split kernel's
+arithmetic in fp32 (chunks of a fixed number of keys, a partial softmax per
+chunk, the partials combined in chunk order), is held against
+``paged_attention_plain`` and JAX's ``ref.paged_attention_ref`` within
+``KERNEL_TOL`` (JAX's ``PALLAS_TOL``) at chunk lengths 1, 4 and 128: a
+windowed ring that wrapped, page size 1, chunks without a usable key, and
+rows without any.
+
+Tests marked ``cuda`` run on a card and skip without one: the split kernel
+against the plain version in bf16 at d 16-128, G 4 and 16, T 1, 5, 16;
+row independence (row t of a 16-token launch is bitwise a one-token launch
+at ``pos0 + t``); ``flash_attention``'s 128-row bf16 tiles across a ragged
+S and at G 64. They import nothing of JAX:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_split.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.paged_attention import (
+    paged_attention, paged_attention_chunked_plain, paged_attention_plain,
+    split_form)
+from repro_torch.models.attn_backend import KERNEL_TOL
+
+from test_torch_kernels import _assert_flash_close, _flash_inputs, _paged_case
+
+SPLIT_TOL = 2e-2        # bf16, as chip_smoke.py's paged_attention checks
+
+
+@pytest.fixture(scope='module')
+def jref():
+    """JAX's oracle; JAX is absent where only the port is installed."""
+    jnp = pytest.importorskip('jax.numpy')
+    from repro.kernels import ref
+    return jnp, ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (run with -m cuda on the card)')
+    return torch.device('cuda')
+
+
+# ------------------------------------------------ the split, on the CPU
+def _case(name):
+    """(arrays, kwargs, rows that see no key as (b, t) pairs)."""
+    if name == 'wrapped_window':          # ring wrapped (slot 0), window 5
+        args = _paged_case(0, 3, 5, 2, 2, 16, 24, 8, [31, 11, 0],
+                           null_tail=True)
+        return args, dict(window=5), [(2, t) for t in range(5)]
+    if name == 'page_size_1':             # odd ring: one key a page
+        args = _paged_case(1, 2, 3, 1, 4, 16, 13, 1, [20, 6], null_tail=True)
+        return args, dict(window=7), []
+    if name == 'empty_chunks':            # keys only in the ring's tail
+        q, k, v, cpos, table, pos0 = _paged_case(2, 2, 4, 2, 2, 16, 48, 4,
+                                                 [48, 30])
+        cpos[table[0, :10]] = -1          # slot 0: ring indices 0-39 empty
+        return (q, k, v, cpos, table, pos0), dict(window=0), []
+    # rows without a usable key: slot 1's stored positions all lie after
+    # its first queries
+    q, k, v, cpos, table, pos0 = _paged_case(3, 2, 6, 2, 2, 16, 32, 8,
+                                             [32, 20])
+    pos0[1] = 2
+    cpos[table[1]] = np.where(cpos[table[1]] >= 0, cpos[table[1]] + 5, -1)
+    return (q, k, v, cpos, table, pos0), dict(window=0), \
+        [(1, 0), (1, 1), (1, 2)]
+
+
+@pytest.mark.parametrize('case', ['wrapped_window', 'page_size_1',
+                                  'empty_chunks', 'no_key_rows'])
+@pytest.mark.parametrize('chunk', [1, 4, 128])
+def test_chunked_plain_matches_plain_and_jax(jref, case, chunk):
+    jnp, ref = jref
+    arrs, kw, empty = _case(case)
+    d = arrs[0].shape[-1]
+    kw = dict(kw, scale=d ** -0.5)
+    targs = [torch.from_numpy(a) for a in arrs]
+    got = paged_attention_chunked_plain(*targs, **kw, chunk=chunk).numpy()
+    plain = paged_attention_plain(*targs, **kw).numpy()
+    want = np.asarray(ref.paged_attention_ref(*map(jnp.asarray, arrs), **kw))
+    np.testing.assert_allclose(got, plain, **KERNEL_TOL)
+    np.testing.assert_allclose(got, want, **KERNEL_TOL)
+    for b, t in empty:
+        assert not got[b, t].any(), (b, t)
+
+
+def test_chunked_plain_bf16_matches_plain():
+    """In bf16 (the split kernel's dtype) the split changes nothing but fp32
+    rounding, which the cast to bf16 mostly hides."""
+    arrs, kw, _ = _case('wrapped_window')
+    targs = [torch.from_numpy(a) for a in arrs]
+    targs = [a.bfloat16() if a.is_floating_point() else a for a in targs]
+    kw = dict(kw, scale=16 ** -0.5)
+    got = paged_attention_chunked_plain(*targs, **kw, chunk=4)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               paged_attention_plain(*targs, **kw).float(),
+                               atol=SPLIT_TOL, rtol=SPLIT_TOL)
+
+
+def test_split_form_by_dtype_and_width():
+    """The split kernel takes bf16 q over bf16 pages at d % 16 == 0, d <=
+    128; fp32 pages, mixed dtypes and other widths keep the template."""
+    def t(d, dtype=torch.bfloat16):
+        return torch.zeros((1, 1, 1, 1, d), dtype=dtype)
+    for d in (16, 32, 48, 64, 128):
+        assert split_form(t(d), t(d), t(d))
+    for d in (8, 24, 136, 256):
+        assert not split_form(t(d), t(d), t(d))
+    f = torch.float32
+    assert not split_form(t(128, f), t(128, f), t(128, f))
+    assert not split_form(t(128, f), t(128), t(128))
+    assert not split_form(t(128), t(128, f), t(128, f))
+
+
+# ------------------------------------------------------ on the card
+def _scattered(cuda, seed, B, T, KV, G, d, Sc, ps, lengths):
+    """A paged case (``_paged_case``) with its pages permuted, so the table
+    scatters; bf16 on the card."""
+    q, k, v, cpos, table, pos0 = _paged_case(seed, B, T, KV, G, d, Sc, ps,
+                                             lengths)
+    perm = np.random.default_rng(seed).permutation(k.shape[0] - 1) + 1
+    inv = np.empty_like(perm)
+    inv[perm - 1] = np.arange(1, k.shape[0])
+    k[1:], v[1:], cpos[1:] = k[perm], v[perm], cpos[perm]
+    table = np.where(table > 0, inv[np.maximum(table, 1) - 1], 0) \
+        .astype(np.int32)
+    out = [torch.from_numpy(a).to(cuda) for a in (q, k, v, cpos, table,
+                                                   pos0)]
+    return [a.bfloat16() if a.is_floating_point() else a for a in out]
+
+
+def _row_share(got, want):
+    """The largest share of chip_smoke.py's row-scaled limit, |err| <= 0.02
+    rms(row) + 0.016 |want|, that any element uses."""
+    w = want.float()
+    limit = 0.02 * w.pow(2).mean(-1, keepdim=True).sqrt() + 0.016 * w.abs()
+    return ((got.float() - w).abs() / limit.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T', [1, 5, 16])
+@pytest.mark.parametrize('G', [4, 16])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+def test_paged_split_kernel_matches_plain(cuda, d, G, T):
+    """The split kernel in bf16 against the plain version: a ring that
+    wrapped, a slot of 150 keys, an empty slot; 320-key rings over three
+    chunks, a scattered table of 16-token pages; window 100 at T 5."""
+    window = 100 if T == 5 else 0
+    args = _scattered(cuda, d + G + T, 3, T, 2, G, d, 320, 16,
+                      [361, 150, 0])
+    kw = dict(scale=d ** -0.5, window=window)
+    n0 = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    want = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and not got[2].any()
+    torch.testing.assert_close(got.float(), want.float(), atol=SPLIT_TOL,
+                               rtol=SPLIT_TOL)
+    assert _row_share(got, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('G,window,ps', [(16, 0, 16), (4, 300, 1),
+                                         (4, 0, 128)])
+def test_paged_split_row_independence(cuda, G, window, ps):
+    """Row t of a 16-token launch is bitwise a one-token launch at pos0 + t:
+    a row's arithmetic depends on its query, its keys and the fixed chunk
+    layout, not on T or the other rows of its tile (glm4-9b's G 16 over
+    scattered pages; mistral-7b's G 4 over a windowed ring of page size 1;
+    one page of 128)."""
+    d, T = 128, 16
+    args = _scattered(cuda, 7 + G + ps, 4, T, 2, G, d, 384, ps,
+                      [300, 271, 0, 529])
+    q, k, v, cpos, table, pos0 = args
+    kw = dict(scale=d ** -0.5, window=window)
+    full = paged_attention(*args, **kw)
+    for t in range(T):
+        one = paged_attention(q[:, t:t + 1].contiguous(), k, v, cpos, table,
+                              pos0 + t, **kw)
+        assert torch.equal(one, full[:, t:t + 1]), t
+
+
+FLASH_TILE_SHAPES = [(1, 300, 64, 1, 128, 0),     # G 64: 2 positions a tile
+                     (2, 1000, 16, 1, 128, 0),    # G 16, ragged S
+                     (1, 517, 32, 8, 128, 100),   # G 4 (32 positions), window
+                     (1, 129, 6, 2, 64, 0),       # G 3: 126 rows of 128
+                     (1, 4097, 32, 2, 128, 0)]    # glm4-9b's ragged S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,S,H,KH,d,window', FLASH_TILE_SHAPES)
+def test_flash_bf16_tiles(cuda, B, S, H, KH, d, window):
+    """flash_attention's bf16 kernel (128 query rows a block, K/V tiles in
+    flight) against its plain version: groups that fill 128 rows with 2 to
+    32 positions, one that leaves rows empty, ragged S."""
+    q, k, v = [torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _flash_inputs(B, S, H, KH, d)]
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None] \
+        .expand(B, S).contiguous()
+    got = flash_attention(q, k, v, pos, window=window)
+    _assert_flash_close(got, flash_attention_plain(q, k, v, pos,
+                                                   window=window))
