@@ -14,7 +14,9 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
-              and the roofline bound: embed_gather, gather_rope and
+              and the roofline bound: embed_gather (bitwise, also zero rows
+              for ids out of range; N 1-4096 at mistral-7b and glm4-9b
+              width), gather_rope and
               paged_attention at mistral-7b full-width shapes; paged_attention
               at glm4-9b's G 16 through a scattered page table (in bf16 the
               split kernel, also held to the flash check's row-scaled limit,
@@ -52,8 +54,11 @@ Phases, in order; any failure raises and exits non-zero:
               attend through paged_attention_quant. On the same weights:
               the paper's layer-0 comparison (embedding rows +
               rmsnorm_matmul, and F.rms_norm + torch.matmul, against
-              embed_gather of table rows; rmsnorm_matmul held against its
-              plain version) at N 1, 4, 64, 4096, 8192, and Model.apply at
+              embed_gather of table rows; rmsnorm_matmul, in the form its
+              shape takes (split-K up to N 8, wgmma above), held against its
+              plain version within RMS_TOL and the row-scaled RMS_ROW_TOL,
+              and timed beside the single-pass and the same-precision
+              library calls) at N 1, 4, 64, 4096, 8192, and Model.apply at
               B 1, S 8192, baseline and precomputed: ms per forward, launch
               counts, logits of the two against each other and against the
               engine's chunked decode of the same prompt.
@@ -139,7 +144,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
                                      parse_mesh_spec)
 from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
-    EPS, rmsnorm_matmul, rmsnorm_qkv, rmsnorm_qkv_plain)
+    EPS, rmsnorm_matmul, rmsnorm_matmul_form, rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attention import (_quantize,  # noqa: E402
                                           paged_view)
 from repro_torch.models.blocks import preproj_layout  # noqa: E402
@@ -253,10 +258,12 @@ def phase_build() -> None:
 # an engine path of this script: mistral-7b and glm4-9b at full width
 # (chunk steps of 4 x 16 tokens, decode steps of 4), the glm4-9b smoke
 # config of the pressure phase (3 slots, chunk 8, fp32) and the smoke
-# configs of the consistency phase.
+# configs of the consistency phase; for embed_gather also N 1 and 4096, the
+# decode and prefill sizes of the layer-0 comparison.
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
-                (1, 4, 64, 512)),
-               ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
+                (1, 4, 64, 512, 4096)),
+               ('glm4_9b', False, (torch.bfloat16, torch.float32),
+                (1, 4, 64, 4096)),
                ('glm4_9b', True, (torch.float32,), (3, 24)),
                ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
@@ -275,7 +282,11 @@ def config_of(name: str, smoke: bool):
 
 
 def check_embed_gather(gen) -> dict:
-    row = {}
+    """embed_gather against its plain version, bitwise, at EMBED_CASES; at
+    full width also with ids outside [0, V) (zero rows). Times kernel,
+    plain version, index_select and bound; the kernels line's row is
+    mistral-7b bf16 N 4's, its ``at_n`` the full-width bf16 times."""
+    row, at_n = {}, {}
     for name, smoke, dtypes, counts in EMBED_CASES:
         cfg = config_of(name, smoke)
         V, W = cfg.vocab_size, cfg.precompute_row_width
@@ -290,6 +301,19 @@ def check_embed_gather(gen) -> dict:
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), \
                     f'embed_gather {cfg.name} {dtype} N={n}'
+                if not smoke:        # out of range: -1, V, V + 7 -> zeros
+                    bad = ids.clone()
+                    bad[::3] = torch.tensor([-1, V, V + 7], dtype=torch.int32,
+                                            device='cuda').repeat(n)[
+                                                :len(bad[::3])]
+                    got = embed_gather(table, bad)
+                    keep = (bad >= 0) & (bad < V)
+                    want = embed_gather_plain(table, bad.clamp(0, V - 1)) \
+                        * keep[:, None].to(dtype)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), \
+                        f'embed_gather {cfg.name} {dtype} N={n}, ids out ' \
+                        f'of range'
                 id_sets = [torch.randint(0, V, (n,), generator=gen,
                                          device='cuda', dtype=torch.int32)
                            for _ in range(16)]
@@ -304,15 +328,19 @@ def check_embed_gather(gen) -> dict:
                 b_ms, by = bound(2 * n * W * table.element_size() + 4 * n, 0,
                                  dtype)
                 log(f'[kernel] embed_gather {cfg.name} {str(dtype)[6:]} '
-                    f'N={n} V={V} W={W}: bitwise equal; kernel {ms:.4f} ms, '
-                    f'plain {plain:.4f} ms, index_select {lib:.4f} ms, bound '
-                    f'{b_ms:.4f} ms ({by})')
+                    f'N={n} V={V} W={W}: bitwise equal'
+                    + ('' if smoke else ', zero rows for ids out of range')
+                    + f'; kernel {ms:.4f} ms, plain {plain:.4f} ms, '
+                    f'index_select {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+                if not smoke and dtype is torch.bfloat16:
+                    at_n.setdefault(cfg.name, {})[n] = dict(
+                        ms=ms, library_ms=lib, bound_ms=b_ms)
                 if (name, smoke, dtype, n) == ('mistral_7b', False,
                                                torch.bfloat16, 4):
                     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                bound_ms=b_ms, bound_by=by, library_ms=lib)
             del table
-    return row
+    return dict(row, at_n=at_n)
 
 
 def rope_segments(cfg):
@@ -1404,44 +1432,94 @@ def check_flash_attention(gen) -> dict:
 # --------------------- phases 4-5: layer 0, baseline against precomputed
 LAYER0_COUNTS = (1, 4, 64, 4096)
 RMS_TOL = 3e-2                       # bf16, tests/test_kernels.py
+# bf16 rmsnorm_matmul also within a row-scaled limit: one bf16 step of the
+# output (at most 2^-7 |o|) and 1e-3 of the row's RMS. The kernels keep 16
+# bits of the normalised row (hi/lo, or fp32 at decode sizes), so they differ
+# from the fp32 plain version by the output's rounding and ~1e-5 rms; one
+# bf16 product (8 bits of the row) errs by ~1.1e-3 rms per element (2^-9 /
+# sqrt(3) of each term, summed over d), which RMS_TOL cannot see.
+# scripts/rmsnorm_mutants.py runs planted faults and that build against it.
+RMS_ROW_TOL = dict(row=1e-3, rtol=2 ** -7)
 COLD_COPIES = 3                      # weight sets rotated between launches
+
+
+def rms_error(got, want):
+    """The largest |got - want| and the largest share of the limit
+    ``RMS_ROW_TOL['row'] * rms(row of want) + RMS_ROW_TOL['rtol'] * |want|``
+    that any element uses (over 1 fails)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = (RMS_ROW_TOL['row'] * rms
+             + RMS_ROW_TOL['rtol'] * want.abs()).clamp_min(1e-30)
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def check_rms(got, want) -> tuple:
+    """Holds bf16 rmsnorm_qkv outputs (q, k, v) against the plain
+    version's: ``RMS_TOL``, then ``RMS_ROW_TOL``. -> (max |err|, largest
+    share of the row limit)."""
+    errs = []
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=RMS_TOL,
+                                   rtol=RMS_TOL)
+        errs.append(rms_error(g, w))
+    err, share = max(e for e, _ in errs), max(s for _, s in errs)
+    if share > 1:
+        raise AssertionError(f'rmsnorm_matmul: max |err| {err:.3g} uses '
+                             f'{share:.3f} of the limit {RMS_ROW_TOL}')
+    return err, share
+
+
+def library_hilo(x, scale, wcat2):
+    """The same-precision library call: F.rms_norm in fp32, the rows split
+    into bf16 hi and lo, one torch.matmul of [hi | lo] by [W; W] (wcat2,
+    made once). A yardstick only; the port never calls it."""
+    xn = F.rms_norm(x.float(), (x.shape[-1],), scale.float(), EPS)
+    hi = xn.to(torch.bfloat16)
+    lo = (xn - hi.float()).to(torch.bfloat16)
+    return torch.matmul(torch.cat([hi, lo], dim=-1), wcat2)
 
 
 def check_layer0(model, params, table, counts, rows) -> None:
     """The paper's layer-0 comparison at full width on the model's own
     weights and table: baseline = the embedding row read + rmsnorm_matmul
-    over [Wq|Wk|Wv] (three weight pointers, one launch); library baseline
+    over [Wq|Wk|Wv] (three weight pointers, one call); library baseline
     = the same rows + F.rms_norm + torch.matmul over the concatenated
     weights (made once, outside the timing); precomputed = embed_gather of
-    the table's rows. Holds rmsnorm_matmul against its plain version (bf16
-    tolerance of tests/test_kernels.py) at each N and times kernel, plain
-    version, library call and bound. Launches rotate over COLD_COPIES
+    the table's rows. Holds rmsnorm_matmul against its plain version
+    (``check_rms``) at each N and times kernel (the form its shape takes),
+    plain version, the single-pass library call (F.rms_norm +
+    torch.matmul: 8 bits of the normalised row), the same-precision one
+    (``library_hilo``) and the bound. Launches rotate over COLD_COPIES
     weight copies and 16 id sets, so each replay reads its weights and
     rows from device memory, as a decode step that ran other layers
-    between two layer-0 reads would."""
+    between two layer-0 reads would. The kernels line's row is mistral-7b
+    N 8192's; its ``at_n`` holds every config's and N's."""
     cfg = model.cfg
     lay0 = params['backbone']['layer0']
     scale = lay0['ln1']['scale']
     ws = [lay0['attn'][nm]['w'] for nm in ('wq', 'wk', 'wv')]
     sets = [ws] + [[w.clone() for w in ws] for _ in range(COLD_COPIES - 1)]
     cats = [torch.cat(s, dim=1) for s in sets]
+    cat2 = torch.cat([cats[0], cats[0]], dim=0)
     embed, rows_tab = params['embed']['table'], table.table
     d, W, es = cfg.d_model, cats[0].shape[1], embed.element_size()
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
+    at_n = {}
     for n in counts:
         ids = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device='cuda', dtype=torch.int32)
                for _ in range(16)]
         x = embed[ids[0].long()]
+        form = rmsnorm_matmul_form(x, ws)
+        n0 = rmsnorm_matmul.launches
         got = rmsnorm_qkv(x, scale, *ws)
+        assert rmsnorm_matmul.launches == n0 + 1
         want = rmsnorm_qkv_plain(x, scale, *ws)
         torch.cuda.synchronize()
-        err = max((g.float() - w.float()).abs().max().item()
-                  for g, w in zip(got, want))
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g.float(), w.float(), atol=RMS_TOL,
-                                       rtol=RMS_TOL)
+        err, share = check_rms(got, want)
         del got, want
         calls = [0]
 
@@ -1462,6 +1540,9 @@ def check_layer0(model, params, table, counts, rows) -> None:
             i, _ = pick()
             return torch.matmul(F.rms_norm(x, (d,), scale, EPS), cats[i])
 
+        def same_precision():
+            return library_hilo(x, scale, cat2)
+
         def baseline():
             i, t = pick()
             return rmsnorm_qkv(embed[t.long()], scale, *sets[i])
@@ -1473,19 +1554,24 @@ def check_layer0(model, params, table, counts, rows) -> None:
 
         def precomputed():
             return embed_gather(rows_tab, pick()[1])
-        ms, plain_ms, lib_ms = (time_ms(f, *it)
-                                for f in (kernel, plain, library))
+        ms, plain_ms, lib_ms, hilo_ms = (
+            time_ms(f, *it) for f in (kernel, plain, library, same_precision))
         b_ms, by = bound(nbytes(x, scale, cats[0]) + n * W * es,
                          2 * n * d * W, x.dtype)
         log(f'[kernel] rmsnorm_matmul bf16 {cfg.name} N={n} d={d} W={W} '
-            f'(q/k/v {[w.shape[1] for w in ws]}): max |err| {err:.3g} (tol '
-            f'{RMS_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-            f'F.rms_norm + torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms '
-            f'({by})')
+            f'(q/k/v {[w.shape[1] for w in ws]}), form {form}: max |err| '
+            f'{err:.3g} (tol {RMS_TOL}; {share:.3f} of the row limit '
+            f'{RMS_ROW_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+            f'F.rms_norm + torch.matmul {lib_ms:.4f} ms, same precision '
+            f'(hi/lo rows, one torch.matmul by [W; W]) {hilo_ms:.4f} ms, '
+            f'bound {b_ms:.4f} ms ({by})')
+        at_n[n] = dict(form=form, max_abs_err=err, limit_share=share, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_hilo_ms=hilo_ms, bound_ms=b_ms)
         if (cfg.name, n) == ('mistral-7b', counts[-1]):
-            rows['rmsnorm_matmul'] = dict(
+            rows.setdefault('rmsnorm_matmul', {}).update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, library_hilo_ms=hilo_ms)
         base, base_lib, pre = (time_ms(f, *it) for f in
                                (baseline, baseline_lib, precomputed))
         base_bytes = n * d * es + d * es + d * W * es
@@ -1498,7 +1584,9 @@ def check_layer0(model, params, table, counts, rows) -> None:
             f'{base / pre:.1f}x, library baseline / precomputed '
             f'{base_lib / pre:.1f}x, bytes {base_bytes / pre_bytes:.1f}x')
         del x, ids
-    del sets, cats
+    rows.setdefault('rmsnorm_matmul', {}).setdefault('at_n', {})[
+        cfg.name] = at_n
+    del sets, cats, cat2
     free()
 
 
@@ -1531,6 +1619,13 @@ def diff_text(got, want) -> str:
             f'{dd.mean().item():.3g}, max |logit| {want.abs().max().item():.3g}')
 
 
+# the device kernels of an rmsnorm_matmul call, by name (the tiled
+# kernels carry the wrapper's name; the wgmma and split-K forms are the row
+# kernel, the GEMM or the partial products, and the combine)
+RMS_KERNELS = ('rmsnorm_matmul', 'rms_rows', 'gemm_hilo', 'splitk_partial',
+               'splitk_combine')
+
+
 def profile_apply(fn) -> str:
     """Device ms by kernel group over one forward (torch.profiler, device
     activity only)."""
@@ -1547,7 +1642,7 @@ def profile_apply(fn) -> str:
             continue
         key = e.key
         name = ('flash_attention' if 'flash_' in key else
-                'rmsnorm_matmul' if 'rmsnorm_matmul' in key else
+                'rmsnorm_matmul' if any(k in key for k in RMS_KERNELS) else
                 'matmul' if ('gemm' in key.lower() or 'cutlass' in key
                              or 'nvjet' in key) else 'other')
         groups[name] += e.self_device_time_total / 1e3

@@ -9,55 +9,59 @@
 // out (N * row_bytes * 2). At the mistral-7b width a row is 10240 bf16 =
 // 20 KB.
 //
-// Design: one warp per row, four rows per 128-thread block. Each lane moves
-// 16 bytes per access (uint4), so a warp moves 512 contiguous bytes per
-// step and both the read and the write are fully coalesced; four loads are
-// issued before the four stores to keep several requests in flight per
-// lane. Rows whose byte width or base address is not a multiple of 16 fall
-// back to 4-byte, then 1-byte, accesses (same structure). The copy is a bit
-// copy, so the result equals table[ids] bitwise for every dtype. An id
-// outside [0, vocab) yields a zero row rather than an out-of-bounds read.
+// Design: each row is split over blocks, grid (N rows, row chunks of
+// kThreads * kUnroll vectors: 4 KB with 16-byte vectors), so at decode sizes
+// (N 1-4) a row's bytes are read by many SMs at once rather than by one warp
+// in dependent rounds. Each lane issues all its loads (kUnroll of 16 bytes)
+// before its stores; neighbouring lanes touch neighbouring addresses, so
+// reads and writes are coalesced. Rows whose byte width or base address is
+// not a multiple of 16 take 4-byte, then 1-byte, vectors (same structure).
+// The copy is a bit copy, so the result equals table[ids] bitwise for every
+// dtype. An id outside [0, vocab) yields a zero row rather than an
+// out-of-bounds read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 4;
-constexpr int kUnroll = 4;
+constexpr int kThreads = 128;
+constexpr int kUnroll = 2;
+constexpr long long kChunk = kThreads * kUnroll;  // vectors of a block
 
 template <typename V>
-__global__ void gather_rows(const V* __restrict__ table, const int* __restrict__ ids,
-                            V* __restrict__ out, int n, int vocab, long long row_vecs) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + warp;
-  if (row >= n) return;
+__global__ void __launch_bounds__(kThreads)
+gather_rows(const V* __restrict__ table, const int* __restrict__ ids, V* __restrict__ out,
+            int vocab, long long row_vecs) {
+  const long long row = blockIdx.x;
+  const long long c0 = blockIdx.y * kChunk + threadIdx.x;
   const int id = ids[row];
-  V* dst = out + (long long)row * row_vecs;
+  V* dst = out + row * row_vecs;
   if (id < 0 || id >= vocab) {
     const V zero{};
-    for (long long c = lane; c < row_vecs; c += 32) dst[c] = zero;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (c0 + u * kThreads < row_vecs) dst[c0 + u * kThreads] = zero;
     return;
   }
   const V* src = table + (long long)id * row_vecs;
-  long long c = lane;
-  for (; c + 32 * (kUnroll - 1) < row_vecs; c += 32 * kUnroll) {
-    V buf[kUnroll];
+  V buf[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) buf[u] = src[c + 32 * u];
+  for (int u = 0; u < kUnroll; ++u)
+    if (c0 + u * kThreads < row_vecs) buf[u] = src[c0 + u * kThreads];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) dst[c + 32 * u] = buf[u];
-  }
-  for (; c < row_vecs; c += 32) dst[c] = src[c];
+  for (int u = 0; u < kUnroll; ++u)
+    if (c0 + u * kThreads < row_vecs) dst[c0 + u * kThreads] = buf[u];
 }
 
 template <typename V>
 cudaError_t launch(const void* table, const int* ids, void* out, int n, int vocab,
                    long long row_bytes, cudaStream_t stream) {
   const long long row_vecs = row_bytes / (long long)sizeof(V);
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  gather_rows<V><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      static_cast<const V*>(table), ids, static_cast<V*>(out), n, vocab, row_vecs);
+  const long long chunks = (row_vecs + kChunk - 1) / kChunk;
+  if (chunks > 65535) return cudaErrorInvalidConfiguration;
+  if (chunks == 0) return cudaSuccess;
+  gather_rows<V><<<dim3(n, (unsigned)chunks), kThreads, 0, stream>>>(
+      static_cast<const V*>(table), ids, static_cast<V*>(out), vocab, row_vecs);
   return cudaGetLastError();
 }
 

@@ -73,9 +73,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                              _P)},
     'rmsnorm_matmul': {
         # x, scale, w0, w1, w2, out0, out1, out2, W0, W1, W2, n_mats, N, d,
-        # eps, dtype_code, stream
+        # eps, dtype_code, form, workspace, workspace bytes, stream
         'rmsnorm_matmul': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _P)},
+                           _I, _I, _F, _I, _I, _P, _L, _P),
+        # w0, w1, w2, W0, W1, W2, n_mats, N, d, dtype_code, wanted form
+        # (-1: by shape), &workspace bytes -> form (-1: not allowed)
+        'rmsnorm_matmul_plan': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P)},
     'flash_attention': {
         # q, k, v, pos, out, B, S, H, KV, d, causal, window, scale,
         # dtype_code, stream
