@@ -14,9 +14,10 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
-              and the roofline bound: embed_gather (bitwise, also zero rows
-              for ids out of range; N 1-4096 at mistral-7b and glm4-9b
-              width), gather_rope and
+              and the roofline bound: embed_gather (bitwise; N 1-4096 at
+              mistral-7b and glm4-9b width) and gather_rope (both also with
+              the ids -1, -V, -V - 1, V, V + 7: wrapped rows and NaN rows,
+              bitwise the plain versions, NaN equal to NaN), gather_rope and
               paged_attention at mistral-7b full-width shapes; paged_attention
               at glm4-9b's G 16 through a scattered page table (in bf16 the
               split kernel, also held to the flash check's row-scaled limit,
@@ -26,7 +27,9 @@ Phases, in order; any failure raises and exits non-zero:
               cow_page_copy (bitwise; rem 0/7/16 over a body leaf flattened
               over 39 layers) at glm4-9b page shapes; the MLA form of
               paged_attention at deepseek-v2-lite-16b shapes (fp32 queries over
-              bf16 or fp32 latent pages, T 1 and 16), gather_rope over its 17
+              bf16 latent pages on the split kernel, row t of the 16-token
+              call bitwise a one-token call, and over fp32 pages on the
+              template kernel; T 1 and 16), gather_rope over its 17
               MLA segments (width 5696), and fused_page_write / cow_page_copy
               on its ckv / kpe / pos leaves over 27 layers (bitwise); the int8
               form of paged_attention (paged_attention_quant) at mistral-7b
@@ -137,8 +140,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
                                              gather_rope_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    dense_as_pages, dense_identity_table, dense_page_split, page_validity,
-    paged_attention, paged_attention_mla, paged_attention_plain,
+    dense_as_pages, dense_identity_table, dense_page_split, mla_split_form,
+    page_validity, paged_attention, paged_attention_mla, paged_attention_plain,
     paged_attention_quant, sharded_paged_attention,
     sharded_paged_attention_plain)
 from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
@@ -281,11 +284,39 @@ def config_of(name: str, smoke: bool):
     return get_smoke_config(name) if smoke else get_config(name)
 
 
+def out_of_range_ids(ids: torch.Tensor, V: int) -> torch.Tensor:
+    """``ids`` after the ids -1, -V, -V - 1, V and V + 7: rows V - 1 and 0
+    (wrapped, as ``jnp.take``), then three rows of NaN."""
+    return torch.cat([torch.tensor([-1, -V, -V - 1, V, V + 7],
+                                   dtype=torch.int32, device=ids.device),
+                      ids])
+
+
+def same_rows(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bitwise equal, a NaN equal to a NaN (whatever its bits)."""
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()):
+        return False
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+def check_out_of_range(name, got, want) -> None:
+    """A gather of ``out_of_range_ids``: bitwise its plain version (NaN
+    equal to NaN), rows 0-1 finite and rows 2-4 all NaN."""
+    torch.cuda.synchronize()
+    assert same_rows(got, want), f'{name}: ids out of range differ from ' \
+        'the plain version'
+    assert got[2:5].isnan().all() and not got[:2].isnan().any() \
+        and not got[5:].isnan().any(), f'{name}: NaN rows misplaced'
+
+
 def check_embed_gather(gen) -> dict:
-    """embed_gather against its plain version, bitwise, at EMBED_CASES; at
-    full width also with ids outside [0, V) (zero rows). Times kernel,
-    plain version, index_select and bound; the kernels line's row is
-    mistral-7b bf16 N 4's, its ``at_n`` the full-width bf16 times."""
+    """embed_gather against its plain version, bitwise, at EMBED_CASES, also
+    with the ids -1, -V, -V - 1, V and V + 7 in front (``jnp.take``: rows V
+    - 1 and 0, then NaN rows; NaN equal to NaN). Times kernel, plain
+    version, index_select and bound; the kernels line's row is mistral-7b
+    bf16 N 4's, its ``at_n`` the full-width bf16 times."""
     row, at_n = {}, {}
     for name, smoke, dtypes, counts in EMBED_CASES:
         cfg = config_of(name, smoke)
@@ -301,19 +332,10 @@ def check_embed_gather(gen) -> dict:
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), \
                     f'embed_gather {cfg.name} {dtype} N={n}'
-                if not smoke:        # out of range: -1, V, V + 7 -> zeros
-                    bad = ids.clone()
-                    bad[::3] = torch.tensor([-1, V, V + 7], dtype=torch.int32,
-                                            device='cuda').repeat(n)[
-                                                :len(bad[::3])]
-                    got = embed_gather(table, bad)
-                    keep = (bad >= 0) & (bad < V)
-                    want = embed_gather_plain(table, bad.clamp(0, V - 1)) \
-                        * keep[:, None].to(dtype)
-                    torch.cuda.synchronize()
-                    assert torch.equal(got, want), \
-                        f'embed_gather {cfg.name} {dtype} N={n}, ids out ' \
-                        f'of range'
+                bad = out_of_range_ids(ids, V)
+                check_out_of_range(f'embed_gather {cfg.name} {dtype} N={n}',
+                                   embed_gather(table, bad),
+                                   embed_gather_plain(table, bad))
                 id_sets = [torch.randint(0, V, (n,), generator=gen,
                                          device='cuda', dtype=torch.int32)
                            for _ in range(16)]
@@ -328,9 +350,9 @@ def check_embed_gather(gen) -> dict:
                 b_ms, by = bound(2 * n * W * table.element_size() + 4 * n, 0,
                                  dtype)
                 log(f'[kernel] embed_gather {cfg.name} {str(dtype)[6:]} '
-                    f'N={n} V={V} W={W}: bitwise equal'
-                    + ('' if smoke else ', zero rows for ids out of range')
-                    + f'; kernel {ms:.4f} ms, plain {plain:.4f} ms, '
+                    f'N={n} V={V} W={W}: bitwise equal, also with ids -1, '
+                    f'-V, -V - 1, V, V + 7 (rows V - 1, 0, NaN, NaN, NaN)'
+                    f'; kernel {ms:.4f} ms, plain {plain:.4f} ms, '
                     f'index_select {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
                 if not smoke and dtype is torch.bfloat16:
                     at_n.setdefault(cfg.name, {})[n] = dict(
@@ -379,6 +401,12 @@ def check_gather_rope(gen) -> dict:
                 assert torch.equal(got[:, ~rotated],
                                    table[ids.long()][:, ~rotated]), \
                     f'gather_rope {cfg.name} changed unrotated columns'
+                bad = out_of_range_ids(ids, V)
+                bad_pos = torch.cat([pos[:1].repeat(5), pos])
+                check_out_of_range(
+                    f'gather_rope {cfg.name} {dtype} N={n}',
+                    gather_rope(table, bad, bad_pos, **kw),
+                    gather_rope_plain(table, bad, bad_pos, **kw))
                 ms = time_ms(lambda: gather_rope(table, ids, pos, **kw))
                 plain = time_ms(
                     lambda: gather_rope_plain(table, ids, pos, **kw))
@@ -388,7 +416,9 @@ def check_gather_rope(gen) -> dict:
                     f'{len(segs)} of width {segs[0][2]}'
                 log(f'[kernel] gather_rope {cfg.name} {str(dtype)[6:]} N={n} '
                     f'segments {seg_txt} W={W} max pos 32767: max |err| '
-                    f'{err:.3g} (tol {tol}), untouched columns bitwise; '
+                    f'{err:.3g} (tol {tol}), untouched columns bitwise, ids '
+                    f'-1, -V, -V - 1, V, V + 7 bitwise the plain version '
+                    f'(NaN rows); '
                     f'kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
                     f'{b_ms:.4f} ms ({by})')
                 if (name, smoke, dtype, n) == ('mistral_7b', False,
@@ -790,7 +820,12 @@ def mla_pool(gen, dtype, NP, ps, r, dr, lengths, P):
 def check_paged_attention_mla(gen) -> dict:
     """The MLA form at deepseek-v2-lite-16b's widths (16 heads, latent 512
     + rope 64) through a scattered table over the engine's pool: fp32
-    queries (W_UK absorbed in fp32) over bf16 pages, and all fp32."""
+    queries (W_UK absorbed in fp32) over bf16 pages (the engine's case:
+    the split kernel; at T 16 row t bitwise the one-token call at pos0 +
+    t), and all fp32 (the template kernel). Within KERNEL_TOL of the plain
+    version, the empty slot zeros; prints which kernel ran, and beside
+    ``mla_bound`` the bytes-only bound (the split kernel's scores run on the
+    tensor cores, so the fp32 rate overstates its operations)."""
     cfg = get_config(DS)
     m = cfg.mla
     H, r, dr = cfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
@@ -810,29 +845,57 @@ def check_paged_attention_mla(gen) -> dict:
                             device='cuda')
             args = (q, pages[0], None, cpos, table, pos0)
             kw = dict(scale=scale, k2_pages=pages[1], mla_split=r)
+            split = mla_split_form(q, *pages)
             got = paged_attention(*args, **kw)
             want = paged_attention_plain(*args, **kw)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, **KERNEL_TOL)
-            assert not got[2].any(), 'empty slot must attend to zeros'
+            held = check_mla(got, want, args, kw)
             view = paged_view({'ckv': ckv, 'kpe': kpe, 'pos': cpos}, table,
                               GLM_SEQ)
             ms = time_ms(lambda: paged_attention(*args, **kw))
             plain = time_ms(lambda: paged_attention_plain(*args, **kw))
             lib = library_mla_ms(q, view, pos0, r, scale)
             b_ms, by = mla_bound(q, view, pos0, r)
+            bytes_ms = mla_bound_bytes(q, view, pos0, r)
             log(f'[kernel] paged_attention_mla q float32 pages '
                 f'{str(page_dtype)[6:]} B={B} T={T} H={H} r={r} dr={dr} '
-                f'({T * H} rows per slot) scattered table over NP={NP}: max '
+                f'({T * H} rows per slot) scattered table over NP={NP}: '
+                f'{"split" if split else "template"} kernel{held}; max '
                 f'|err| {err:.3g} (tol {KERNEL_TOL["atol"]}), empty slot '
                 f'zeros; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa '
-                f'{lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+                f'{lib:.4f} ms, bound {b_ms:.4f} ms ({by}; bytes alone '
+                f'{bytes_ms:.4f} ms)')
             if page_dtype is torch.bfloat16 and T == 1:   # the decode step
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+                           bound_ms=b_ms, bound_by=by, library_ms=lib,
+                           form='split' if split else 'template',
+                           bytes_bound_ms=bytes_ms)
+            if page_dtype is torch.bfloat16 and T == 16:
+                row['at_t16'] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                     bound_ms=b_ms, library_ms=lib)
         del ckv, kpe, cpos, pages
     return row
+
+
+def check_mla(got, want, args, kw) -> str:
+    """The MLA form's checks: within KERNEL_TOL of the plain version, slot
+    2 (empty) zeros, and on the split kernel at T > 1 row t bitwise the
+    one-token call at pos0 + t. Returns the text of what held beyond
+    KERNEL_TOL."""
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
+    assert not got[2].any(), 'empty slot must attend to zeros'
+    q, pages, pos0 = args[0], args[1], args[5]
+    T = q.shape[1]
+    if T == 1 or not mla_split_form(q, pages, kw['k2_pages']):
+        return ''
+    for t in range(T):
+        one = paged_attention(q[:, t:t + 1].contiguous(), *args[1:5],
+                              pos0 + t, **kw)
+        assert torch.equal(one, got[:, t:t + 1]), \
+            f'paged_attention_mla: row {t} of the T={T} call is not ' \
+            'bitwise the one-token call at pos0 + t'
+    return f', rows bitwise {T} one-token calls'
 
 
 def mla_bound(q, view, pos0, r):
@@ -848,6 +911,17 @@ def mla_bound(q, view, pos0, r):
     moved = nbytes(q) + B * T * H * r * 4 + nbytes(view['pos'], pos0) \
         + rows_used * dq * es
     return bound(moved, (2 * dq + 2 * r) * pairs, torch.float32)
+
+
+def mla_bound_bytes(q, view, pos0, r) -> float:
+    """``mla_bound``'s bytes alone: the least time of the split kernel,
+    whose scores and value mix run on the tensor cores."""
+    B, T, _, H, dq = q.shape
+    pos_t = pos0[:, None].long() + torch.arange(T, device='cuda')
+    valid = page_validity(view['pos'], pos_t, 0)
+    moved = nbytes(q) + B * T * H * r * 4 + nbytes(view['pos'], pos0) \
+        + int(valid.any(dim=1).sum()) * dq * view['ckv'].element_size()
+    return bound(moved, 0, torch.float32)[0]
 
 
 def library_mla_ms(q, view, pos0, r, scale) -> float:

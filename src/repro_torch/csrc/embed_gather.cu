@@ -17,8 +17,10 @@
 // reads and writes are coalesced. Rows whose byte width or base address is
 // not a multiple of 16 take 4-byte, then 1-byte, vectors (same structure).
 // The copy is a bit copy, so the result equals table[ids] bitwise for every
-// dtype. An id outside [0, vocab) yields a zero row rather than an
-// out-of-bounds read.
+// dtype. Ids follow jnp.take, as the JAX table read does: an id in
+// [-vocab, 0) reads row id + vocab; an id outside [-vocab, vocab) reads
+// nothing and yields a row of NaN, the caller's 32-bit pattern of NaNs of
+// the table's dtype repeated (the plain version's bits).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,21 +30,37 @@ constexpr int kThreads = 128;
 constexpr int kUnroll = 2;
 constexpr long long kChunk = kThreads * kUnroll;  // vectors of a block
 
+// a vector of the repeated NaN pattern; the byte vector takes the pattern's
+// byte at its offset (rows start at multiples of the element size, and the
+// pattern repeats every element)
+template <typename V> __device__ __forceinline__ V nan_fill(unsigned w, long long c);
+template <> __device__ __forceinline__ uint4 nan_fill<uint4>(unsigned w, long long) {
+  return make_uint4(w, w, w, w);
+}
+template <> __device__ __forceinline__ uint32_t nan_fill<uint32_t>(unsigned w, long long) {
+  return w;
+}
+template <> __device__ __forceinline__ uint8_t nan_fill<uint8_t>(unsigned w, long long c) {
+  return (uint8_t)(w >> (8 * (c & 3)));
+}
+
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 gather_rows(const V* __restrict__ table, const int* __restrict__ ids, V* __restrict__ out,
-            int vocab, long long row_vecs) {
+            int vocab, long long row_vecs, unsigned nan_word) {
   const long long row = blockIdx.x;
   const long long c0 = blockIdx.y * kChunk + threadIdx.x;
-  const int id = ids[row];
+  int id = ids[row];
   V* dst = out + row * row_vecs;
-  if (id < 0 || id >= vocab) {
-    const V zero{};
+  if (id < -vocab || id >= vocab) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (c0 + u * kThreads < row_vecs) dst[c0 + u * kThreads] = zero;
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long c = c0 + u * kThreads;
+      if (c < row_vecs) dst[c] = nan_fill<V>(nan_word, c);
+    }
     return;
   }
+  if (id < 0) id += vocab;
   const V* src = table + (long long)id * row_vecs;
   V buf[kUnroll];
 #pragma unroll
@@ -55,13 +73,13 @@ gather_rows(const V* __restrict__ table, const int* __restrict__ ids, V* __restr
 
 template <typename V>
 cudaError_t launch(const void* table, const int* ids, void* out, int n, int vocab,
-                   long long row_bytes, cudaStream_t stream) {
+                   long long row_bytes, unsigned nan_word, cudaStream_t stream) {
   const long long row_vecs = row_bytes / (long long)sizeof(V);
   const long long chunks = (row_vecs + kChunk - 1) / kChunk;
   if (chunks > 65535) return cudaErrorInvalidConfiguration;
   if (chunks == 0) return cudaSuccess;
   gather_rows<V><<<dim3(n, (unsigned)chunks), kThreads, 0, stream>>>(
-      static_cast<const V*>(table), ids, static_cast<V*>(out), vocab, row_vecs);
+      static_cast<const V*>(table), ids, static_cast<V*>(out), vocab, row_vecs, nan_word);
   return cudaGetLastError();
 }
 
@@ -71,14 +89,17 @@ bool aligned(const void* p, long long bytes, int to) {
 
 }  // namespace
 
+// nan_word: the 32-bit pattern of NaNs of the table's dtype (0x7FC00000
+// for float32, 0x7FC07FC0 for bfloat16).
 extern "C" int embed_gather(const void* table, const void* ids, void* out, int n,
-                            int vocab, long long row_bytes, void* stream) {
+                            int vocab, long long row_bytes, int nan_word, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
+  const unsigned w = static_cast<unsigned>(nan_word);
   if (aligned(table, row_bytes, 16) && aligned(out, row_bytes, 16))
-    return (int)launch<uint4>(table, id, out, n, vocab, row_bytes, s);
+    return (int)launch<uint4>(table, id, out, n, vocab, row_bytes, w, s);
   if (aligned(table, row_bytes, 4) && aligned(out, row_bytes, 4))
-    return (int)launch<uint32_t>(table, id, out, n, vocab, row_bytes, s);
-  return (int)launch<uint8_t>(table, id, out, n, vocab, row_bytes, s);
+    return (int)launch<uint32_t>(table, id, out, n, vocab, row_bytes, w, s);
+  return (int)launch<uint8_t>(table, id, out, n, vocab, row_bytes, w, s);
 }

@@ -26,7 +26,10 @@
 // row and writes x1*cos - x2*sin or x1*sin + x2*cos in fp32, rounded to
 // nearest in every operation (__fmul_rn/__fsub_rn keep the compiler from
 // contracting to an FMA, matching the plain version's separate roundings),
-// then converted once to the table dtype.
+// then converted once to the table dtype. Ids follow jnp.take, as the JAX
+// table read does: an id in [-vocab, 0) reads row id + vocab; an id outside
+// [-vocab, vocab) reads nothing and writes a row of NaN (the JAX Pallas
+// kernel clamps such ids instead: a deliberate difference, ROADMAP C2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,6 +56,12 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// torch's NaN of each dtype (__float2bfloat16_rn would give 0x7FFF)
+template <typename T> __device__ __forceinline__ T nan_of();
+template <> __device__ __forceinline__ float nan_of<float>() { return __int_as_float(0x7FC00000); }
+template <> __device__ __forceinline__ __nv_bfloat16 nan_of<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0x7FC0);
+}
 
 template <typename T>
 __global__ void gather_rope_rows(const T* __restrict__ table, const int* __restrict__ ids,
@@ -60,12 +69,13 @@ __global__ void gather_rope_rows(const T* __restrict__ table, const int* __restr
                                  T* __restrict__ out, int vocab, int width, Segs segs) {
   extern __shared__ float trig[];  // per segment: sin[hd/2] then cos[hd/2]
   const int row = blockIdx.x;
-  const int id = ids[row];
+  int id = ids[row];
   T* dst = out + (long long)row * width;
-  if (id < 0 || id >= vocab) {
-    for (int c = threadIdx.x; c < width; c += blockDim.x) dst[c] = from_f<T>(0.f);
+  if (id < -vocab || id >= vocab) {  // jnp.take: a row of NaN, rotated or not
+    for (int c = threadIdx.x; c < width; c += blockDim.x) dst[c] = nan_of<T>();
     return;
   }
+  if (id < 0) id += vocab;
   const float p = (float)pos[row];
   // one (segment, frequency) pair per thread across all segments at once:
   // accurate sinf/cosf of large angles are slow, and MLA rows have 17

@@ -28,9 +28,11 @@
 // the card's ratio of compute to bandwidth. The int8 form reads one byte per
 // K/V element plus two bytes of scale per (token, kv head).
 //
-// Design of the template below (the MLA and int8 forms, and the dense form
-// with fp32 pages, mixed dtypes or other widths; the dense form with bf16 q
-// and pages at d % 16 == 0, d <= 128 has its own kernel, namespace split
+// Design of the template below (the int8 form, the dense form with fp32
+// pages, mixed dtypes or other widths, and the MLA form other than fp32 q
+// over bf16 pages; the dense form with bf16 q and pages at d % 16 == 0, d <=
+// 128 and the MLA form with fp32 q over bf16 pages at r % 16 == 0, dr % 16
+// == 0, r, dr <= 512 have their own kernels, namespaces split and mla_split
 // further down): the T*G query rows of one (slot, kv head) are split into tiles of
 // at most kRowTile = 64 rows (kRowTileMla = 16 in the MLA form, whose 576-wide
 // query rows and 512-wide accumulators would not fit 64 rows in shared
@@ -369,7 +371,9 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 //   m*), o = sum acc_s e^(m_s - m*) / max(l, 1e-30), cast to bf16. A chunk
 //   with l_s = 0 (skipped, or processed without a usable key for the row) adds
 //   nothing and its acc is not read: its exact share would be 0 * 0. So a row
-//   with no usable key anywhere writes 0.
+//   with no usable key anywhere writes 0. The warp reads the row's (m, l)
+//   one chunk a lane, and loads the next live chunk's acc while it adds the
+//   current one.
 // - Tensor cores. Each warp owns one m16 tile of query rows (rows past R
 //   are zero and masked), held as bf16 A fragments in registers for the
 //   whole chunk. S = Q K^T runs on mma.sync.m16n8k16 (bf16, fp32
@@ -403,6 +407,7 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 // skipped one, and the combine skips both. Inside a processed chunk every
 // sub-tile is processed.
 //
+// The MLA form runs the same split and combine (namespace mla_split below).
 // Written so the int8 form can take the same loader and split: the copy
 // of a sub-tile (copy_chunk) is the only code that touches the pages, and
 // the stored positions (sPos) are where per-key scales would sit.
@@ -645,47 +650,73 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
 }
 
-// One warp per query row: the chunks' partials in chunk order -> bf16 out.
-template <int D>
+// One warp per query row: the chunks' partials in chunk order -> out, in
+// the output's dtype (bf16 for the dense form, q's for the MLA form); dv
+// value columns, at most 32 * kCols.
+template <int kCols, typename TO>
 __global__ void __launch_bounds__(128)
-paged_attention_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out, int BKV,
-                               int T_, int KV, int G, int nch) {
+paged_attention_combine_kernel(const float* __restrict__ ws, TO* __restrict__ out, int BKV,
+                               int T_, int KV, int G, int nch, int dv) {
   const int R = T_ * G;
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= (long long)BKV * R) return;
   const int lane = threadIdx.x & 31;
   const int bh = (int)(row / R), r = (int)(row % R);
-  const float2* ml = reinterpret_cast<const float2*>(ws + (long long)BKV * nch * R * D) +
+  const float2* ml = reinterpret_cast<const float2*>(ws + (long long)BKV * nch * R * dv) +
                      (long long)bh * nch * R + r;
-  const float* acc = ws + ((long long)bh * nch * R + r) * D;
+  const float* acc = ws + ((long long)bh * nch * R + r) * dv;
+  // m* = max m over the chunks with l > 0, their (m, l) one a lane
   float mstar = kNegInf;
-  for (int s = 0; s < nch; ++s) {
+  for (int s = lane; s < nch; s += 32) {
     const float2 x = ml[(long long)s * R];
     if (x.y > 0.f) mstar = fmaxf(mstar, x.x);
   }
-  constexpr int kCols = (D + 31) / 32;
-  float o[kCols], lsum = 0.f;
 #pragma unroll
-  for (int u = 0; u < kCols; ++u) o[u] = 0.f;
-  for (int s = 0; s < nch; ++s) {
-    const float2 x = ml[(long long)s * R];
-    if (!(x.y > 0.f)) continue;  // l_s = 0: acc_s = 0 there, and it was not written
-    const float w = expf(x.x - mstar);
-    lsum += x.y * w;
-    const float* a = acc + (long long)s * R * D;
+  for (int d = 16; d > 0; d >>= 1) mstar = fmaxf(mstar, __shfl_xor_sync(0xffffffffu, mstar, d));
+  // then the chunks with l > 0 in chunk order (the order of the sums, so a
+  // row's bits depend on its own partials alone), a lane's columns each; a
+  // chunk with l_s = 0 has acc_s = 0 and was not written. The next such
+  // chunk's acc is loaded while the current one is added.
+  float o[kCols], cur[kCols], nxt[kCols], lsum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) o[u] = cur[u] = nxt[u] = 0.f;
+  auto load = [&](float(&dst)[kCols], int s) {
+    const float* a = acc + (long long)s * R * dv;
 #pragma unroll
     for (int u = 0; u < kCols; ++u) {
       const int c = lane + 32 * u;
-      if (c < D) o[u] += a[c] * w;
+      dst[u] = c < dv ? a[c] : 0.f;
+    }
+  };
+  for (int s0 = 0; s0 < nch; s0 += 32) {
+    const float2 x = s0 + lane < nch ? ml[(long long)(s0 + lane) * R]
+                                     : make_float2(kNegInf, 0.f);
+    const float w = expf(x.x - mstar);
+    unsigned live = __ballot_sync(0xffffffffu, x.y > 0.f);
+    int i = live ? __ffs(live) - 1 : -1;
+    if (i >= 0) load(cur, s0 + i);
+    while (i >= 0) {
+      live &= live - 1;
+      const int j = live ? __ffs(live) - 1 : -1;
+      if (j >= 0) load(nxt, s0 + j);
+      const float wi = __shfl_sync(0xffffffffu, w, i);
+      const float li = __shfl_sync(0xffffffffu, x.y, i);
+      lsum += li * wi;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        o[u] += cur[u] * wi;
+        cur[u] = nxt[u];
+      }
+      i = j;
     }
   }
   const float inv = 1.f / fmaxf(lsum, 1e-30f);
   const int b = bh / KV, h = bh % KV, t = r / G, gg = r % G;
-  bf16* orow = out + ((((long long)b * T_ + t) * KV + h) * G + gg) * D;
+  TO* orow = out + ((((long long)b * T_ + t) * KV + h) * G + gg) * dv;
 #pragma unroll
   for (int u = 0; u < kCols; ++u) {
     const int c = lane + 32 * u;
-    if (c < D) orow[c] = __float2bfloat16_rn(o[u] * inv);
+    if (c < dv) orow[c] = from_f<TO>(o[u] * inv);
   }
 }
 
@@ -711,12 +742,348 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* cpos,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rows = (long long)B * KV * R;
-  paged_attention_combine_kernel<D><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
-      ws, static_cast<bf16*>(out), B * KV, T_, KV, G, nch);
+  paged_attention_combine_kernel<(D + 31) / 32, bf16><<<(unsigned)((rows + 3) / 4), 128, 0,
+                                                       stream>>>(
+      ws, static_cast<bf16*>(out), B * KV, T_, KV, G, nch, D);
   return cudaGetLastError();
 }
 
 }  // namespace split
+
+// ===================================================================
+// MLA form, fp32 queries over bf16 latent pages (r % 16 == 0, dr % 16 == 0,
+// r <= 512, dr <= 512): the split design above for one latent kv head, with
+// keys [ckv (r) | kpe (dr)] and values the ckv rows again.
+//
+// Bound, as above: bytes. deepseek-v2-lite-16b's decode step has 16 query
+// rows (one per head) over 576-wide keys: the template kernel, one block per
+// (slot, 16-row tile) walking every key alone in fp32 FMA, kept 4 SMs busy
+// at T 1. Here:
+//
+// - Split, as the dense form: grid (B, 16-row tiles, key chunks), the
+//   chunk boundaries at multiples of split::kChunk = 64 in the virtual index
+//   (split::chunk_len: never chosen from B, T or the grid), a chunk that no
+//   row of the tile can use written as an empty partial, the partials (m, l,
+//   acc[r]) in an fp32 workspace ((B, chunks, T*H, r), then (m, l)), and the
+//   dense form's combine kernel (at dv = r, out in fp32) takes the chunks in
+//   order.
+// - Loads. The chunk's key rows [ckv | kpe] (64 x 576 bf16 = 72 KB at
+//   deepseek's widths) come in by cp.async, 16 bytes a copy, as two commit
+//   groups of 32 keys; a key with no stored position is zero-filled, not
+//   read. While they fly, the block's 16 fp32 query rows (contiguous in q)
+//   come in by 16-byte loads, several in flight a thread, and go to shared
+//   memory as two bf16 rows, hi = bf16(q) and lo = bf16(q - hi) (about 16
+//   bits of q, as rmsnorm_matmul's hi/lo rows; within 1e-5 of the plain
+//   version at deepseek's widths. A third term, 24 bits, measured 3.5x
+//   closer and 40% slower, and moved the same greedy tokens: PERF.md). Rows are padded by 16 bytes so
+//   ldmatrix is free of bank conflicts. About 110 KB a block: two an SM.
+// - Scores on the tensor cores: S = Q_hi K^T + Q_lo K^T on mma.sync.m16n8k16
+//   (fp32 accumulators, one set for each product, added at the end), A
+//   fragments of both rows and K fragments by ldmatrix, over the r + dr
+//   columns in order.
+// - Values split over the warps. A 16-row tile's accumulator is 16 x r fp32
+//   (512 columns at deepseek's width: too many registers for one warp), so
+//   each of the 4 warps owns r / 4 value columns. Every warp computes the
+//   whole S of the tile itself (the same instructions on the same shared
+//   data: bitwise the same S, max and sum in every warp) rather than
+//   exchanging P through shared memory: the kernel waits on its loads, and
+//   the repeated products need no barrier. The fp32 online softmax and P =
+//   hi + lo (two bf16 A fragments) are the dense form's; P V runs on
+//   mma.sync against ckv fragments by ldmatrix.trans from the key tile.
+//
+// The bitwise contracts of the dense form hold for the same reasons: a row's
+// scores, softmax, partials and combine read only that row's values, in an
+// order fixed by the constant chunk layout, so row t of a T 16 call is
+// bitwise a one-token call at pos0 + t.
+namespace mla_split {
+
+using bf16 = __nv_bfloat16;
+using split::kChunk;
+using split::kSub;
+using split::kSubs;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;          // query rows per block: one m16 tile, shared by the warps
+constexpr int kMaxWidth = 512;     // r and dr at most: 16-column value groups <= 8 a warp
+
+// bf16 per shared row of dq = r + dr columns (16 bytes of padding)
+__host__ __device__ __forceinline__ int row_ld(int dq) { return dq + 8; }
+
+constexpr int kQLoads = 6;         // 16-byte q loads in flight a thread
+
+// q rows hi and lo, the chunk's key rows, then its stored positions and rows
+size_t smem_bytes(int dq) {
+  return (size_t)(2 * kRows + kChunk) * row_ld(dq) * sizeof(bf16) + 2 * kChunk * sizeof(int);
+}
+
+// x as two bf16, hi = bf16(x) and lo = bf16(x - hi): about 16 bits of x
+__device__ __forceinline__ void split_hilo(float x, unsigned& hi, unsigned& lo) {
+  const bf16 h = __float2bfloat16_rn(x);
+  const float rest = x - __bfloat162float(h);
+  hi = __bfloat16_as_ushort(h);
+  lo = __bfloat16_as_ushort(__float2bfloat16_rn(rest));
+}
+
+// NG: 16-column value groups a warp holds at most (r <= 64 * NG)
+template <int NG>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_mla_split_kernel(const float* __restrict__ q, const bf16* __restrict__ ckv,
+                                 const bf16* __restrict__ kpe, const int* __restrict__ cpos,
+                                 const int* __restrict__ table, const int* __restrict__ pos0,
+                                 float* __restrict__ ws, int T_, int H, int r, int dr, int ps,
+                                 int P, int chunk, int nch, float scale, int window) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int dq = r + dr, L = row_ld(dq);
+  bf16* sQh = reinterpret_cast<bf16*>(smem);
+  bf16* sQl = sQh + kRows * L;
+  bf16* sK = sQl + kRows * L;
+  int* sPos = reinterpret_cast<int*>(sK + kChunk * L);
+  int* sRow = sPos + kChunk;
+
+  const int b = blockIdx.x, z = blockIdx.z;
+  const int R = T_ * H;
+  const int rb0 = blockIdx.y * kRows, rb1 = min(R, rb0 + kRows);  // the block's rows
+  const int j0 = z * chunk;
+  const int n = min(chunk, P * ps - j0);  // keys of this chunk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p0 = pos0[b];
+  const int t_lo = rb0 / H, t_hi = (rb1 - 1) / H;
+  const long long part = ((long long)b * nch + z) * R;  // this partial's row 0
+  float* acc_ws = ws + part * r;
+  float2* ml_ws = reinterpret_cast<float2*>(ws + (long long)gridDim.x * nch * R * r) + part;
+
+  bool live = false;
+  for (int jj = tid; jj < kChunk; jj += kThreads) {
+    int c = -1, row = 0;
+    if (jj < n) {
+      const int j = j0 + jj;
+      row = table[(long long)b * P + j / ps] * ps + j % ps;
+      c = cpos[row];
+    }
+    sPos[jj] = c;
+    sRow[jj] = row;
+    live |= c >= 0 && c <= p0 + t_hi && (window == 0 || p0 + t_lo - c < window);
+  }
+  if (!__syncthreads_or(live)) {  // no usable key for the tile: an empty partial
+    for (int rr = rb0 + tid; rr < rb1; rr += kThreads) ml_ws[rr] = make_float2(kNegInf, 0.f);
+    return;
+  }
+
+  // the chunk's key rows [ckv | kpe]: sub-tile s is commit group s
+  const int nv = dq / 8;  // 16-byte copies a row
+#pragma unroll
+  for (int s = 0; s < kSubs; ++s) {
+    for (int e = tid; e < kSub * nv; e += kThreads) {
+      const int jj = s * kSub + e / nv, c = (e % nv) * 8;
+      const bool ok = sPos[jj] >= 0;
+      const long long row = sRow[jj];
+      const bf16* src = !ok ? ckv : c < r ? ckv + row * r + c : kpe + row * dr + (c - r);
+      cp_async16(sK + jj * L + c, src, ok);
+    }
+    cp_async_commit();
+  }
+  // meanwhile the tile's query rows (contiguous in q) as hi / lo bf16, rows
+  // past R zero: 16-byte loads, kQLoads of them in flight before the stores
+  {
+    const float4* qt = reinterpret_cast<const float4*>(q + ((long long)b * R + rb0) * dq);
+    const int w4 = dq / 4, n4 = kRows * w4, live4 = (rb1 - rb0) * w4;
+    for (int e0 = tid; e0 < n4; e0 += kThreads * kQLoads) {
+      float4 x[kQLoads];
+#pragma unroll
+      for (int u = 0; u < kQLoads; ++u) {
+        const int e = e0 + u * kThreads;
+        x[u] = e < live4 ? qt[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kQLoads; ++u) {
+        const int e = e0 + u * kThreads;
+        if (e >= n4) break;
+        const float v[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+        unsigned h[4], lo[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) split_hilo(v[k], h[k], lo[k]);
+        const int off = (e / w4) * L + (e % w4) * 4;  // 8-byte aligned
+        *reinterpret_cast<uint2*>(sQh + off) = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+        *reinterpret_cast<uint2*>(sQl + off) =
+            make_uint2(lo[0] | lo[1] << 16, lo[2] | lo[3] << 16);
+      }
+    }
+  }
+
+  // lane holds rows g and g + 8 of the tile, columns 2 tq, 2 tq + 1
+  const int g = lane >> 2, tq = lane & 3;
+  int rr[2], qp[2];
+  bool rok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rr[i] = rb0 + g + 8 * i;
+    rok[i] = rr[i] < rb1;
+    qp[i] = p0 + (rok[i] ? rr[i] / H : 0);
+  }
+  // this warp's 16-column value groups: [g0, g0 + ng)
+  const int per = (r / 16 + kWarps - 1) / kWarps;
+  const int g0 = warp * per, ng = max(0, min(per, r / 16 - g0));
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[2 * NG][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * NG; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kSubs; ++s) {
+    cp_async_wait_upto(kSubs - 1 - s);
+    __syncthreads();  // sub-tile s (and, first, the q rows) in shared memory
+    const bf16* tk = sK + s * kSub * L;
+    const int* tp = sPos + s * kSub;
+
+    // S = Q_hi K^T + Q_lo K^T, the two products in their own accumulators
+    // (twice the independent mma chains), added once at the end
+    float sc[kSub / 8][4], sl[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = sl[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < dq / 16; ++kk) {
+      unsigned ah[4], al[4];
+      const int qoff = (lane & 15) * L + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(ah, sQh + qoff);
+      ldsm_x4(al, sQl + qoff);
+#pragma unroll
+      for (int j2 = 0; j2 < kSub / 16; ++j2) {
+        unsigned bk[4];
+        ldsm_x4(bk, tk + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * L + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma(sc[2 * j2], ah, bk[0], bk[1]);
+        mma(sc[2 * j2 + 1], ah, bk[2], bk[3]);
+        mma(sl[2 * j2], al, bk[0], bk[1]);
+        mma(sl[2 * j2 + 1], al, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] += sl[j][e];
+
+    // fp32 online softmax on the fragments, as the dense form's
+    unsigned okbits = 0;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const bool ok = rok[i] && usable(tp[8 * j + 2 * tq + (e & 1)], qp[i], window);
+        okbits |= (ok ? 1u : 0u) << (4 * j + e);
+        sc[j][e] = ok ? sc[j][e] * scale : kNegInf;
+        mx[i] = fmaxf(mx[i], sc[j][e]);
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (okbits >> (4 * j + e)) & 1u ? expf(sc[j][e] - m[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * corr[i] + sum[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * NG; ++nt) {
+      o[nt][0] *= corr[0];
+      o[nt][1] *= corr[0];
+      o[nt][2] *= corr[1];
+      o[nt][3] *= corr[1];
+    }
+
+    // acc += P V over this warp's value columns, P = hi + lo, V = the ckv
+    // columns of the key tile by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float pa = sc[2 * kk + (f >> 1)][2 * (f & 1)];
+        const float pb = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+        const bf16 ha = __float2bfloat16_rn(pa), hb = __float2bfloat16_rn(pb);
+        hi[f] = (unsigned)__bfloat16_as_ushort(ha) | ((unsigned)__bfloat16_as_ushort(hb) << 16);
+        lo[f] = pack_bf16(pa - __bfloat162float(ha), pb - __bfloat162float(hb));
+      }
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        if (u >= ng) break;
+        unsigned bv[4];
+        ldsm_x4_t(bv, tk + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L + (g0 + u) * 16 +
+                          (lane >> 4) * 8);
+        mma(o[2 * u], hi, bv[0], bv[1]);
+        mma(o[2 * u + 1], hi, bv[2], bv[3]);
+        mma(o[2 * u], lo, bv[0], bv[1]);
+        mma(o[2 * u + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rok[i]) continue;
+    float* a = acc_ws + (long long)rr[i] * r + 2 * tq;
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      if (u >= ng) break;
+      float* c = a + (g0 + u) * 16;
+      *reinterpret_cast<float2*>(c) = make_float2(o[2 * u][2 * i], o[2 * u][2 * i + 1]);
+      *reinterpret_cast<float2*>(c + 8) =
+          make_float2(o[2 * u + 1][2 * i], o[2 * u + 1][2 * i + 1]);
+    }
+    if (warp == 0 && tq == 0) ml_ws[rr[i]] = make_float2(m[i], l[i]);
+  }
+}
+
+template <int NG>
+cudaError_t launch(const float* q, const bf16* ckv, const bf16* kpe, const int* cpos,
+                   const int* table, const int* pos0, float* ws, float* out, int B, int T_,
+                   int H, int r, int dr, int ps, int P, float scale, int window,
+                   cudaStream_t stream) {
+  const int R = T_ * H, S = P * ps;
+  const int chunk = split::chunk_len(B, 1, R, S);
+  const int nch = (S + chunk - 1) / chunk;
+  const size_t smem = smem_bytes(r + dr);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidConfiguration;
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(paged_attention_mla_split_kernel<NG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  const dim3 grid(B, (R + kRows - 1) / kRows, nch);
+  paged_attention_mla_split_kernel<NG><<<grid, kThreads, smem, stream>>>(
+      q, ckv, kpe, cpos, table, pos0, ws, T_, H, r, dr, ps, P, chunk, nch, scale, window);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long rows = (long long)B * R;
+  split::paged_attention_combine_kernel<2 * NG, float>
+      <<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(ws, out, B, T_, 1, H, nch, r);
+  return cudaGetLastError();
+}
+
+}  // namespace mla_split
 }  // namespace
 
 // Dense form: q (B, T, KV, G, d), k / v pages (NP, ps, KV, d), out like q.
@@ -798,6 +1165,34 @@ extern "C" int paged_attention_split(const void* q, const void* k, const void* v
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PA_SPLIT
+}
+
+// MLA form, fp32 q over bf16 pages with r % 16 == 0, dr % 16 == 0, r <= 512
+// and dr <= 512: keys split over chunks (namespace mla_split). q (B, T, 1,
+// H, r + dr), ckv pages (NP, ps, 1, r), kpe pages (NP, ps, 1, dr), out (B,
+// T, 1, H, r) fp32; ws: (B * chunks * T*H * (r + 2)) fp32 with chunks =
+// ceil(P*ps / chunk), chunk = paged_attention_split_chunk(B, 1, T*H, P*ps).
+extern "C" int paged_attention_mla_split(const void* q, const void* ckv, const void* kpe,
+                                         const void* cpos, const void* table, const void* pos0,
+                                         void* ws, void* out, int B, int T, int H, int r, int dr,
+                                         int NP, int ps, int P, float scale, int window,
+                                         void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return 0;
+  if (NP <= 0 || ps <= 0 || P <= 0 || r <= 0 || dr <= 0 || r % 16 || dr % 16 ||
+      r > mla_split::kMaxWidth || dr > mla_split::kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (r / 16 + mla_split::kWarps - 1) / mla_split::kWarps;  // a warp's
+#define PA_MLA(NG)                                                                          \
+  return (int)mla_split::launch<NG>(                                                        \
+      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(ckv),                 \
+      static_cast<const __nv_bfloat16*>(kpe), static_cast<const int*>(cpos),                \
+      static_cast<const int*>(table), static_cast<const int*>(pos0), static_cast<float*>(ws), \
+      static_cast<float*>(out), B, T, H, r, dr, ps, P, scale, window,                       \
+      static_cast<cudaStream_t>(stream))
+  if (groups <= 2) PA_MLA(2);
+  if (groups <= 4) PA_MLA(4);
+  PA_MLA(8);
+#undef PA_MLA
 }
 
 // The key chunk length paged_attention_split uses for B slots, KV kv heads,

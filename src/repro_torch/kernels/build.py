@@ -37,8 +37,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     'embed_gather': {
-        # table, ids, out, n, vocab, row_bytes, stream
-        'embed_gather': (_P, _P, _P, _I, _I, _L, _P)},
+        # table, ids, out, n, vocab, row_bytes, NaN word, stream
+        'embed_gather': (_P, _P, _P, _I, _I, _L, _I, _P)},
     'gather_rope': {
         # table, ids, pos, inv_freq, out, n, vocab, width, dtype_code,
         # seg_off[4], seg_heads[4], seg_hd[4], seg_inv_off[4], n_segs, stream
@@ -64,7 +64,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # ps, P, scale, window, stream (dense form, bf16, keys in chunks)
         'paged_attention_split': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _I, _P),
-        # B, KV, rows T*G, keys P*ps -> key chunk length of the split form
+        # q, ckv, kpe, cpos, table, pos0, workspace, out, B, T, H, r, dr,
+        # NP, ps, P, scale, window, stream (MLA form, fp32 q over bf16
+        # pages, keys in chunks)
+        'paged_attention_mla_split': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        # B, KV, rows T*G, keys P*ps -> key chunk length of the split forms
         'paged_attention_split_chunk': (_I, _I, _I, _I)},
     'fused_page_write': {
         # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,

@@ -6,6 +6,8 @@ Port of ``repro/kernels/gather_rope.py::gather_rope`` (Pallas). The CUDA
 kernel is ``repro_torch/csrc/gather_rope.cu``; it rotates by the inverse
 frequencies of :func:`repro_torch.models.layers.rope_freqs`, the same fp32
 vector the plain version uses. No 128-lane padding of the row width.
+Ids follow ``jnp.take``, as the unfused table read does; the JAX Pallas
+kernel clamps out-of-range ids instead (ROADMAP C2).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import dtype_code, on_cpu, require
-from repro_torch.models.layers import rope_freqs
+from repro_torch.models.layers import rope_freqs, take_rows
 
 Segs = Tuple[Tuple[int, int, int], ...]
 # segments per launch (csrc kMaxSegs): GQA rows have 2 (q, k); MLA rows one
@@ -39,8 +41,10 @@ def gather_rope_plain(table: torch.Tensor, ids: torch.Tensor,
                       positions: torch.Tensor, *, segs,
                       theta: float) -> torch.Tensor:
     """table (V, W), ids (N,), positions (N,) -> (N, W); the plain version
-    (mirrors the JAX oracle ``ref.gather_rope_ref``)."""
-    rows = table[ids.long()]
+    (mirrors the JAX oracle ``ref.gather_rope_ref``). Rows are read by
+    :func:`~repro_torch.models.layers.take_rows` (``jnp.take``): an id in
+    ``[-V, 0)`` wraps, an id outside ``[-V, V)`` gives a row of NaN."""
+    rows = take_rows(table, ids)
     N = rows.shape[0]
     out = rows.clone()
     for off, heads, hd in _check_segs(segs, table.shape[1]):

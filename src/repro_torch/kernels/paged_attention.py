@@ -14,14 +14,22 @@ chosen by dtype and head width alone (never by a failure):
   ``cp.async``), each writing its fp32 partial softmax (m, l, acc) to a
   workspace; a second launch combines the chunks in order. One call is two
   device kernels and counts as one launch.
-  :func:`paged_attention_chunked_plain` mirrors that arithmetic in fp32.
-- every other dense case (fp32 pages, mixed dtypes, other widths) and the
-  MLA and int8 forms take the template kernel: one block per (slot, kv
-  head, tile of the T·G query rows) walks the slot's pages through the
-  table with an fp32 online softmax, so any chunk length and group size
-  fit one launch. The MLA and int8 forms are their own wrappers,
-  :func:`paged_attention_mla` and :func:`paged_attention_quant`, each with
-  its own launch count.
+  :func:`paged_attention_chunked_plain` mirrors that arithmetic in fp32
+  (both designs).
+- the MLA form with fp32 q over bf16 latent pages at ``r % 16 == 0``,
+  ``dr % 16 == 0``, ``r, dr <= 512`` (what the deepseek engine runs at
+  full width; :func:`mla_split_form`) takes the same split on its own
+  kernel: one block per (slot, tile of 16 query rows, chunk), the scores
+  on the tensor cores with q as bf16 hi + lo, the r value columns split
+  over the block's warps, then the same combine (two device kernels,
+  counted as one launch).
+- every other dense case (fp32 pages, mixed dtypes, other widths), the
+  other MLA cases (fp32 pages, bf16 q) and the int8 form take the
+  template kernel: one block per (slot, kv head, tile of the T·G query
+  rows) walks the slot's pages through the table with an fp32 online
+  softmax, so any chunk length and group size fit one launch. The MLA and
+  int8 forms are their own wrappers, :func:`paged_attention_mla` and
+  :func:`paged_attention_quant`, each with its own launch count.
 
 Contract (as the JAX kernel): q (B, T, KV, G, dq) post-RoPE queries, lane t
 at position ``pos0 + t``; k/v pages (NP, ps, KV, d); stored positions
@@ -70,6 +78,21 @@ def split_form(q: torch.Tensor, k_pages: torch.Tensor,
     d = q.shape[-1]
     return (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16
             and d % 16 == 0 and d <= 128)
+
+
+MLA_SPLIT_MAX = 512                     # r and dr of the MLA split kernel
+
+
+def mla_split_form(q: torch.Tensor, ckv_pages: torch.Tensor,
+                   kpe_pages: torch.Tensor) -> bool:
+    """Whether an MLA-form call on the card takes the split kernel: fp32 q
+    over bf16 ckv and kpe pages, ``r`` and ``dr`` multiples of 16 and at
+    most 512."""
+    r, dr = ckv_pages.shape[-1], kpe_pages.shape[-1]
+    return (q.dtype == torch.float32
+            and ckv_pages.dtype == kpe_pages.dtype == torch.bfloat16
+            and r % 16 == 0 and dr % 16 == 0
+            and r <= MLA_SPLIT_MAX and dr <= MLA_SPLIT_MAX)
 
 
 def page_validity(cpos: torch.Tensor, pos_t: torch.Tensor,
@@ -130,20 +153,23 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                                  v_pages: torch.Tensor,
+                                  v_pages: Optional[torch.Tensor],
                                   cpos_pages: torch.Tensor,
                                   table: torch.Tensor, pos0: torch.Tensor, *,
                                   scale: float, window: int = 0,
-                                  chunk: int) -> torch.Tensor:
-    """The split kernel's arithmetic, in fp32, for the dense form (no path
-    runs it; the tests hold it against :func:`paged_attention_plain` and the
-    JAX oracle). The slot's virtual cache is cut at multiples of ``chunk``
-    keys; per chunk and query row the partial ``m`` (max of the usable
-    scores, ``NEG_INF`` if none), ``l = sum exp(s - m)`` and ``acc = sum
-    exp(s - m) v``; then, over the chunks with ``l > 0``, ``m* = max m``,
-    ``l* = sum l e^(m - m*)`` and ``out = sum acc e^(m - m*) / max(l*,
-    1e-30)``, in q's dtype."""
-    B, T, KV, G, d = q.shape
+                                  chunk: int,
+                                  k2_pages: Optional[torch.Tensor] = None,
+                                  mla_split: int = 0) -> torch.Tensor:
+    """The split kernels' arithmetic, in fp32, for the dense form and (with
+    ``mla_split = r`` and ``k2_pages``, as :func:`paged_attention_plain`)
+    the MLA form (no path runs it; the tests hold it against
+    :func:`paged_attention_plain` and the JAX oracle). The slot's virtual
+    cache is cut at multiples of ``chunk`` keys; per chunk and query row the
+    partial ``m`` (max of the usable scores, ``NEG_INF`` if none), ``l = sum
+    exp(s - m)`` and ``acc = sum exp(s - m) v``; then, over the chunks with
+    ``l > 0``, ``m* = max m``, ``l* = sum l e^(m - m*)`` and ``out = sum acc
+    e^(m - m*) / max(l*, 1e-30)``, in q's dtype."""
+    B, T, KV, G, _ = q.shape
     P, ps = table.shape[1], k_pages.shape[1]
     S = P * ps
     nch = -(-S // chunk)
@@ -156,11 +182,19 @@ def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
     cp = virt(cpos_pages, -1)
     kf = virt(k_pages, 0).float()
-    vf = virt(v_pages, 0).float().view(B, nch, chunk, KV, d)
+    qf = q.float()
+    if mla_split:             # scores [q_abs | q_pe]·[ckv | kpe], values ckv
+        s = torch.einsum('btkgd,bskd->bkgts', qf[..., :mla_split], kf) \
+            + torch.einsum('btkgd,bskd->bkgts', qf[..., mla_split:],
+                           virt(k2_pages, 0).float())
+        vf = kf
+    else:
+        s = torch.einsum('btkgd,bskd->bkgts', qf, kf)
+        vf = virt(v_pages, 0).float()
+    vf = vf.view((B, nch, chunk) + tuple(vf.shape[2:]))
     pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
     valid = page_validity(cp, pos_t, window).view(B, 1, 1, T, nch, chunk)
-    s = torch.einsum('btkgd,bskd->bkgts', q.float(), kf) * scale
-    s = s.view(B, KV, G, T, nch, chunk).masked_fill(~valid, NEG_INF)
+    s = (s * scale).view(B, KV, G, T, nch, chunk).masked_fill(~valid, NEG_INF)
     m = s.amax(-1)                                       # (B,KV,G,T,nch)
     zero = torch.zeros((), device=q.device)
     p = torch.where(valid, torch.exp(s - m[..., None]), zero)
@@ -170,7 +204,7 @@ def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
     m_star = torch.where(live, m, NEG_INF).amax(-1, keepdim=True)
     w = torch.where(live, torch.exp(m - m_star), zero)
     o = (acc * w[..., None]).sum(-2) \
-        / (l * w).sum(-1).clamp_min(1e-30)[..., None]       # (B,KV,G,T,d)
+        / (l * w).sum(-1).clamp_min(1e-30)[..., None]       # (B,KV,G,T,dv)
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
@@ -283,9 +317,12 @@ def paged_attention_mla(q: torch.Tensor, ckv_pages: torch.Tensor,
     """The MLA form: q (B, T, 1, H, r + dr) rows ``[q_abs | q_pe]``, ckv
     pages (NP, ps, 1, r), kpe pages (NP, ps, 1, dr) -> (B, T, 1, H, r) in
     q's dtype. CPU tensors take :func:`paged_attention_plain` with
-    ``mla_split = r``; CUDA tensors launch the MLA kernel (q in float32 or
-    bfloat16; ckv and kpe pages share one of those dtypes). Counts
-    launches in ``paged_attention_mla.launches``."""
+    ``mla_split = r``; CUDA tensors launch an MLA kernel (q in float32 or
+    bfloat16; ckv and kpe pages share one of those dtypes): the split
+    kernel and its combine where :func:`mla_split_form` holds (fp32 q over
+    bf16 pages; q and pages 16-byte aligned), else the template kernel.
+    Counts calls in ``paged_attention_mla.launches``, one a call whichever
+    kernel runs."""
     name = 'paged_attention_mla'
     r = ckv_pages.shape[-1]
     if on_cpu(name, q, ckv_pages, kpe_pages, cpos_pages, table, pos0):
@@ -310,15 +347,31 @@ def paged_attention_mla(q: torch.Tensor, ckv_pages: torch.Tensor,
                       cpos_pages=cpos_pages, table=table, pos0=pos0)
     codes = dtype_code(name, q), dtype_code(name, ckv_pages)
     lib = build.load('paged_attention')
-    require(lib.paged_attention_smem(T * H, dq, r, FORM_MLA) > 0, name,
-            f'a tile of query rows of width {dq} exceeds one block\'s shared '
-            'memory')
+    P = table.shape[1]
     out = torch.empty((B, T, 1, H, r), dtype=q.dtype, device=q.device)
-    build.check(lib.paged_attention_mla(
-        q.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
-        cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
-        out.data_ptr(), B, T, H, r, dr, NP, ps, table.shape[1], float(scale),
-        int(window), *codes, build.stream_of(q)), name)
+    if mla_split_form(q, ckv_pages, kpe_pages):
+        require(all(t.data_ptr() % 16 == 0 for t in (q, ckv_pages,
+                                                       kpe_pages)),
+                name, 'fp32 q and bf16 ckv / kpe pages must be 16-byte '
+                'aligned')
+        R, S = T * H, P * ps
+        nch = -(-S // lib.paged_attention_split_chunk(B, 1, R, S))
+        ws = torch.empty(B * nch * R * (r + 2), dtype=torch.float32,
+                         device=q.device)
+        build.check(lib.paged_attention_mla_split(
+            q.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), B, T, H, r, dr, NP, ps, P,
+            float(scale), int(window), build.stream_of(q)), name)
+    else:
+        require(lib.paged_attention_smem(T * H, dq, r, FORM_MLA) > 0, name,
+                f'a tile of query rows of width {dq} exceeds one block\'s '
+                'shared memory')
+        build.check(lib.paged_attention_mla(
+            q.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            out.data_ptr(), B, T, H, r, dr, NP, ps, P, float(scale),
+            int(window), *codes, build.stream_of(q)), name)
     paged_attention_mla.launches += 1
     return out
 

@@ -80,8 +80,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ================================================================= embedding
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with ``jnp.take``'s default semantics: ids in
+    ``[-V, 0)`` read row ``id + V``, ids outside ``[-V, V)`` give a row of
+    NaN in the table's dtype. Indexes only in range, so no id can fault on
+    the card."""
+    V = table.shape[0]
+    i = ids.long()
+    ok = (i >= -V) & (i < V)
+    rows = table[torch.where(i < 0, i + V, i).clamp(0, V - 1)]
+    nan = torch.full((), float('nan'), dtype=table.dtype, device=table.device)
+    return torch.where(ok[..., None], rows, nan)
+
+
 def embed_lookup(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params['table'][tokens.long()]
+    return take_rows(params['table'], tokens)
 
 
 # ================================================================ activations

@@ -67,3 +67,51 @@ def cow_retaken_run(device, backend, kv_quant):
         return ok
     eng._admit_paged = spy
     return _serve(eng, prompts), _serve(engine(), prompts), seen
+
+
+def oov_prompts(vocab: int, seed: int = 0):
+    """The out-of-vocabulary case of ROADMAP C1: a 7-token prompt with the
+    id ``vocab + 5`` at index 3 (508 for V 503), its clean twin, the twin
+    with id -1 at index 2 (row V - 1, as ``jnp.take`` reads it) and another
+    clean prompt."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(3, vocab, 7).astype(np.int32)
+    bad, neg = base.copy(), base.copy()
+    bad[3] = vocab + 5
+    neg[2] = -1
+    return [bad, base, neg, rng.integers(3, vocab, 6).astype(np.int32)]
+
+
+def serve_outcomes(eng, req_cls, prompts, new_tokens=4):
+    """(status name, error, greedy tokens) of each prompt served by one
+    ``run()``; ``req_cls`` is the port's or the JAX engine's request."""
+    reqs = [req_cls(uid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [(r.status.name, r.error, list(r.generated)) for r in reqs]
+
+
+def clean_after_failed(engine, vocab):
+    """One slot: the out-of-vocabulary prompt, then a clean one in the slot
+    (and, paged, on the pages) it left. ``engine()`` makes a fresh one-slot
+    engine. -> (both outcomes, the clean prompt's outcome on a fresh
+    engine, pages the failed request held, pages the clean one took)."""
+    prompts = oov_prompts(vocab)
+    bad, clean = prompts[0], prompts[3]
+    eng = engine()
+    taken = []
+    if eng.paged:
+        alloc = eng.kv.alloc
+
+        def spy(n):               # before the failure: the failed one's
+            got = alloc(n)
+            taken.append((eng.n_failed, got or []))
+            return got
+        eng.kv.alloc = spy
+    after = serve_outcomes(eng, Request, [bad, clean])
+    fresh = serve_outcomes(engine(), Request, [clean])
+    pages = [{p for failed, got in taken if failed == k for p in got}
+             for k in (0, 1)]
+    return after, fresh, pages

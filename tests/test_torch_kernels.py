@@ -48,7 +48,8 @@ from repro_torch.kernels.rmsnorm_qkv import (rmsnorm_matmul,
                                              rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attn_backend import KERNEL_TOL
 
-from _torch_scenarios import cow_retaken_run
+from _torch_scenarios import (clean_after_failed, cow_retaken_run,
+                              oov_prompts, serve_outcomes)
 
 
 @pytest.fixture(scope='module')
@@ -402,6 +403,70 @@ def test_embed_gather_kernel_bitwise(cuda, V, W, N, dtype):
     torch.cuda.synchronize()
     assert embed_gather.launches == n0 + 1
     assert torch.equal(got, embed_gather_plain(tab, ids))
+
+
+@pytest.mark.cuda
+def test_gather_kernels_ids_out_of_range(cuda):
+    """ids -1, -V, -V - 1, V, V + 7 (and int32's extremes) among valid ones,
+    fp32 and bf16: ``embed_gather`` bitwise its plain version
+    (``jnp.take``: wrapped rows, NaN rows), ``gather_rope`` within its
+    tolerance with NaN where the plain version has NaN; no device-side
+    assert."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    V, W = 503, 320
+    ids = torch.tensor([5, -1, -V, -V - 1, V, V + 7, 0, V - 1, 2 ** 31 - 1,
+                        -2 ** 31], dtype=torch.int32, device=cuda)
+    pos = torch.arange(len(ids), dtype=torch.int32, device=cuda) * 37
+    bad = torch.tensor([0, 0, 0, 1, 1, 1, 0, 0, 1, 1], dtype=torch.bool,
+                       device=cuda)
+    kw = dict(segs=((64, 4, 32),), theta=1e4)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        tab = torch.randn((V, W), generator=gen, device=cuda).to(dtype)
+        got, want = embed_gather(tab, ids), embed_gather_plain(tab, ids)
+        rope = gather_rope(tab, ids, pos, **kw)
+        rope_want = gather_rope_plain(tab, ids, pos, **kw)
+        torch.cuda.synchronize()
+        for g, w in ((got, want), (rope, rope_want)):
+            assert torch.equal(g.isnan(), bad[:, None].expand_as(g))
+            assert torch.equal(w.isnan(), bad[:, None].expand_as(w))
+        assert torch.equal(got[~bad], want[~bad])
+        assert torch.equal(got[1], tab[V - 1]) and torch.equal(got[2], tab[0])
+        torch.testing.assert_close(rope[~bad].float(),
+                                   rope_want[~bad].float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+def test_out_of_vocab_fails_only_its_request_on_card(cuda):
+    """The twin of ``tests/test_torch_vocab.py``'s engine tests on the card
+    (fp32 smoke weights, the table's fused read, the kernel backend; dense
+    mistral-7b and paged glm4-9b): the out-of-vocabulary request fails
+    with ``nonfinite_logits``, the others (an id of -1 among them) finish;
+    with one slot a clean request after the failed one gets a fresh
+    engine's tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+    for arch, paged in (('mistral_7b', False), ('glm4_9b', True)):
+        model = Model(get_smoke_config(arch))
+        params = model.init(0, device=cuda, dtype=torch.float32)
+        V = model.cfg.vocab_size
+        kw = dict(max_seq=32, chunk_size=4,
+                  precomputed=model.build_table(params),
+                  fused_gather_rope=True, attn_backend='cuda', device=cuda)
+        if paged:
+            kw.update(prefix_cache=True, page_size=4)
+        got = serve_outcomes(ServingEngine(model, params, max_slots=2, **kw),
+                             Request, oov_prompts(V))
+        assert [g[:2] for g in got] == [('FAILED', 'nonfinite_logits')] + \
+            [('FINISHED', None)] * 3, arch
+        after, fresh, pages = clean_after_failed(
+            lambda: ServingEngine(model, params, max_slots=1,
+                                  num_pages=9 if paged else None, **kw), V)
+        assert after[0][:2] == ('FAILED', 'nonfinite_logits')
+        assert after[1] == fresh[0], arch
+        if paged:
+            assert pages[0] & pages[1], pages
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The split design of the dense bf16 ``paged_attention`` and the bf16 tiles
-of ``flash_attention``.
+"""The split design of the dense bf16 ``paged_attention``, of its MLA form
+over bf16 latent pages, and the bf16 tiles of ``flash_attention``.
 
 On the CPU: :func:`paged_attention_chunked_plain`, the split kernel's
 arithmetic in fp32 (chunks of a fixed number of keys, a partial softmax per
@@ -7,16 +7,23 @@ chunk, the partials combined in chunk order), is held against
 ``paged_attention_plain`` and JAX's ``ref.paged_attention_ref`` within
 ``KERNEL_TOL`` (JAX's ``PALLAS_TOL``) at chunk lengths 1, 4 and 128: a
 windowed ring that wrapped, page size 1, chunks without a usable key, and
-rows without any.
+rows without any. Its MLA form (``mla_split``) is held against
+``paged_attention_plain`` and JAX's ``paged_attention(mla_split=...)`` in
+interpret mode at T 1 and 16, page sizes 1, 8 and 16, chunks of 4 and 64.
 
 Tests marked ``cuda`` run on a card and skip without one: the split kernel
 against the plain version in bf16 at d 16-128, G 4 and 16, T 1, 5, 16;
 row independence (row t of a 16-token launch is bitwise a one-token launch
 at ``pos0 + t``); ``flash_attention``'s 128-row bf16 tiles across a ragged
-S and at G 64. They import nothing of JAX:
+S and at G 64; the MLA split kernel against the plain version (fp32 q
+over bf16 pages at deepseek-v2-lite-16b's widths and two narrower ones,
+page sizes 1, 8, 16) and its row independence. They import nothing of
+JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_split.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +31,8 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (
-    paged_attention, paged_attention_chunked_plain, paged_attention_plain,
-    split_form)
+    mla_split_form, paged_attention, paged_attention_chunked_plain,
+    paged_attention_mla, paged_attention_plain, split_form)
 from repro_torch.models.attn_backend import KERNEL_TOL
 
 from test_torch_kernels import _assert_flash_close, _flash_inputs, _paged_case
@@ -39,6 +46,14 @@ def jref():
     jnp = pytest.importorskip('jax.numpy')
     from repro.kernels import ref
     return jnp, ref
+
+
+@pytest.fixture(scope='module')
+def jpa():
+    """JAX's Pallas ``paged_attention`` (interpret mode on the CPU)."""
+    jnp = pytest.importorskip('jax.numpy')
+    from repro.kernels import paged_attention as PA
+    return jnp, PA
 
 
 @pytest.fixture
@@ -120,6 +135,92 @@ def test_split_form_by_dtype_and_width():
     assert not split_form(t(128), t(128, f), t(128, f))
 
 
+def _mla_case(seed, B, T, H, r, dr, ps, lengths):
+    """MLA latent pages (ckv, kpe as bf16) through a scattered table: slot
+    b holds positions [0, lengths[b]), unallocated blocks map to the null
+    page; fp32 queries [q_abs | q_pe]. The last slot's positions are moved
+    up by 8 and its queries start at position 0, so its rows t < 8 have no
+    usable key."""
+    rng = np.random.default_rng(seed)
+    P = -(-max(max(lengths), 1) // ps) + 1
+    NP = 1 + B * P
+    table = (rng.permutation(NP - 1)[:B * P] + 1).reshape(B, P) \
+        .astype(np.int32)
+    cpos = np.full((NP, ps), -1, np.int32)
+    for b, n in enumerate(lengths):
+        table[b, -(-n // ps):] = 0
+        for p in range(n):
+            cpos[table[b, p // ps], p % ps] = p
+    ckv, kpe = (torch.from_numpy(rng.standard_normal((NP, ps, 1, w))
+                                 .astype(np.float32)).bfloat16()
+                for w in (r, dr))
+    ckv[0], kpe[0] = 0, 0
+    q = torch.from_numpy(rng.standard_normal((B, T, 1, H, r + dr))
+                         .astype(np.float32))
+    pos0 = np.array([max(n - T, 0) for n in lengths], np.int32)
+    late = np.unique(table[-1][table[-1] > 0])
+    cpos[late] = np.where(cpos[late] >= 0, cpos[late] + 8, -1)
+    pos0[-1] = 0
+    return q, ckv, kpe, torch.from_numpy(cpos), torch.from_numpy(table), \
+        torch.from_numpy(pos0)
+
+
+def _assert_late_rows(got, T):
+    """The last slot of ``_mla_case``: zeros where no key is usable."""
+    assert not got[-1, :min(T, 8)].any()
+    assert T <= 8 or got[-1, 8:].abs().sum(-1).gt(0).all()
+
+
+@pytest.mark.parametrize('T', [1, 16])
+def test_mla_chunked_plain_matches_plain_and_jax(jpa, T):
+    """The MLA split's arithmetic at page sizes 1, 8 and 16 and chunks of 4
+    and 64 keys: two slots mid-page, an empty slot (zeros) and a slot whose
+    first rows have no usable key (zeros), fp32 queries over bf16 latent
+    pages. (One case per T, the page sizes and
+    chunks inside: ROADMAP C4 keeps the suite under 888 collected tests.)"""
+    jnp, PA = jpa
+    B, H, r, dr = 4, 4, 32, 16
+    kw = dict(scale=(16 + dr) ** -0.5, window=0)
+
+    def j(t):
+        return jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else t.numpy().dtype)
+    for ps in (1, 8, 16):
+        q, ckv, kpe, cpos, table, pos0 = _mla_case(T + ps, B, T, H, r, dr,
+                                                   ps, [45, 20, 0, 20])
+        want = np.asarray(PA.paged_attention(
+            j(q), j(ckv), None, j(cpos), j(table), j(pos0), k2_pages=j(kpe),
+            mla_split=r, interpret=True, **kw))
+        args = (q, ckv, None, cpos, table, pos0)
+        plain = paged_attention_plain(*args, k2_pages=kpe, mla_split=r, **kw)
+        for chunk in (4, 64):
+            got = paged_attention_chunked_plain(*args, k2_pages=kpe,
+                                                mla_split=r, chunk=chunk,
+                                                **kw)
+            assert got.dtype == torch.float32 \
+                and got.shape == (B, T, 1, H, r)
+            np.testing.assert_allclose(got.numpy(), plain.numpy(),
+                                       **KERNEL_TOL)
+            np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+            assert not got[2].any(), (ps, chunk)
+            _assert_late_rows(got, T)
+
+
+def test_mla_split_form_by_dtype_and_width():
+    """fp32 q over bf16 latent pages at r, dr % 16 == 0 and <= 512 take the
+    split kernel; fp32 pages (the smoke configs'), bf16 q and other widths
+    keep the template."""
+    def t(w, dtype=torch.bfloat16):
+        return torch.zeros((1, 1, 1, 1, w), dtype=dtype)
+    f = torch.float32
+    for r, dr in ((512, 64), (32, 16), (48, 16), (512, 512)):
+        assert mla_split_form(t(r + dr, f), t(r), t(dr))
+    for r, dr in ((512, 8), (520, 64), (24, 16), (528, 64)):
+        assert not mla_split_form(t(r + dr, f), t(r), t(dr))
+    assert not mla_split_form(t(576, f), t(512, f), t(64, f))
+    assert not mla_split_form(t(576), t(512), t(64))
+
+
 # ------------------------------------------------------ on the card
 def _scattered(cuda, seed, B, T, KV, G, d, Sc, ps, lengths):
     """A paged case (``_paged_case``) with its pages permuted, so the table
@@ -187,6 +288,57 @@ def test_paged_split_row_independence(cuda, G, window, ps):
         one = paged_attention(q[:, t:t + 1].contiguous(), k, v, cpos, table,
                               pos0 + t, **kw)
         assert torch.equal(one, full[:, t:t + 1]), t
+
+
+MLA_WIDTHS = [(16, 512, 64),     # deepseek-v2-lite-16b: 8 value groups a warp
+              (4, 128, 32),      # 2 groups a warp
+              (3, 48, 16)]       # 3 groups over 4 warps; tiles across tokens
+
+
+def _mla_cuda(cuda, seed, T, H, r, dr, ps, lengths):
+    return [a.to(cuda) for a in _mla_case(seed, len(lengths), T, H, r, dr,
+                                          ps, lengths)]
+
+
+@pytest.mark.cuda
+def test_mla_split_kernel_matches_plain(cuda):
+    """The MLA split kernel against the plain version within KERNEL_TOL at
+    every width of MLA_WIDTHS, T 1 and 16, page sizes 1, 8 and 16: slots
+    of 300 / 271 / 0 / 365 / 120 tokens through a scattered table, one
+    launch counted a call, the empty slot zeros, and zeros for the last
+    slot's rows that have no usable key."""
+    for (H, r, dr), T, ps in itertools.product(MLA_WIDTHS, (1, 16),
+                                               (1, 8, 16)):
+        q, ckv, kpe, cpos, table, pos0 = _mla_cuda(
+            cuda, r + T + ps, T, H, r, dr, ps, [300, 271, 0, 365, 120])
+        assert mla_split_form(q, ckv, kpe)
+        kw = dict(scale=(128 + dr) ** -0.5, k2_pages=kpe, mla_split=r)
+        n0 = paged_attention_mla.launches
+        got = paged_attention(q, ckv, None, cpos, table, pos0, **kw)
+        want = paged_attention_plain(q, ckv, None, cpos, table, pos0, **kw)
+        torch.cuda.synchronize()
+        assert paged_attention_mla.launches == n0 + 1
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        assert not got[2].any(), (r, T, ps)
+        _assert_late_rows(got, T)
+
+
+@pytest.mark.cuda
+def test_mla_split_row_independence(cuda):
+    """Row t of a 16-token MLA launch is bitwise a one-token launch at
+    pos0 + t (the fixed chunk layout), at every width of MLA_WIDTHS and
+    page sizes 16 and 1."""
+    T = 16
+    for (H, r, dr), ps in itertools.product(MLA_WIDTHS, (16, 1)):
+        q, ckv, kpe, cpos, table, pos0 = _mla_cuda(
+            cuda, 5 + ps, T, H, r, dr, ps, [300, 271, 0, 365, 120])
+        kw = dict(scale=(128 + dr) ** -0.5, k2_pages=kpe, mla_split=r)
+        full = paged_attention(q, ckv, None, cpos, table, pos0, **kw)
+        for t in range(T):
+            one = paged_attention(q[:, t:t + 1].contiguous(), ckv, None,
+                                  cpos, table, pos0 + t, **kw)
+            assert torch.equal(one, full[:, t:t + 1]), (r, ps, t)
 
 
 FLASH_TILE_SHAPES = [(1, 300, 64, 1, 128, 0),     # G 64: 2 positions a tile
