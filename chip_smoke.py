@@ -25,7 +25,8 @@ Phases, in order; any failure raises and exits non-zero:
               + t); fused_page_write (bitwise; linear and ring jobs, modes
               0/1/2, page-0 collisions, the int32 position leaf) and
               cow_page_copy (bitwise; rem 0/7/16 over a body leaf flattened
-              over 39 layers) at glm4-9b page shapes; the MLA form of
+              over 39 layers) at glm4-9b page shapes, each timed beside one
+              launch of an empty kernel (the launch floor); the MLA form of
               paged_attention at deepseek-v2-lite-16b shapes (fp32 queries over
               bf16 latent pages on the split kernel, row t of the 16-token
               call bitwise a one-token call, and over fp32 pages on the
@@ -34,7 +35,10 @@ Phases, in order; any failure raises and exits non-zero:
               on its ckv / kpe / pos leaves over 27 layers (bitwise); the int8
               form of paged_attention (paged_attention_quant) at mistral-7b
               shapes on identity-table pages and at glm4-9b shapes through a
-              scattered table, and fused_page_write / cow_page_copy on the five
+              scattered table (bf16 queries on the split kernel, also held to
+              the row-scaled limit, row t of each 16-token call bitwise a
+              one-token call; fp32 queries on the template kernel), and
+              fused_page_write / cow_page_copy on the five
               int8 leaves (k, v int8; k_scale, v_scale bf16 of 4-byte rows;
               pos) at glm4-9b page shapes (bitwise); flash_attention at the
               shapes of the Model.apply phases (mistral-7b S 8192, 32 heads
@@ -142,7 +146,7 @@ from repro_torch.kernels.gather_rope import (gather_rope,  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, mla_split_form,
     page_validity, paged_attention, paged_attention_mla, paged_attention_plain,
-    paged_attention_quant, sharded_paged_attention,
+    paged_attention_quant, quant_split_form, sharded_paged_attention,
     sharded_paged_attention_plain)
 from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
                                      parse_mesh_spec)
@@ -448,23 +452,26 @@ def ring_case(gen, dtype, B, T, KV, G, d, Sc, lengths):
             pos0), (k, v, cpos)
 
 
-def check_paged_bf16(label, got, want, args, kw) -> str:
-    """The bf16 dense form (the split kernel) beyond 2e-2: within the flash
-    check's row-scaled limit (``FLASH_ROW_TOL``; at 300-500 keys a row's RMS
-    is ~0.05-0.07, so 2e-2 alone could pass a dropped key chunk), and, for
-    a chunk of T > 1 queries, row t bitwise a one-token call at pos0 + t.
-    Returns the text of what held."""
+def check_paged_bf16(label, got, want, args, kw,
+                     fn=paged_attention) -> str:
+    """The bf16 dense form (the split kernel) beyond 2e-2, and the int8
+    form with bf16 q (``fn=paged_attention_quant``) beyond its elementwise
+    limit: within the flash check's row-scaled limit (``FLASH_ROW_TOL``; at
+    300-500 keys a row's RMS is ~0.05-0.07, so 2e-2 alone could pass a
+    dropped key chunk), and, for a chunk of T > 1 queries, row t bitwise a
+    one-token call at pos0 + t (``args`` are ``fn``'s, q first and pos0
+    last). Returns the text of what held."""
+    name = fn.__name__
     _, share = flash_error(got, want)
     if share > 1:
-        raise AssertionError(f'paged_attention {label}: uses {share:.3f} of '
+        raise AssertionError(f'{name} {label}: uses {share:.3f} of '
                              f'the row-scaled limit {FLASH_ROW_TOL}')
-    q, k, v, cpos, table, pos0 = args
+    q, pos0 = args[0], args[-1]
     T = q.shape[1]
     for t in range(T if T > 1 else 0):
-        one = paged_attention(q[:, t:t + 1].contiguous(), k, v, cpos, table,
-                              pos0 + t, **kw)
+        one = fn(q[:, t:t + 1].contiguous(), *args[1:-1], pos0 + t, **kw)
         if not torch.equal(one, got[:, t:t + 1]):
-            raise AssertionError(f'paged_attention {label}: row {t} of the '
+            raise AssertionError(f'{name} {label}: row {t} of the '
                                  f'T={T} call is not bitwise the one-token '
                                  'call at pos0 + t')
     return f'{share:.3f} of the row-scaled limit' + (
@@ -712,14 +719,44 @@ def check_cow_page_copy(gen) -> dict:
             ms = time_ms(lambda: PM.cow_page_copy(pools, sdr, fills=fills))
             plain = time_ms(lambda: [PM.cow_page_copy_plain(x, sdr, fill=f)
                                      for x, f in zip(pools, fills)])
+            lib = library_cow_copy_ms(pools, sdr, ps)
             log(f'[kernel] cow_page_copy {str(dtype)[6:]} rem={rem} over '
                 f'{reps} layers (k, v, pos; NP={NP}): bitwise equal; kernel '
-                f'{ms:.4f} ms, plain {plain:.4f} ms, no library call, bound '
-                f'{b_ms:.4f} ms ({by})')
+                f'{ms:.4f} ms, plain {plain:.4f} ms, indexed assignment x3 '
+                f'(no fills) {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
             row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=by, library_ms=None)
+                       bound_by=by, library_ms=lib)
         del cache, k, v, pos
     return row
+
+
+def library_cow_copy_ms(pools, sdr, ps) -> float:
+    """The copies of the jobs' ``rem`` rows as one indexed assignment on
+    each flattened leaf (``flat[dst rows] = flat[src rows]``), without the
+    fills of the other rows — a yardstick only, as
+    ``library_page_write_ms``."""
+    j = sdr.long()
+    r = torch.arange(ps, device='cuda')
+    jw, rw = (r[None] < j[:, 2:3]).nonzero(as_tuple=True)
+    src, dst = j[jw, 0] * ps + rw, j[jw, 1] * ps + rw
+    flat = [x.view((-1,) + tuple(x.shape[2:])) for x in pools]
+
+    def copy():
+        for f in flat:
+            f[dst] = f[src]
+    return time_ms(copy)
+
+
+def launch_floor_ms() -> float:
+    """One launch of an empty kernel (``csrc/launch_floor.cu``, one block
+    of 32 threads), timed as every kernel here: the floor under the
+    smallest kernels' times."""
+    lib = build.load('launch_floor')
+    ms = time_ms(lambda: build.check(lib.launch_floor(
+        torch.cuda.current_stream().cuda_stream), 'launch_floor'))
+    log(f'[kernel] launch floor: an empty kernel (1 block of 32 threads) '
+        f'{ms:.4f} ms a launch')
+    return ms
 
 
 GLM_LENGTHS = (300, 271, 0, 365)          # tokens held by the 4 slots
@@ -1050,20 +1087,23 @@ def int8_leaves(gen, lead, KV, d):
     return k, v, ks, vs
 
 
-def check_quant_case(label, args, kw, view_pos) -> dict:
-    """One int8 attend against its plain version: fp32 queries within
+def quant_plain(args, kw):
+    """paged_attention_plain of a paged_attention_quant call's
+    arguments."""
+    q, k, v, ks, vs, cpos, table, pos0 = args
+    return paged_attention_plain(q, k, v, cpos, table, pos0, **kw,
+                                 k_scale_pages=ks, v_scale_pages=vs)
+
+
+def check_quant(label, got, want, args, kw) -> tuple:
+    """An int8 attend against its plain version: fp32 queries within
     KERNEL_TOL; bf16 queries within KERNEL_TOL on top of one bf16 step of
     the output (2^-7 of its magnitude: two fp32 sums that differ in their
-    last bits may round to neighbouring bf16 values); timed with the
-    bound. ``view_pos`` is the slots' stored positions in dense order."""
-    q, k, v, ks, vs, cpos, table, pos0 = args
-
-    def plain():
-        return paged_attention_plain(q, k, v, cpos, table, pos0, **kw,
-                                     k_scale_pages=ks, v_scale_pages=vs)
-    got = paged_attention_quant(*args, **kw)
-    want = plain()
-    torch.cuda.synchronize()
+    last bits may round to neighbouring bf16 values), then
+    ``check_paged_bf16`` (the row-scaled limit, and a T 16 call's rows
+    bitwise one-token calls); the empty slot zeros. Returns (max |err|,
+    the text of what held)."""
+    q = args[0]
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * want.float().abs()
@@ -1073,29 +1113,44 @@ def check_quant_case(label, args, kw, view_pos) -> dict:
         f'max |err| {err:.3g}'
     assert got.dtype == q.dtype and not got[2].any(), \
         'empty slot must attend to zeros'
+    held = 'KERNEL_TOL'
+    if q.dtype is torch.bfloat16:
+        held += ' + one bf16 step; ' + check_paged_bf16(
+            label, got, want, args, kw, fn=paged_attention_quant)
+    return err, held
+
+
+def check_quant_case(label, args, kw, view_pos) -> dict:
+    """One int8 attend held by ``check_quant``, timed with the bound.
+    ``view_pos`` is the slots' stored positions in dense order."""
+    q, k, pos0 = args[0], args[1], args[-1]
+    got = paged_attention_quant(*args, **kw)
+    want = quant_plain(args, kw)
+    torch.cuda.synchronize()
+    err, held = check_quant(label, got, want, args, kw)
     ms = time_ms(lambda: paged_attention_quant(*args, **kw))
-    plain_ms = time_ms(plain)
-    B, T, KV, G, d = q.shape
+    plain_ms = time_ms(lambda: quant_plain(args, kw))
+    B, _, KV, G, d = q.shape
     # int8 K/V rows plus their two bf16 scales
     b_ms, by = attention_bound(q, k, view_pos, pos0, kw['window'], q.dtype,
                                scale_bytes=2 * 2)
+    form = 'split' if quant_split_form(q, k) else 'template'
     log(f'[kernel] paged_attention_quant q {str(q.dtype)[6:]} {label} B={B} '
-        f'T={T} KV={KV} G={G} d={d}: max |err| {err:.3g} (KERNEL_TOL'
-        f'{" + one bf16 step" if q.dtype is torch.bfloat16 else ""}), '
-        f'empty slot zeros; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no '
-        f'library call reads int8 pages with scales, bound {b_ms:.4f} ms '
-        f'({by})')
+        f'KV={KV} G={G} d={d}: {form} kernel; max |err| {err:.3g} '
+        f'({held}), empty slot zeros; kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, no library call reads int8 pages with scales, '
+        f'bound {b_ms:.4f} ms ({by})')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=None)
 
 
-def check_paged_attention_quant(gen) -> dict:
-    """The int8 form at the shapes of both int8 engine phases: mistral-7b
-    (KV 8, G 4) on dense rings of 512 viewed as identity-table pages, with
-    its 4096 window and a 300 one; glm4-9b (KV 2, G 16) through a
-    scattered table over the engine's pool. T 1 and 16; bf16 queries (the
-    engines') and fp32 ones (the smoke configs')."""
-    row = {}
+def quant_cases(gen, dtypes):
+    """(label, args, kwargs, stored positions in dense order) of the int8
+    form at the shapes of both int8 engine phases: mistral-7b (KV 8, G 4)
+    on dense rings of 512 viewed as identity-table pages, with its 4096
+    window and a 300 one; glm4-9b (KV 2, G 16) through a scattered table
+    over the engine's pool. T 1 and 16, queries of each of ``dtypes`` (the
+    engines' bf16, the smoke configs' fp32)."""
     cfg = get_config('mistral_7b')
     KV, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim
@@ -1109,16 +1164,16 @@ def check_paged_attention_quant(gen) -> dict:
     ps = dense_page_split(Sc)
     pages = [dense_as_pages(x, ps) for x in (k, v, ks, vs, cpos)]
     table = dense_identity_table(B, Sc, ps, 'cuda')
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for T in (1, 16):
             for window in (cfg.window, 300):
                 pos0 = torch.tensor([max(n - T, 0) for n in lengths],
                                     dtype=torch.int32, device='cuda')
                 q = torch.randn((B, T, KV, G, d), generator=gen,
                                 device='cuda').to(dtype)
-                check_quant_case(f'mistral Sc={Sc} window={window}',
-                                 (q, *pages, table, pos0),
-                                 dict(scale=d ** -0.5, window=window), cpos)
+                yield (f'mistral Sc={Sc} window={window} T={T}',
+                       (q, *pages, table, pos0),
+                       dict(scale=d ** -0.5, window=window), cpos)
     del k, v, ks, vs, cpos, pages
     cfg = get_config('glm4_9b')
     KV, d = cfg.num_kv_heads, cfg.head_dim
@@ -1133,19 +1188,27 @@ def check_paged_attention_quant(gen) -> dict:
         p = torch.arange(n, device='cuda')
         cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
     view = paged_view({'pos': cpos}, table, GLM_SEQ)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for T in (1, 16):
             pos0 = torch.tensor([max(n - T, 0) for n in lengths],
                                 dtype=torch.int32, device='cuda')
             q = torch.randn((B, T, KV, G, d), generator=gen,
                             device='cuda').to(dtype)
-            r = check_quant_case(f'glm4 scattered table over NP={NP}',
-                                 (q, k, v, ks, vs, cpos, table, pos0),
-                                 dict(scale=d ** -0.5, window=0),
-                                 view['pos'])
-            if dtype is torch.bfloat16 and T == 1:    # the decode step
-                row = r
-    del k, v, ks, vs, cpos
+            yield (f'glm4 scattered table over NP={NP} T={T}',
+                   (q, k, v, ks, vs, cpos, table, pos0),
+                   dict(scale=d ** -0.5, window=0), view['pos'])
+
+
+def check_paged_attention_quant(gen) -> dict:
+    """Every case of ``quant_cases``, bf16 and fp32 queries, held and timed
+    by ``check_quant_case``. Row: glm4 bf16 T 1 (the decode step)."""
+    row = {}
+    for label, args, kw, view_pos in quant_cases(
+            gen, (torch.bfloat16, torch.float32)):
+        r = check_quant_case(label, args, kw, view_pos)
+        if args[0].dtype is torch.bfloat16 and label.startswith('glm4') \
+                and args[0].shape[1] == 1:
+            row = r
     return row
 
 
@@ -2414,6 +2477,9 @@ def main() -> None:
     rows['paged_attention'] = check_paged_attention_glm4(gen)
     rows['fused_page_write'] = check_fused_page_write(gen)
     rows['cow_page_copy'] = check_cow_page_copy(gen)
+    floor = launch_floor_ms()
+    for name in ('embed_gather', 'fused_page_write', 'cow_page_copy'):
+        rows[name]['launch_floor_ms'] = floor
     rows['paged_attention_mla'] = check_paged_attention_mla(gen)
     check_mla_page_writes(gen)
     rows['paged_attention_quant'] = check_paged_attention_quant(gen)

@@ -1,6 +1,6 @@
-"""Does chip_smoke.py's check of the split bf16 ``paged_attention`` kernels
-(the dense form and the MLA form) catch a faulty kernel, and which chunk
-length should they use?
+"""Does chip_smoke.py's check of the split ``paged_attention`` kernels (the
+dense bf16 form, the MLA form and the int8 form with bf16 queries) catch a
+faulty kernel, and which chunk length should they use?
 
 Builds copies of src/repro_torch/csrc/paged_attention.cu in a temporary
 directory (the checkout's source is not touched):
@@ -13,6 +13,10 @@ directory (the checkout's source is not touched):
 - mutants of the MLA split kernel: a key chunk dropped, q as its bf16
   hi part only (8 bits of q, not 16), and the chunk length chosen from the
   grid;
+- mutants of the int8 split kernel: a key chunk dropped, each key's
+  k_scale read from its neighbour's, v_scale applied to the running sum l
+  as well as to the value mix, and v_scale folded into the widened V rows
+  as bf16 (the product rounded to 8 bits) instead of into p in fp32;
 - the chunk lengths 64, 128 and 256 keys, in sub-tiles (commit groups)
   of 32 or 64 keys, beside the source's own (both forms; the MLA form's
   block does not fit shared memory at 256);
@@ -24,16 +28,20 @@ Runs each build through the ``paged_attention`` wrapper at chip_smoke.py's
 bf16 shapes (mistral-7b T 1 and 16, windows 4096 and 300, on identity-table
 rings; glm4-9b G 16, T 1 and 16, through a scattered table; the MLA form
 at deepseek-v2-lite-16b's widths, fp32 q over bf16 latent pages, T 1 and
-16) and holds it to chip_smoke's checks: for the dense form 2e-2, then
-``check_paged_bf16`` (the row-scaled limit ``FLASH_ROW_TOL`` and row t of
-a T 16 call bitwise a one-token call); for the MLA form ``check_mla``
-(``KERNEL_TOL`` and the same row independence). Prints for each case and
+16; the int8 form with bf16 q at chip_smoke's int8 shapes, mistral-7b T
+1 and 16, windows 4096 and 300, glm4-9b T 1 and 16) and holds it to
+chip_smoke's checks: for the dense form 2e-2, then ``check_paged_bf16``
+(the row-scaled limit ``FLASH_ROW_TOL`` and row t of a T 16 call bitwise
+a one-token call); for the MLA form ``check_mla`` (``KERNEL_TOL`` and the
+same row independence); for the int8 form ``check_quant`` (``KERNEL_TOL``
+plus one bf16 step, then ``check_paged_bf16``). Prints for each case and
 build the largest error, the share of the limit, whether the check rejects
 it and whether the tolerance alone would; and the time of each chunk
 length (CUDA-graph replays) beside ``scaled_dot_product_attention`` at the
 shapes chip_smoke times. Fails unless the source and the other chunk
-lengths pass every case and every mutant fails at least one. Needs one
-CUDA card and nvcc.
+lengths pass every case and every mutant fails at least one (an MLA
+mutant an MLA case, an int8 mutant an int8 case). Needs one CUDA card and
+nvcc.
 
     python3 scripts/paged_mutants.py
 """
@@ -56,7 +64,8 @@ import flash_mutants as fm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    mla_split_form, paged_attention, paged_attention_plain)
+    mla_split_form, paged_attention, paged_attention_plain,
+    paged_attention_quant, quant_split_form)
 from repro_torch.models.attn_backend import KERNEL_TOL  # noqa: E402
 from repro_torch.models.attention import paged_view  # noqa: E402
 
@@ -105,6 +114,35 @@ def split_lengths(chunk: int, sub: int):
                             f'\nconstexpr int kSub = {sub};')
 
 
+SOURCE = (build.CSRC / f'{NAME}.cu').read_text()
+
+
+def edits(*pairs):
+    """Several edits as one (anchor, replacement) for ``compile_all``: the
+    whole source and the source with each pair's first occurrence
+    replaced."""
+    text = SOURCE
+    for old, new in pairs:
+        if old not in text:
+            raise RuntimeError(f'{old!r} is no longer in {NAME}.cu')
+        text = text.replace(old, new, 1)
+    return SOURCE, text
+
+
+# the int8 form: each key's v_scale multiplies its widened V row, rounded
+# to bf16, after the widening
+WIDEN = """      widen_sub<D>(sStK, sStV, sK, sV, s);
+      __syncthreads();  // and widened to bf16
+"""
+FOLD_VS = WIDEN + """      for (int e = tid; e < kSub * D; e += kThreads) {
+        const int jj = s * kSub + e / D;
+        bf16* x = sV + jj * L::kLd + e % D;
+        *x = __float2bfloat16_rn(__bfloat162float(*x) * sVs[jj]);
+      }
+      __syncthreads();
+"""
+P_VS = '        sc[j][e] = Q ? p * tvs[8 * j + 2 * tq + (e & 1)] : p;'
+
 LENGTHS = {f'chunk{c}_sub{u}': c
            for c, u in ((64, 32), (64, 64), (128, 32), (128, 64), (256, 64))}
 SWEEP = {name: split_lengths(c, int(name.split('sub')[1]))
@@ -148,6 +186,20 @@ BUILDS = {
     # MLA: the chunk length chosen from the grid (moves with T)
     'mla_chunk_from_grid': ('  const int chunk = split::chunk_len(B, 1, R, S);',
                             MLA_GRID_CHUNK),
+    # int8: chunk 1 of every slot is treated as holding no key
+    'quant_drop_chunk': ('  if (!__syncthreads_or(live)) {',
+                         '  if (Q && blockIdx.z == 1) live = false;\n'
+                         '  if (!__syncthreads_or(live)) {'),
+    # int8: each key's score scaled by its neighbour's k_scale
+    'quant_ks_neighbour': ('x *= tks[key];', 'x *= tks[key ^ 1];'),
+    # int8: the running sum l takes p * v_scale, not p
+    'quant_vs_in_l': ('        sum[e >> 1] += p;\n        // l sums p',
+                      '        sum[e >> 1] += Q ? p * tvs[8 * j + 2 * tq + '
+                      '(e & 1)] : p;\n        // l sums p'),
+    # int8: v_scale folded into V as bf16 (int8 x bf16 rounded to 8 bits)
+    # instead of into p in fp32
+    'quant_vs_folded_bf16': edits((WIDEN, FOLD_VS),
+                                  (P_VS, '        sc[j][e] = p;')),
     # MLA, a timing probe: each warp computes only a quarter of S (one of
     # the four 8-key n-tiles of a sub-tile). Wrong, so it must fail; its
     # time bounds from below the other design, in which the warps split
@@ -158,7 +210,26 @@ BUILDS = {
 TIMED_PROBES = ('mla_s_quarter',)
 RIGHT = ('none', *SWEEP)
 TIMED = ('mistral T=1 window=4096', 'mistral T=16 window=4096',
-         'glm4 T=1', 'glm4 T=16', 'mla T=1', 'mla T=16')
+         'glm4 T=1', 'glm4 T=16', 'mla T=1', 'mla T=16',
+         'int8 mistral Sc=512 window=4096 T=1',
+         'int8 mistral Sc=512 window=4096 T=16',
+         'int8 glm4 scattered table over NP=1537 T=1',
+         'int8 glm4 scattered table over NP=1537 T=16')
+
+
+def launch(label, args, kw):
+    """The case's wrapper: paged_attention_quant for the int8 cases, else
+    paged_attention."""
+    if label.startswith('int8'):
+        return paged_attention_quant(*args, **kw)
+    return paged_attention(*args, **kw)
+
+
+def plain(label, args, kw):
+    """The plain version of the case's wrapper."""
+    if label.startswith('int8'):
+        return smoke.quant_plain(args, kw)
+    return paged_attention_plain(*args, **kw)
 
 
 def cases(gen) -> list:
@@ -205,32 +276,47 @@ def cases(gen) -> list:
                                    pos0),
                     dict(scale=scale, k2_pages=kpe[:, :, None], mla_split=r),
                     smoke.library_mla_ms(q, view, pos0, r, scale)))
+    for label, args, kw, _ in smoke.quant_cases(gen, (torch.bfloat16,)):
+        assert quant_split_form(args[0], args[1])
+        out.append((f'int8 {label}', args, kw, None))
     return out
 
 
 def check(label, got, want, args, kw) -> None:
     """chip_smoke.py's checks of the case's form, in its order: the dense
-    bf16 form's, or the MLA form's."""
+    bf16 form's, the MLA form's or the int8 form's."""
     if label.startswith('mla'):
         smoke.check_mla(got, want, args, kw)
+        return
+    if label.startswith('int8'):
+        smoke.check_quant(label, got, want, args, kw)
         return
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
     smoke.check_paged_bf16(label, got, want, args, kw)
 
 
 def tol_alone(label, got, want) -> None:
-    """The case's tolerance alone: 2e-2 (dense bf16) or KERNEL_TOL (MLA)."""
+    """The case's tolerance alone: 2e-2 (dense bf16), KERNEL_TOL (MLA) or
+    KERNEL_TOL plus one bf16 step (int8)."""
+    if label.startswith('int8'):
+        _, share = error(label, got, want)
+        assert share <= 1
+        return
     tol = KERNEL_TOL if label.startswith('mla') else dict(atol=TOL, rtol=TOL)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def error(label, got, want) -> tuple:
     """(largest |error|, its share of the case's limit): the row-scaled
-    limit (dense bf16) or KERNEL_TOL (MLA)."""
-    if not label.startswith('mla'):
+    limit (dense bf16), KERNEL_TOL (MLA) or KERNEL_TOL plus one bf16 step
+    (int8, bf16 q)."""
+    if not label.startswith(('mla', 'int8')):
         return smoke.flash_error(got, want)
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     limit = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * want.abs()
+    if label.startswith('int8'):
+        limit = limit + want.abs() * 2.0 ** -7
     return diff.max().item(), (diff / limit).max().item()
 
 
@@ -243,7 +329,7 @@ def main() -> int:
         libs = fm.compile_all(Path(tmp), NAME, BUILDS)
         try:
             todo = cases(gen)
-            wants = [paged_attention_plain(*a, **kw) for _, a, kw, _ in todo]
+            wants = [plain(label, a, kw) for label, a, kw, _ in todo]
             for name, path in libs.items():
                 fm.use(path, NAME)
                 failed = []
@@ -253,7 +339,7 @@ def main() -> int:
                             case=label, build=name,
                             skipped='exceeds shared memory')))
                         continue
-                    got = paged_attention(*args, **kw)
+                    got = launch(label, args, kw)
                     torch.cuda.synchronize()
                     err, share = error(label, got, want)
                     row = dict(case=label, build=name, max_abs_err=err,
@@ -265,14 +351,15 @@ def main() -> int:
                     if (name in RIGHT or name in TIMED_PROBES) \
                             and label in TIMED:
                         row.update(ms=smoke.time_ms(
-                            lambda: paged_attention(*args, **kw)),
+                            lambda: launch(label, args, kw)),
                             sdpa_ms=lib)
                     smoke.log(json.dumps(row))
                     if row['fails_smoke']:
                         failed.append(label)
-                # an MLA mutant must fail an MLA case
-                caught = any(f.startswith('mla') for f in failed) \
-                    if name.startswith('mla') else bool(failed)
+                # an MLA (int8) mutant must fail an MLA (int8) case
+                own = 'mla' if name.startswith('mla') else \
+                    'int8' if name.startswith('quant') else ''
+                caught = any(f.startswith(own) for f in failed)
                 smoke.log(json.dumps({'build': name,
                                       'fails_smoke_at': failed}))
                 ok &= caught == (name not in RIGHT)

@@ -28,16 +28,18 @@
 // the card's ratio of compute to bandwidth. The int8 form reads one byte per
 // K/V element plus two bytes of scale per (token, kv head).
 //
-// Design of the template below (the int8 form, the dense form with fp32
-// pages, mixed dtypes or other widths, and the MLA form other than fp32 q
-// over bf16 pages; the dense form with bf16 q and pages at d % 16 == 0, d <=
-// 128 and the MLA form with fp32 q over bf16 pages at r % 16 == 0, dr % 16
-// == 0, r, dr <= 512 have their own kernels, namespaces split and mla_split
-// further down): the T*G query rows of one (slot, kv head) are split into tiles of
-// at most kRowTile = 64 rows (kRowTileMla = 16 in the MLA form, whose 576-wide
-// query rows and 512-wide accumulators would not fit 64 rows in shared
-// memory), one block per (slot, kv head, row tile), so any chunk length and
-// group size fit and the grid grows with the chunk. Each block keeps its rows
+// Design of the template below (the dense form with fp32 pages, mixed
+// dtypes or other widths, the MLA form other than fp32 q over bf16 pages,
+// and the int8 form other than bf16 q at d % 16 == 0, d <= 128; the dense
+// form with bf16 q and pages at d % 16 == 0, d <= 128, the int8 form with
+// bf16 q at the same widths and the MLA form with fp32 q over bf16 pages at
+// r % 16 == 0, dr % 16 == 0, r, dr <= 512 have their own kernels,
+// namespaces split and mla_split further down): the T*G query rows of one
+// (slot, kv head) are split into tiles of at most kRowTile = 64 rows
+// (kRowTileMla = 16 in the MLA form, whose 576-wide query rows and 512-wide
+// accumulators would not fit 64 rows in shared memory), one block per
+// (slot, kv head, row tile), so any chunk length and group size fit and the
+// grid grows with the chunk. Each block keeps its rows
 // in shared memory and walks the slot's virtual cache in tiles of 32 keys;
 // that loop replaces the TPU's sequential grid axis. Every block reads the
 // slot's keys for its own rows (from L2 after the first). A tile's keys are
@@ -407,10 +409,29 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 // skipped one, and the combine skips both. Inside a processed chunk every
 // sub-tile is processed.
 //
+// The int8 form with bf16 q (d % 16 == 0, d <= 128; the engines' int8
+// attends at full width) runs this kernel with Q = true; only the loads of
+// the pages and two scalings differ:
+// - Loads. The chunk's int8 K and V rows come in by cp.async, 16 bytes (16
+//   values) a copy, into two int8 staging tiles, one commit group per
+//   sub-tile as above; a key with no stored position is zero-filled, not
+//   read. After a sub-tile's wait the block widens its rows to bf16 into
+//   the same padded sK / sV tiles the dense form reads (copy_chunk_int8,
+//   widen_sub: values in [-127, 127] are exact in bf16, so nothing is lost)
+//   and meets at a second barrier. Each key's k_scale and v_scale go to
+//   shared memory as fp32 beside its stored position (0 for a key with no
+//   stored position, not read).
+// - Scores: s = (q·k_j) * ks_j * scale, in that order, in fp32, on the S
+//   fragments (q·k_j from the same bf16 mma.sync products as the dense form).
+// - Values: l takes p_j; the value mix takes p_j * vs_j, in fp32, and only
+//   then splits into the bf16 hi / lo A fragments. Neither scale is folded
+//   into the pages: an int8 value times a bf16 scale needs about 16 bits,
+//   so a fold would round it to bf16.
+// The partials, their workspace and the combine are the dense form's, with
+// the output in bf16. A block takes the dense layout plus 2 x 64 x d bytes
+// of staging and 2 x 64 fp32 scales: 52 KB at d 128, four blocks an SM.
+//
 // The MLA form runs the same split and combine (namespace mla_split below).
-// Written so the int8 form can take the same loader and split: the copy
-// of a sub-tile (copy_chunk) is the only code that touches the pages, and
-// the stored positions (sPos) are where per-key scales would sit.
 // internal linkage: no function-local static is shared between libraries
 namespace {
 namespace split {
@@ -430,14 +451,20 @@ static_assert(kChunk % kSub == 0 && kSubs <= 4, "cp_async_wait_upto takes 0-3");
 // or the SM count, or the bitwise contracts above break.
 int chunk_len(int B, int KV, int R, int S) { return kChunk; }
 
-template <int D>
+// Q: the int8 form, whose scales and int8 staging tiles follow the dense
+// layout
+template <int D, bool Q>
 struct Smem {
   static constexpr int kLd = D + 8;  // bf16 per key row, 16 bytes of padding
   static constexpr int kK = 0;
   static constexpr int kV = kK + kChunk * kLd * 2;
   static constexpr int kPos = kV + kChunk * kLd * 2;
   static constexpr int kRow = kPos + kChunk * 4;
-  static constexpr int kBytes = kRow + kChunk * 4;
+  static constexpr int kKs = kRow + kChunk * 4;          // fp32 k_scale a key
+  static constexpr int kVs = kKs + (Q ? kChunk * 4 : 0);  // fp32 v_scale a key
+  static constexpr int kStK = kVs + (Q ? kChunk * 4 : 0);  // int8 K rows
+  static constexpr int kStV = kStK + (Q ? kChunk * D : 0);  // int8 V rows
+  static constexpr int kBytes = kStV + (Q ? kChunk * D : 0);
 };
 
 // The chunk's K and V rows into shared memory: sub-tile s is commit group s.
@@ -446,32 +473,82 @@ __device__ __forceinline__ void copy_chunk(bf16* sK, bf16* sV, const int* sPos, 
                                             const bf16* __restrict__ k,
                                             const bf16* __restrict__ v, int KV, int h) {
   constexpr int kVec = D / 8;  // 16-byte copies per row
+  constexpr int kLd = Smem<D, false>::kLd;
 #pragma unroll
   for (int s = 0; s < kSubs; ++s) {
     for (int e = threadIdx.x; e < kSub * kVec; e += kThreads) {
       const int jj = s * kSub + e / kVec, c = (e % kVec) * 8;
       const bool ok = sPos[jj] >= 0;
       const long long off = ok ? ((long long)sRow[jj] * KV + h) * D + c : 0;
-      cp_async16(sK + jj * Smem<D>::kLd + c, k + off, ok);
-      cp_async16(sV + jj * Smem<D>::kLd + c, v + off, ok);
+      cp_async16(sK + jj * kLd + c, k + off, ok);
+      cp_async16(sV + jj * kLd + c, v + off, ok);
     }
     cp_async_commit();
   }
 }
 
+// The int8 form: the chunk's int8 K and V rows into the staging tiles (D
+// bytes a row), sub-tile s commit group s, as copy_chunk.
 template <int D>
+__device__ __forceinline__ void copy_chunk_int8(int8_t* stK, int8_t* stV, const int* sPos,
+                                                 const int* sRow, const int8_t* __restrict__ k,
+                                                 const int8_t* __restrict__ v, int KV, int h) {
+  constexpr int kVec = D / 16;  // 16-byte copies per row
+#pragma unroll
+  for (int s = 0; s < kSubs; ++s) {
+    for (int e = threadIdx.x; e < kSub * kVec; e += kThreads) {
+      const int jj = s * kSub + e / kVec, c = (e % kVec) * 16;
+      const bool ok = sPos[jj] >= 0;
+      const long long off = ok ? ((long long)sRow[jj] * KV + h) * D + c : 0;
+      cp_async16(stK + jj * D + c, k + off, ok);
+      cp_async16(stV + jj * D + c, v + off, ok);
+    }
+    cp_async_commit();
+  }
+}
+
+// The int8 form: sub-tile s's staged K and V rows widened to bf16 (exact)
+// into the padded tiles that the products read, 16 values a thread-step.
+template <int D>
+__device__ __forceinline__ void widen_sub(const int8_t* stK, const int8_t* stV, bf16* sK,
+                                          bf16* sV, int s) {
+  constexpr int kVec = D / 16;  // 16-value groups per row
+  constexpr int kLd = Smem<D, true>::kLd;
+  for (int e = threadIdx.x; e < 2 * kSub * kVec; e += kThreads) {
+    const bool is_v = e >= kSub * kVec;
+    const int r = is_v ? e - kSub * kVec : e;
+    const int jj = s * kSub + r / kVec, c = (r % kVec) * 16;
+    const int4 w = *reinterpret_cast<const int4*>((is_v ? stV : stK) + jj * D + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+    unsigned x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = pack_bf16((float)b[2 * u], (float)b[2 * u + 1]);
+    uint4* dst = reinterpret_cast<uint4*>((is_v ? sV : sK) + jj * kLd + c);
+    dst[0] = make_uint4(x[0], x[1], x[2], x[3]);
+    dst[1] = make_uint4(x[4], x[5], x[6], x[7]);
+  }
+}
+
+// Q: the int8 form (k, v int8 pages; kscale, vscale their bf16 scales);
+// else the dense form (k, v bf16 pages; no scales)
+template <int D, bool Q>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const int* __restrict__ cpos,
+paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
+                             const void* __restrict__ v, const bf16* __restrict__ kscale,
+                             const bf16* __restrict__ vscale, const int* __restrict__ cpos,
                              const int* __restrict__ table, const int* __restrict__ pos0,
                              float* __restrict__ ws, int T_, int KV, int G, int ps, int P,
                              int chunk, int nch, float scale, int window) {
-  using L = Smem<D>;
+  using L = Smem<D, Q>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
   int* sPos = reinterpret_cast<int*>(smem + L::kPos);
   int* sRow = reinterpret_cast<int*>(smem + L::kRow);
+  float* sKs = reinterpret_cast<float*>(smem + L::kKs);  // int8 form only
+  float* sVs = reinterpret_cast<float*>(smem + L::kVs);
+  int8_t* sStK = reinterpret_cast<int8_t*>(smem + L::kStK);
+  int8_t* sStV = reinterpret_cast<int8_t*>(smem + L::kStV);
 
   const int bh = blockIdx.x, b = bh / KV, h = bh % KV;
   const int R = T_ * G;
@@ -503,7 +580,21 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     for (int r = rb0 + tid; r < rb1; r += kThreads) ml_ws[r] = make_float2(kNegInf, 0.f);
     return;
   }
-  copy_chunk<D>(sK, sV, sPos, sRow, k, v, KV, h);
+  if constexpr (Q) {
+    copy_chunk_int8<D>(sStK, sStV, sPos, sRow, static_cast<const int8_t*>(k),
+                       static_cast<const int8_t*>(v), KV, h);
+    // while the rows fly: each key's scales, 0 for a key with no stored
+    // position (not read)
+    for (int jj = tid; jj < kChunk; jj += kThreads) {
+      const bool ok = sPos[jj] >= 0;
+      const long long srow = (long long)sRow[jj] * KV + h;
+      sKs[jj] = ok ? __bfloat162float(kscale[srow]) : 0.f;
+      sVs[jj] = ok ? __bfloat162float(vscale[srow]) : 0.f;
+    }
+  } else {
+    copy_chunk<D>(sK, sV, sPos, sRow, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  KV, h);
+  }
 
   // this warp's m16 tile: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1
   const int g = lane >> 2, tq = lane & 3;
@@ -544,10 +635,16 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   for (int s = 0; s < kSubs; ++s) {
     cp_async_wait_upto(kSubs - 1 - s);
     __syncthreads();  // sub-tile s is in shared memory for every warp
+    if constexpr (Q) {
+      widen_sub<D>(sStK, sStV, sK, sV, s);
+      __syncthreads();  // and widened to bf16
+    }
     if (!has_rows) continue;
     const bf16* tk = sK + s * kSub * L::kLd;
     const bf16* tv = sV + s * kSub * L::kLd;
     const int* tp = sPos + s * kSub;
+    const float* tks = sKs + s * kSub;
+    const float* tvs = sVs + s * kSub;
 
     float sc[kSub / 8][4];
 #pragma unroll
@@ -572,10 +669,12 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const bool ok = rok[i] && usable(tp[8 * j + 2 * tq + (e & 1)], qp[i], window);
+        const int i = e >> 1, key = 8 * j + 2 * tq + (e & 1);
+        const bool ok = rok[i] && usable(tp[key], qp[i], window);
         okbits |= (ok ? 1u : 0u) << (4 * j + e);
-        sc[j][e] = ok ? sc[j][e] * scale : kNegInf;
+        float x = sc[j][e];
+        if constexpr (Q) x *= tks[key];  // (q·k)·k_scale, then the scale
+        sc[j][e] = ok ? x * scale : kNegInf;
         mx[i] = fmaxf(mx[i], sc[j][e]);
       }
     }
@@ -593,8 +692,9 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = (okbits >> (4 * j + e)) & 1u ? expf(sc[j][e] - m[e >> 1]) : 0.f;
-        sc[j][e] = p;
         sum[e >> 1] += p;
+        // l sums p; the value mix takes p·v_scale (int8 form)
+        sc[j][e] = Q ? p * tvs[8 * j + 2 * tq + (e & 1)] : p;
       }
     }
 #pragma unroll
@@ -613,7 +713,8 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
     // acc += P V with P = hi + lo, two bf16 A fragments from the S
     // fragments (P to about 16 bits, as fp32 probabilities over bf16 V
-    // give), V by ldmatrix.trans
+    // give; in the int8 form P·v_scale over V widened to bf16), V by
+    // ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < kSub / 16; ++kk) {
       unsigned hi[4], lo[4];
@@ -720,25 +821,27 @@ paged_attention_combine_kernel(const float* __restrict__ ws, TO* __restrict__ ou
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* cpos,
-                   const int* table, const int* pos0, float* ws, void* out, int B, int T_,
-                   int KV, int G, int ps, int P, float scale, int window, cudaStream_t stream) {
+template <int D, bool Q>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* kscale,
+                   const void* vscale, const int* cpos, const int* table, const int* pos0,
+                   float* ws, void* out, int B, int T_, int KV, int G, int ps, int P,
+                   float scale, int window, cudaStream_t stream) {
   const int R = T_ * G, S = P * ps;
   const int chunk = chunk_len(B, KV, R, S);
   const int nch = (S + chunk - 1) / chunk;
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(paged_attention_split_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_attention_split_kernel<D, Q>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Smem<D>::kBytes);
+                                         Smem<D, Q>::kBytes);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
   const dim3 grid(B * KV, (R + kRows - 1) / kRows, nch);
-  paged_attention_split_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      cpos, table, pos0, ws, T_, KV, G, ps, P, chunk, nch, scale, window);
+  paged_attention_split_kernel<D, Q><<<grid, kThreads, Smem<D, Q>::kBytes, stream>>>(
+      static_cast<const bf16*>(q), k, v, static_cast<const bf16*>(kscale),
+      static_cast<const bf16*>(vscale), cpos, table, pos0, ws, T_, KV, G, ps, P, chunk, nch,
+      scale, window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rows = (long long)B * KV * R;
@@ -1134,15 +1237,13 @@ extern "C" int paged_attention_smem(int R, int dq, int dv, int form) {
   return smem > (size_t)kMaxSmem ? 0 : (int)smem;
 }
 
-// Dense form, bf16 q over bf16 pages with d % 16 == 0 and d <= 128: keys
-// split over chunks (namespace split). ws: the workspace of
-// paged_attention_split_chunk's layout, (B*KV * chunks * T*G * (d + 2)) fp32
-// with chunks = ceil(P*ps / chunk).
-extern "C" int paged_attention_split(const void* q, const void* k, const void* v,
-                                     const void* cpos, const void* table, const void* pos0,
-                                     void* ws, void* out, int B, int T, int KV, int G, int d,
-                                     int NP, int ps, int P, float scale, int window,
-                                     void* stream) {
+namespace {
+// the split kernel at head width d (16-128, a multiple of 16); Q: int8 form
+template <bool Q>
+int split_dispatch(const void* q, const void* k, const void* v, const void* kscale,
+                   const void* vscale, const void* cpos, const void* table, const void* pos0,
+                   void* ws, void* out, int B, int T, int KV, int G, int d, int NP, int ps, int P,
+                   float scale, int window, void* stream) {
   if (B <= 0 || KV <= 0 || T <= 0 || G <= 0) return 0;
   if (NP <= 0 || ps <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1150,9 +1251,10 @@ extern "C" int paged_attention_split(const void* q, const void* k, const void* v
   const int* tb = static_cast<const int*>(table);
   const int* p0 = static_cast<const int*>(pos0);
   float* w = static_cast<float*>(ws);
-#define PA_SPLIT(D) \
-  case D:           \
-    return (int)split::launch<D>(q, k, v, cp, tb, p0, w, out, B, T, KV, G, ps, P, scale, window, s)
+#define PA_SPLIT(D)                                                                         \
+  case D:                                                                                   \
+    return (int)split::launch<D, Q>(q, k, v, kscale, vscale, cp, tb, p0, w, out, B, T, KV, G, \
+                                    ps, P, scale, window, s)
   switch (d) {
     PA_SPLIT(16);
     PA_SPLIT(32);
@@ -1165,6 +1267,34 @@ extern "C" int paged_attention_split(const void* q, const void* k, const void* v
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PA_SPLIT
+}
+}  // namespace
+
+// Dense form, bf16 q over bf16 pages with d % 16 == 0 and d <= 128: keys
+// split over chunks (namespace split). ws: the workspace of
+// paged_attention_split_chunk's layout, (B*KV * chunks * T*G * (d + 2)) fp32
+// with chunks = ceil(P*ps / chunk).
+extern "C" int paged_attention_split(const void* q, const void* k, const void* v,
+                                     const void* cpos, const void* table, const void* pos0,
+                                     void* ws, void* out, int B, int T, int KV, int G, int d,
+                                     int NP, int ps, int P, float scale, int window,
+                                     void* stream) {
+  return split_dispatch<false>(q, k, v, nullptr, nullptr, cpos, table, pos0, ws, out, B, T, KV,
+                               G, d, NP, ps, P, scale, window, stream);
+}
+
+// int8 form, bf16 q over int8 k / v pages (NP, ps, KV, d) with bf16 k / v
+// scale pages (NP, ps, KV), d % 16 == 0 and d <= 128: keys split over
+// chunks (namespace split, Q = true); out (B, T, KV, G, d) bf16; ws as
+// paged_attention_split's.
+extern "C" int paged_attention_quant_split(const void* q, const void* k, const void* v,
+                                           const void* k_scale, const void* v_scale,
+                                           const void* cpos, const void* table,
+                                           const void* pos0, void* ws, void* out, int B, int T,
+                                           int KV, int G, int d, int NP, int ps, int P,
+                                           float scale, int window, void* stream) {
+  return split_dispatch<true>(q, k, v, k_scale, v_scale, cpos, table, pos0, ws, out, B, T, KV,
+                              G, d, NP, ps, P, scale, window, stream);
 }
 
 // MLA form, fp32 q over bf16 pages with r % 16 == 0, dr % 16 == 0, r <= 512

@@ -69,6 +69,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # pages, keys in chunks)
         'paged_attention_mla_split': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, k_scale, v_scale, cpos, table, pos0, workspace, out, B,
+        # T, KV, G, d, NP, ps, P, scale, window, stream (int8 form, bf16 q,
+        # keys in chunks)
+        'paged_attention_quant_split': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _F, _I, _P),
         # B, KV, rows T*G, keys P*ps -> key chunk length of the split forms
         'paged_attention_split_chunk': (_I, _I, _I, _I)},
     'fused_page_write': {
@@ -94,6 +100,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # pools[n], n_pages[n], row_bytes[n], fills[n], n, sdr, n_jobs, ps,
         # stream
         'cow_page_copy': (_P, _P, _P, _P, _I, _P, _I, _I, _P)},
+    'launch_floor': {
+        # stream (an empty kernel: the cost of one launch, for chip_smoke)
+        'launch_floor': (_P,)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,13 @@ chosen by dtype and head width alone (never by a failure):
   workspace; a second launch combines the chunks in order. One call is two
   device kernels and counts as one launch.
   :func:`paged_attention_chunked_plain` mirrors that arithmetic in fp32
-  (both designs).
+  (every form on the split design).
+- the int8 form with bf16 q over int8 pages at ``d % 16 == 0``, ``d <=
+  128`` (what the int8 engines run at full width; :func:`quant_split_form`)
+  takes the same split kernel with the pages widened to bf16 in shared
+  memory, the key scales applied to the scores and the value scales to the
+  probabilities in fp32, then the same combine (two device kernels,
+  counted as one launch).
 - the MLA form with fp32 q over bf16 latent pages at ``r % 16 == 0``,
   ``dr % 16 == 0``, ``r, dr <= 512`` (what the deepseek engine runs at
   full width; :func:`mla_split_form`) takes the same split on its own
@@ -24,10 +30,11 @@ chosen by dtype and head width alone (never by a failure):
   over the block's warps, then the same combine (two device kernels,
   counted as one launch).
 - every other dense case (fp32 pages, mixed dtypes, other widths), the
-  other MLA cases (fp32 pages, bf16 q) and the int8 form take the
-  template kernel: one block per (slot, kv head, tile of the T·G query
-  rows) walks the slot's pages through the table with an fp32 online
-  softmax, so any chunk length and group size fit one launch. The MLA and
+  other MLA cases (fp32 pages, bf16 q) and the other int8 cases (fp32 q,
+  other widths) take the template kernel: one block per (slot, kv head,
+  tile of the T·G query rows) walks the slot's pages through the table
+  with an fp32 online softmax, so any chunk length and group size fit one
+  launch. The MLA and
   int8 forms are their own wrappers, :func:`paged_attention_mla` and
   :func:`paged_attention_quant`, each with its own launch count.
 
@@ -77,6 +84,14 @@ def split_form(q: torch.Tensor, k_pages: torch.Tensor,
     both page leaves bf16, head width a multiple of 16 and at most 128."""
     d = q.shape[-1]
     return (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16
+            and d % 16 == 0 and d <= 128)
+
+
+def quant_split_form(q: torch.Tensor, k_pages: torch.Tensor) -> bool:
+    """Whether an int8-form call on the card takes the split kernel: bf16
+    q over int8 pages, head width a multiple of 16 and at most 128."""
+    d = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and k_pages.dtype == torch.int8
             and d % 16 == 0 and d <= 128)
 
 
@@ -159,16 +174,20 @@ def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                   scale: float, window: int = 0,
                                   chunk: int,
                                   k2_pages: Optional[torch.Tensor] = None,
+                                  k_scale_pages: Optional[torch.Tensor] = None,
+                                  v_scale_pages: Optional[torch.Tensor] = None,
                                   mla_split: int = 0) -> torch.Tensor:
-    """The split kernels' arithmetic, in fp32, for the dense form and (with
+    """The split kernels' arithmetic, in fp32, for the dense form, (with
     ``mla_split = r`` and ``k2_pages``, as :func:`paged_attention_plain`)
-    the MLA form (no path runs it; the tests hold it against
-    :func:`paged_attention_plain` and the JAX oracle). The slot's virtual
-    cache is cut at multiples of ``chunk`` keys; per chunk and query row the
-    partial ``m`` (max of the usable scores, ``NEG_INF`` if none), ``l = sum
-    exp(s - m)`` and ``acc = sum exp(s - m) v``; then, over the chunks with
-    ``l > 0``, ``m* = max m``, ``l* = sum l e^(m - m*)`` and ``out = sum acc
-    e^(m - m*) / max(l*, 1e-30)``, in q's dtype."""
+    the MLA form and (with the scale pages) the int8 form (no path runs it;
+    the tests hold it against :func:`paged_attention_plain` and the JAX
+    oracle). The slot's virtual cache is cut at multiples of ``chunk`` keys;
+    per chunk and query row the partial ``m`` (max of the usable scores,
+    ``NEG_INF`` if none), ``l = sum exp(s - m)`` and ``acc = sum exp(s - m)
+    v``; then, over the chunks with ``l > 0``, ``m* = max m``, ``l* = sum l
+    e^(m - m*)`` and ``out = sum acc e^(m - m*) / max(l*, 1e-30)``, in q's
+    dtype. The int8 form scores ``(q·k)·k_scale·scale`` and takes ``p`` into
+    ``l`` and ``p·v_scale`` into ``acc``."""
     B, T, KV, G, _ = q.shape
     P, ps = table.shape[1], k_pages.shape[1]
     S = P * ps
@@ -191,14 +210,23 @@ def paged_attention_chunked_plain(q: torch.Tensor, k_pages: torch.Tensor,
     else:
         s = torch.einsum('btkgd,bskd->bkgts', qf, kf)
         vf = virt(v_pages, 0).float()
+
+    def per_key(scales):                      # (B, KV, 1, 1, nch, chunk)
+        return virt(scales, 0).float().transpose(1, 2) \
+            .reshape(B, KV, 1, 1, nch, chunk)
     vf = vf.view((B, nch, chunk) + tuple(vf.shape[2:]))
     pos_t = pos0[:, None].long() + torch.arange(T, device=q.device)
     valid = page_validity(cp, pos_t, window).view(B, 1, 1, T, nch, chunk)
-    s = (s * scale).view(B, KV, G, T, nch, chunk).masked_fill(~valid, NEG_INF)
+    s = s.view(B, KV, G, T, nch, chunk)
+    if k_scale_pages is not None:
+        s = s * per_key(k_scale_pages)
+    s = (s * scale).masked_fill(~valid, NEG_INF)
     m = s.amax(-1)                                       # (B,KV,G,T,nch)
     zero = torch.zeros((), device=q.device)
     p = torch.where(valid, torch.exp(s - m[..., None]), zero)
     l = p.sum(-1)
+    if v_scale_pages is not None:
+        p = p * per_key(v_scale_pages)
     acc = torch.einsum('bkgtnc,bnckd->bkgtnd', p, vf)
     live = l > 0
     m_star = torch.where(live, m, NEG_INF).amax(-1, keepdim=True)
@@ -388,8 +416,11 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     """The int8 form: q (B, T, KV, G, d) in float32 or bfloat16, int8 k/v
     pages (NP, ps, KV, d), bf16 scales (NP, ps, KV) -> (B, T, KV, G, d) in
     q's dtype. CPU tensors take :func:`paged_attention_plain` with the
-    scales; CUDA tensors launch the int8 kernel. Counts launches in
-    ``paged_attention_quant.launches``."""
+    scales; CUDA tensors launch an int8 kernel: the split kernel and its
+    combine where :func:`quant_split_form` holds (bf16 q, d % 16 == 0, d <=
+    128; q and pages 16-byte aligned), else the template kernel. Counts
+    calls in ``paged_attention_quant.launches``, one a call whichever
+    kernel runs."""
     name = 'paged_attention_quant'
     _check_kv_types(name, k_pages, k_scale_pages, v_scale_pages)
     if on_cpu(name, q, k_pages, v_pages, k_scale_pages, v_scale_pages,
@@ -416,17 +447,33 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                       k_scale_pages=k_scale_pages,
                       v_scale_pages=v_scale_pages, cpos_pages=cpos_pages,
                       table=table, pos0=pos0)
+    code = dtype_code(name, q)
     lib = build.load('paged_attention')
-    require(lib.paged_attention_smem(T * G, d, d, FORM_QUANT) > 0, name,
-            f'a tile of query rows of width {d} exceeds one block\'s shared '
-            'memory')
+    P = table.shape[1]
     out = torch.empty_like(q)
-    build.check(lib.paged_attention_quant(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
-        cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
-        out.data_ptr(), B, T, KV, G, d, NP, ps, table.shape[1], float(scale),
-        int(window), dtype_code(name, q), build.stream_of(q)), name)
+    if quant_split_form(q, k_pages):
+        require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+                name, 'bf16 q and int8 K/V pages must be 16-byte aligned')
+        R, S = T * G, P * ps
+        nch = -(-S // lib.paged_attention_split_chunk(B, KV, R, S))
+        ws = torch.empty(B * KV * nch * R * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        build.check(lib.paged_attention_quant_split(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), B, T, KV, G, d, NP, ps, P,
+            float(scale), int(window), build.stream_of(q)), name)
+    else:
+        require(lib.paged_attention_smem(T * G, d, d, FORM_QUANT) > 0, name,
+                f'a tile of query rows of width {d} exceeds one block\'s '
+                'shared memory')
+        build.check(lib.paged_attention_quant(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+            cpos_pages.data_ptr(), table.data_ptr(), pos0.data_ptr(),
+            out.data_ptr(), B, T, KV, G, d, NP, ps, P, float(scale),
+            int(window), code, build.stream_of(q)), name)
     paged_attention_quant.launches += 1
     return out
 

@@ -1,5 +1,6 @@
 """The split design of the dense bf16 ``paged_attention``, of its MLA form
-over bf16 latent pages, and the bf16 tiles of ``flash_attention``.
+over bf16 latent pages and of its int8 form with bf16 queries, and the bf16
+tiles of ``flash_attention``.
 
 On the CPU: :func:`paged_attention_chunked_plain`, the split kernel's
 arithmetic in fp32 (chunks of a fixed number of keys, a partial softmax per
@@ -10,6 +11,11 @@ windowed ring that wrapped, page size 1, chunks without a usable key, and
 rows without any. Its MLA form (``mla_split``) is held against
 ``paged_attention_plain`` and JAX's ``paged_attention(mla_split=...)`` in
 interpret mode at T 1 and 16, page sizes 1, 8 and 16, chunks of 4 and 64.
+Its int8 form (with the scale pages) is held against ``paged_attention_plain``
+and JAX's ``ref.paged_attention_ref`` with scales within ``KERNEL_TOL`` at
+chunks of 64: T 1 and 16, G 4 and 16, window 0 and 40, page sizes 1 and 16,
+slots whose keys end inside a chunk, an empty slot and rows without a usable
+key (zeros).
 
 Tests marked ``cuda`` run on a card and skip without one: the split kernel
 against the plain version in bf16 at d 16-128, G 4 and 16, T 1, 5, 16;
@@ -17,7 +23,9 @@ row independence (row t of a 16-token launch is bitwise a one-token launch
 at ``pos0 + t``); ``flash_attention``'s 128-row bf16 tiles across a ragged
 S and at G 64; the MLA split kernel against the plain version (fp32 q
 over bf16 pages at deepseek-v2-lite-16b's widths and two narrower ones,
-page sizes 1, 8, 16) and its row independence. They import nothing of
+page sizes 1, 8, 16) and its row independence; the int8 split kernel (bf16
+q over int8 pages at mistral-7b's and glm4-9b's KV, G and d) against the
+chunked plain version and its row independence. They import nothing of
 JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_split.py
@@ -32,7 +40,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (
     mla_split_form, paged_attention, paged_attention_chunked_plain,
-    paged_attention_mla, paged_attention_plain, split_form)
+    paged_attention_mla, paged_attention_plain, paged_attention_quant,
+    quant_split_form, split_form)
 from repro_torch.models.attn_backend import KERNEL_TOL
 
 from test_torch_kernels import _assert_flash_close, _flash_inputs, _paged_case
@@ -135,13 +144,12 @@ def test_split_form_by_dtype_and_width():
     assert not split_form(t(128), t(128, f), t(128, f))
 
 
-def _mla_case(seed, B, T, H, r, dr, ps, lengths):
-    """MLA latent pages (ckv, kpe as bf16) through a scattered table: slot
-    b holds positions [0, lengths[b]), unallocated blocks map to the null
-    page; fp32 queries [q_abs | q_pe]. The last slot's positions are moved
-    up by 8 and its queries start at position 0, so its rows t < 8 have no
-    usable key."""
-    rng = np.random.default_rng(seed)
+def _slot_pages(rng, B, T, ps, lengths):
+    """(NP, table, stored positions, pos0) of slots through a scattered
+    table: slot b holds positions [0, lengths[b]), unallocated blocks map
+    to the null page 0, queries for the last T positions. The last slot's
+    positions are moved up by 8 and its queries start at position 0, so
+    its rows t < 8 have no usable key."""
     P = -(-max(max(lengths), 1) // ps) + 1
     NP = 1 + B * P
     table = (rng.permutation(NP - 1)[:B * P] + 1).reshape(B, P) \
@@ -151,16 +159,24 @@ def _mla_case(seed, B, T, H, r, dr, ps, lengths):
         table[b, -(-n // ps):] = 0
         for p in range(n):
             cpos[table[b, p // ps], p % ps] = p
+    pos0 = np.array([max(n - T, 0) for n in lengths], np.int32)
+    late = np.unique(table[-1][table[-1] > 0])
+    cpos[late] = np.where(cpos[late] >= 0, cpos[late] + 8, -1)
+    pos0[-1] = 0
+    return NP, table, cpos, pos0
+
+
+def _mla_case(seed, B, T, H, r, dr, ps, lengths):
+    """MLA latent pages (ckv, kpe as bf16) over ``_slot_pages``; fp32
+    queries [q_abs | q_pe]."""
+    rng = np.random.default_rng(seed)
+    NP, table, cpos, pos0 = _slot_pages(rng, B, T, ps, lengths)
     ckv, kpe = (torch.from_numpy(rng.standard_normal((NP, ps, 1, w))
                                  .astype(np.float32)).bfloat16()
                 for w in (r, dr))
     ckv[0], kpe[0] = 0, 0
     q = torch.from_numpy(rng.standard_normal((B, T, 1, H, r + dr))
                          .astype(np.float32))
-    pos0 = np.array([max(n - T, 0) for n in lengths], np.int32)
-    late = np.unique(table[-1][table[-1] > 0])
-    cpos[late] = np.where(cpos[late] >= 0, cpos[late] + 8, -1)
-    pos0[-1] = 0
     return q, ckv, kpe, torch.from_numpy(cpos), torch.from_numpy(table), \
         torch.from_numpy(pos0)
 
@@ -219,6 +235,94 @@ def test_mla_split_form_by_dtype_and_width():
         assert not mla_split_form(t(r + dr, f), t(r), t(dr))
     assert not mla_split_form(t(576, f), t(512, f), t(64, f))
     assert not mla_split_form(t(576), t(512), t(64))
+
+
+def _quant_case(seed, T, KV, G, d, ps, lengths):
+    """int8 K/V pages with bf16 scales over ``_slot_pages`` (values as the
+    quantizer writes them: int8 in [-127, 127], scales amax / 127 of
+    activations of magnitude ~1-10), fp32 queries: q, k, v, k_scale,
+    v_scale, cpos, table, pos0."""
+    rng = np.random.default_rng(seed)
+    NP, table, cpos, pos0 = _slot_pages(rng, len(lengths), T, ps, lengths)
+    k, v = (torch.from_numpy(rng.integers(-127, 128, (NP, ps, KV, d))
+                             .astype(np.int8)) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.085, (NP, ps, KV))
+                               .astype(np.float32)).bfloat16()
+              for _ in range(2))
+    k[0], v[0] = 0, 0
+    q = torch.from_numpy(rng.standard_normal((len(lengths), T, KV, G, d))
+                         .astype(np.float32))
+    return q, k, v, ks, vs, torch.from_numpy(cpos), torch.from_numpy(table), \
+        torch.from_numpy(pos0)
+
+
+# (G, window, page size) of the int8 cases: glm4-9b's G 16 and mistral-7b's
+# G 4, causal and windowed, one key a page and 16
+QUANT_CASES = [(4, 0, 16), (16, 0, 1), (4, 40, 1), (16, 40, 16)]
+QUANT_LENGTHS = [150, 101, 0, 20]      # keys end inside chunks 2 and 1
+
+
+def _quant_limit(want, dtype):
+    """KERNEL_TOL, and for bf16 queries one bf16 step of the output on top
+    (2^-7 of its magnitude: two fp32 sums that differ in their last bits
+    may round to neighbouring bf16 values), as chip_smoke.py's int8
+    checks."""
+    w = want.float().abs()
+    lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] * w
+    return lim + w * 2.0 ** -7 if dtype == torch.bfloat16 else lim
+
+
+@pytest.mark.parametrize('T', [1, 16])
+def test_quant_chunked_plain_matches_plain_and_jax(jref, T):
+    """The int8 split's arithmetic, chunks of 64 keys: ``(q·k)·k_scale``
+    before ``scale``, ``l`` over ``p``, the value mix over ``p·v_scale``.
+    fp32 queries against the plain version and JAX's oracle with scales
+    within KERNEL_TOL; bf16 queries (the split kernel's) against the plain
+    version in bf16 within KERNEL_TOL and one bf16 step. (One case per T:
+    ROADMAP C4 keeps the suite under 888 collected tests.)"""
+    jnp, ref = jref
+    d = 32
+    for G, window, ps in QUANT_CASES:
+        q, k, v, ks, vs, cpos, table, pos0 = _quant_case(
+            T + G + ps + window, T, 2, G, d, ps, QUANT_LENGTHS)
+        kw = dict(scale=d ** -0.5, window=window)
+        sc = dict(k_scale_pages=ks, v_scale_pages=vs)
+        got = paged_attention_chunked_plain(q, k, v, cpos, table, pos0,
+                                            chunk=64, **sc, **kw)
+        plain = paged_attention_plain(q, k, v, cpos, table, pos0, **sc, **kw)
+        want = np.asarray(ref.paged_attention_ref(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v, cpos, table, pos0)),
+            k_scale_pages=jnp.asarray(ks.float().numpy()).astype(
+                jnp.bfloat16),
+            v_scale_pages=jnp.asarray(vs.float().numpy()).astype(
+                jnp.bfloat16), **kw))
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), **KERNEL_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+        assert not got[2].any(), (G, window, ps)
+        _assert_late_rows(got, T)
+        qb = q.bfloat16()
+        gb = paged_attention_chunked_plain(qb, k, v, cpos, table, pos0,
+                                           chunk=64, **sc, **kw)
+        pb = paged_attention_plain(qb, k, v, cpos, table, pos0, **sc, **kw)
+        assert gb.dtype == torch.bfloat16
+        assert bool(((gb.float() - pb.float()).abs()
+                     <= _quant_limit(pb, torch.bfloat16)).all())
+
+
+def test_quant_split_form_by_dtype_and_width():
+    """bf16 q over int8 pages at d % 16 == 0, d <= 128 take the split
+    kernel; fp32 q (the smoke configs') and other widths keep the
+    template."""
+    def t(d, dtype=torch.bfloat16):
+        return torch.zeros((1, 1, 1, 1, d), dtype=dtype)
+    i8 = torch.int8
+    for d in (16, 32, 48, 64, 128):
+        assert quant_split_form(t(d), t(d, i8))
+    for d in (8, 24, 136, 256):
+        assert not quant_split_form(t(d), t(d, i8))
+    assert not quant_split_form(t(128, torch.float32), t(128, i8))
+    assert not quant_split_form(t(128), t(128))
 
 
 # ------------------------------------------------------ on the card
@@ -361,3 +465,65 @@ def test_flash_bf16_tiles(cuda, B, S, H, KH, d, window):
     got = flash_attention(q, k, v, pos, window=window)
     _assert_flash_close(got, flash_attention_plain(q, k, v, pos,
                                                    window=window))
+
+
+# (KV, G, window, page size, slot lengths) at the int8 engines' widths (d
+# 128): glm4-9b's KV 2, G 16 through 16-token pages; mistral-7b's KV 8, G 4
+# with its 4096 window and a 300 one, over pages of one key (an odd ring's
+# dense view)
+QUANT_SHAPES = [(2, 16, 0, 16, [300, 271, 0, 365]),
+                (8, 4, 4096, 1, [512, 300, 0, 200]),
+                (8, 4, 300, 16, [512, 450, 0, 365])]
+
+
+def _quant_cuda(cuda, seed, T, KV, G, ps, lengths):
+    out = [a.to(cuda) for a in _quant_case(seed, T, KV, G, 128, ps,
+                                           lengths)]
+    out[0] = out[0].bfloat16()
+    return out
+
+
+@pytest.mark.cuda
+def test_quant_split_kernel_matches_plain(cuda):
+    """The int8 split kernel against the chunked plain version (chunks of
+    64) at each of QUANT_SHAPES, T 1 and 16: within KERNEL_TOL and one bf16
+    step, and within chip_smoke.py's row-scaled limit; one launch counted a
+    call (the dense form's count unchanged); the empty slot and the last
+    slot's rows without a usable key zeros."""
+    for (KV, G, window, ps, lengths), T in itertools.product(QUANT_SHAPES,
+                                                             (1, 16)):
+        args = _quant_cuda(cuda, KV + G + ps + T, T, KV, G, ps, lengths)
+        q, k = args[:2]
+        assert quant_split_form(q, k)
+        kw = dict(scale=128 ** -0.5, window=window)
+        n0 = (paged_attention.launches, paged_attention_quant.launches)
+        got = paged_attention_quant(*args, **kw)
+        want = paged_attention_chunked_plain(
+            q, k, args[2], *args[5:], chunk=64, k_scale_pages=args[3],
+            v_scale_pages=args[4], **kw)
+        torch.cuda.synchronize()
+        assert (paged_attention.launches, paged_attention_quant.launches) \
+            == (n0[0], n0[1] + 1)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert bool(((got.float() - want.float()).abs()
+                     <= _quant_limit(want, torch.bfloat16)).all()), \
+            (KV, G, window, ps, T)
+        assert _row_share(got, want) <= 1, (KV, G, window, ps, T)
+        assert not got[2].any()
+        _assert_late_rows(got, T)
+
+
+@pytest.mark.cuda
+def test_quant_split_row_independence(cuda):
+    """Row t of a 16-token int8 launch is bitwise a one-token launch at
+    pos0 + t (the fixed chunk layout), at each of QUANT_SHAPES."""
+    T = 16
+    for KV, G, window, ps, lengths in QUANT_SHAPES:
+        args = _quant_cuda(cuda, 3 + KV + ps, T, KV, G, ps, lengths)
+        q, pos0 = args[0], args[-1]
+        kw = dict(scale=128 ** -0.5, window=window)
+        full = paged_attention_quant(*args, **kw)
+        for t in range(T):
+            one = paged_attention_quant(q[:, t:t + 1].contiguous(),
+                                        *args[1:-1], pos0 + t, **kw)
+            assert torch.equal(one, full[:, t:t + 1]), (KV, G, ps, t)
