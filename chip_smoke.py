@@ -17,8 +17,11 @@ Phases, in order; any failure raises and exits non-zero:
               and the roofline bound: embed_gather (bitwise; N 1-4096 at
               mistral-7b and glm4-9b width) and gather_rope (both also with
               the ids -1, -V, -V - 1, V, V + 7: wrapped rows and NaN rows,
-              bitwise the plain versions, NaN equal to NaN), gather_rope and
-              paged_attention at mistral-7b full-width shapes; paged_attention
+              bitwise the plain versions, NaN equal to NaN; gather_rope at N
+              1, 4, 64 and 512 for the mistral-7b, glm4-9b and
+              deepseek-v2-lite-16b rows, one device kernel a call after the
+              first, by the profiler), paged_attention at mistral-7b
+              full-width shapes; paged_attention
               at glm4-9b's G 16 through a scattered page table (in bf16 the
               split kernel, also held to the flash check's row-scaled limit,
               and row t of each 16-token call bitwise a one-token call at pos0
@@ -40,7 +43,15 @@ Phases, in order; any failure raises and exits non-zero:
               one-token call; fp32 queries on the template kernel), and
               fused_page_write / cow_page_copy on the five
               int8 leaves (k, v int8; k_scale, v_scale bf16 of 4-byte rows;
-              pos) at glm4-9b page shapes (bitwise); flash_attention at the
+              pos) at glm4-9b page shapes (bitwise); the quantizing form of
+              fused_page_write (bf16 and fp32 K/V in, quantized in the
+              write's launch) bitwise the eager quantizer + the plain write
+              at glm4-9b's pool, T 1 and 16 and a ring, and with rows of NaN,
+              zeros, .5 ties, bf16's largest values and an amax at which
+              division and reciprocal differ at page sizes 1 and 16, timed at
+              T 1 and 16 beside the launch floor, the eager quantizer, and
+              the eager quantizer + the write of the quantized leaves;
+              flash_attention at the
               shapes of the Model.apply phases (mistral-7b S 8192, 32 heads
               over 8 kv heads, window 4096; glm4-9b S 4096 over 2 kv heads,
               causal) and at a ragged S 4097, bf16 and fp32;
@@ -85,8 +96,11 @@ Phases, in order; any failure raises and exits non-zero:
               kernels as often as unsharded, the state at rest in its
               blocks, and, from the profiler trace, the device time of the
               copies that the gather (_rep_in) and the split (_shard_out)
-              launch; then the layer-0 comparison (N 1, 4,
-              64, 4096) and Model.apply at B 1, S 4096 as in phase 4.
+              launch; the int8 runs' device "other" and device kernels a
+              step beside bf16's; on every paged run no call of the eager
+              quantizer and fused_page_write once a layer and a step; then
+              the layer-0 comparison (N 1, 4, 64, 4096) and Model.apply at
+              B 1, S 4096 as in phase 4.
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
@@ -121,6 +135,7 @@ nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -131,8 +146,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                'src'))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, 'src'))
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -152,6 +167,7 @@ from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
                                      parse_mesh_spec)
 from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
     EPS, rmsnorm_matmul, rmsnorm_matmul_form, rmsnorm_qkv, rmsnorm_qkv_plain)
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models.attention import (_quantize,  # noqa: E402
                                           paged_view)
 from repro_torch.models.blocks import preproj_layout  # noqa: E402
@@ -274,10 +290,11 @@ EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                ('glm4_9b', True, (torch.float32,), (3, 24)),
                ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
-               (64, 512)),
-              ('glm4_9b', False, (torch.bfloat16, torch.float32), (4, 64)),
+               (1, 4, 64, 512)),
+              ('glm4_9b', False, (torch.bfloat16, torch.float32),
+               (1, 4, 64, 512)),
               ('deepseek_v2_lite_16b', False,
-               (torch.bfloat16, torch.float32), (4, 64)),
+               (torch.bfloat16, torch.float32), (1, 4, 64, 512)),
               ('mistral_7b', True, (torch.float32,), (3, 12)),
               ('glm4_9b', True, (torch.float32,), (3, 24)),
               ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
@@ -376,8 +393,50 @@ def rope_segments(cfg):
         preproj_layout(cfg, plan.kinds[0], plan.use_moe[0]), cfg)
 
 
+def device_kernels(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` runs, by the
+    profiler's trace. A trace with no device activity at all recorded
+    nothing (the profiler now and then delivers none) and is taken again,
+    up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+
+def fresh_rows_ms(table, V, n, kw, sets: int = 8) -> float:
+    """gather_rope's device ms a call of ``n`` rows when the rows read and
+    written are not in the L2 cache: ``time_ms`` replays the same ids, so
+    at N 512 its reads and writes (21 MB at mistral-7b's width) stay in
+    the H100's 50 MB L2. Here each call of a round takes its own ids and
+    output, ``sets`` of them (168 MB a round at mistral-7b's width), so a
+    call finds little of its rows in L2. The bound's bytes are the same."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    ids = [torch.randint(0, V, (n,), generator=gen, device='cuda',
+                         dtype=torch.int32) for _ in range(sets)]
+    pos = [torch.randint(0, 32768, (n,), generator=gen, device='cuda',
+                         dtype=torch.int32) for _ in range(sets)]
+
+    def round_():      # the outputs stay alive: a new address each call
+        return [gather_rope(table, i, p, **kw) for i, p in zip(ids, pos)]
+    return time_ms(round_, iters=4) / sets
+
+
 def check_gather_rope(gen) -> dict:
-    row = {}
+    """gather_rope against its plain version at ROPE_CASES (within
+    ROPE_TOL; unrotated columns, wrapped rows and NaN rows bitwise), one
+    device kernel a call after the first (profiler), timed beside its
+    plain version and bound; the kernels line's row is mistral-7b bf16 N
+    64's, its ``at_n`` the full-width bf16 times."""
+    row, at_n = {}, {}
     for name, smoke, dtypes, counts in ROPE_CASES:
         cfg = config_of(name, smoke)
         V, W = cfg.vocab_size, cfg.precompute_row_width
@@ -411,6 +470,10 @@ def check_gather_rope(gen) -> dict:
                     f'gather_rope {cfg.name} {dtype} N={n}',
                     gather_rope(table, bad, bad_pos, **kw),
                     gather_rope_plain(table, bad, bad_pos, **kw))
+                n_dev = device_kernels(
+                    lambda: gather_rope(table, ids, pos, **kw))
+                assert n_dev == 1, f'gather_rope {cfg.name} N={n}: ' \
+                    f'{n_dev} device kernels a call'
                 ms = time_ms(lambda: gather_rope(table, ids, pos, **kw))
                 plain = time_ms(
                     lambda: gather_rope_plain(table, ids, pos, **kw))
@@ -418,19 +481,29 @@ def check_gather_rope(gen) -> dict:
                                  dtype)
                 seg_txt = str(segs) if len(segs) <= 4 else \
                     f'{len(segs)} of width {segs[0][2]}'
+                fresh = None
+                if n == 512 and not smoke and dtype is torch.bfloat16:
+                    fresh = fresh_rows_ms(table, V, n, kw)
                 log(f'[kernel] gather_rope {cfg.name} {str(dtype)[6:]} N={n} '
                     f'segments {seg_txt} W={W} max pos 32767: max |err| '
                     f'{err:.3g} (tol {tol}), untouched columns bitwise, ids '
                     f'-1, -V, -V - 1, V, V + 7 bitwise the plain version '
-                    f'(NaN rows); '
-                    f'kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
-                    f'{b_ms:.4f} ms ({by})')
+                    f'(NaN rows); one device kernel a call; '
+                    f'kernel {ms:.4f} ms (same ids every replay'
+                    + ('' if fresh is None else
+                       f'; {fresh:.4f} ms with rows new to the L2 cache')
+                    + f'), plain {plain:.4f} ms, bound {b_ms:.6f} ms ({by})')
+                if not smoke and dtype is torch.bfloat16:
+                    at_n.setdefault(cfg.name, {})[n] = dict(ms=ms,
+                                                            bound_ms=b_ms)
+                    if fresh is not None:
+                        at_n[cfg.name][n]['fresh_rows_ms'] = fresh
                 if (name, smoke, dtype, n) == ('mistral_7b', False,
                                                torch.bfloat16, 64):
                     row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=b_ms, bound_by=by, library_ms=None)
             del table
-    return row
+    return dict(row, at_n=at_n)
 
 
 def ring_case(gen, dtype, B, T, KV, G, d, Sc, lengths):
@@ -662,7 +735,7 @@ def check_fused_page_write(gen) -> dict:
                 f'{n_f} filled): bitwise equal (modes {sorted(modes)}, '
                 f'{zero_jobs} jobs on page 0); kernel {ms:.4f} ms, plain '
                 f'{plain:.4f} ms, index_copy_ x3 (no clears) {lib:.4f} ms, '
-                f'bound {b_ms:.4f} ms ({by})')
+                f'bound {b_ms:.6f} ms ({by})')
             if label == 'linear T=1':                 # the decode step
                 row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=by, library_ms=lib)
@@ -1032,7 +1105,7 @@ def check_mla_page_writes(gen) -> None:
                     x, v, jobs, Sc=GLM_SEQ, fill=f)
                     for x, v, f in zip(leaves, srcs, fills)])
                 msg += (f'; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound '
-                        f'{b_ms:.4f} ms ({by})')
+                        f'{b_ms:.6f} ms ({by})')
             log(msg)
         del ckv, kpe, pos
         # copy-on-write: layer 0's cache and the stacked body, one launch
@@ -1371,16 +1444,22 @@ def check_sharded_paged_attention(gen) -> dict:
     return row
 
 
-def check_quant_page_writes(gen) -> None:
+QUANT_LEAVES = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+QUANT_PAIRS = [(0, 2), (1, 3)]     # (k, k_scale), (v, v_scale)
+
+
+def check_quant_page_writes(gen) -> dict:
     """fused_page_write and cow_page_copy on glm4-9b's five int8 leaves:
     k / v int8 (256-byte rows), k_scale / v_scale bf16 (4-byte rows: KV 2
-    x 2 bytes), pos; the chunk values as the quantizer makes them.
-    Linear and ring job lists with pending clears; copy-on-write over the
-    39 stacked layers. Bitwise against the plain versions."""
+    x 2 bytes), pos; the chunk values as the quantizer makes them, and
+    then the quantizing form (float K/V in, quantized in the write's
+    launch; :func:`check_quantizing_write`). Linear and ring job lists
+    with pending clears; copy-on-write over the 39 stacked layers. Bitwise
+    against the plain versions. -> the quantizing form's times."""
     cfg = get_config('glm4_9b')
     KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
     NP = glm_pool_pages()
-    names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+    names = QUANT_LEAVES
     fills = [PM.leaf_fill(nm) for nm in names]
     k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
     pos = torch.randint(0, 4096, (NP, ps), generator=gen, device='cuda',
@@ -1400,11 +1479,13 @@ def check_quant_page_writes(gen) -> None:
     nv = torch.tensor([16, 9, 0, 16], dtype=torch.int32, device='cuda')
     cases.append(('ring Sc=27 T=16', 27, 16, pos0, nv,
                   scattered_table(gen, B, 2, NP, [27] * B, ps)))
+    written = []                                  # (label, Sc, T, pos0, jobs)
     for label, Sc, T, pos0, nv, table in cases:
         start = torch.div(pos0 % Sc, ps, rounding_mode='floor').long()
         pending = torch.stack([table[1, start[1]], table.new_tensor(NP - 1),
                                table.new_tensor(0)]).to(torch.int32)
         jobs = PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)
+        written.append((label, Sc, T, pos0, jobs))
         x = torch.randn((2, B, T, KV, d), generator=gen, device='cuda') * 3
         (kq, kscale), (vq, vscale) = _quantize(x[0]), _quantize(x[1])
         srcs = [kq, vq, kscale, vscale, PM.chunk_positions(pos0, T)]
@@ -1414,8 +1495,7 @@ def check_quant_page_writes(gen) -> None:
         PM.fused_page_write(leaves, srcs, jobs, Sc=Sc, fills=fills)
         torch.cuda.synchronize()
         assert PM.fused_page_write.launches == n0 + 1
-        for nm, g, w in zip(names, leaves, want):
-            assert torch.equal(g, w), f'fused_page_write int8 {label} {nm}'
+        same_leaves(f'fused_page_write int8 {label}', leaves, want)
         msg = (f'[kernel] fused_page_write int8 leaves {label} (row bytes '
                f'{[y[0, 0].numel() * y.element_size() for y in leaves]}), '
                f'{jobs.shape[0]} jobs: bitwise equal')
@@ -1426,8 +1506,9 @@ def check_quant_page_writes(gen) -> None:
                              0, torch.bfloat16)
             ms = time_ms(lambda: PM.fused_page_write(
                 leaves, srcs, jobs, Sc=Sc, fills=fills))
-            msg += f'; kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by})'
+            msg += f'; kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by})'
         log(msg)
+    row = check_quantizing_write(gen, leaves, written)
     del leaves, k, v, ks, vs, pos
     reps = cfg.num_layers - 1
     k, v, ks, vs = int8_leaves(gen, (reps, NP, ps), KV, d)
@@ -1451,6 +1532,111 @@ def check_quant_page_writes(gen) -> None:
     log(f'[kernel] cow_page_copy int8 leaves {list(names)} over {reps} '
         'layers, rem 0/7/16: bitwise equal, one launch per copy-on-write')
     del cache, k, v, ks, vs
+    return row
+
+
+def check_quantizing_write(gen, leaves, written) -> dict:
+    """The quantizing form of fused_page_write on glm4-9b's five int8
+    leaves (``leaves``, the engine's pool) through the job lists of
+    ``written`` ((label, Sc, T, pos0, jobs) of the int8-leaf writes), bf16
+    and fp32 K/V values: bitwise its plain version
+    (``quantize_rows`` + the plain write, torch's CUDA kernels), one
+    launch. Then the edge rows of ``tests/_torch_scenarios.py`` (NaN,
+    zeros, .5 ties, bf16's largest values, an amax at which division and
+    reciprocal differ) at page sizes 1 and 16, T 1 and 16, a linear table
+    and a ring. bf16 at T 1 and 16 timed beside the launch floor, the
+    eager quantizer on K and V alone, and the eager quantizer followed by
+    the write of the five quantized leaves (the path before the
+    quantizing form). -> times for the kernels line."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from _torch_scenarios import quant_write_case
+    cfg = get_config('glm4_9b')
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
+    fills = [PM.leaf_fill(nm) for nm in QUANT_LEAVES]
+    row = {}
+    for label, Sc, T, pos0, jobs in written:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn((2, B, T, KV, d), generator=gen, device='cuda')
+                 * 3).to(dtype)
+            vals = [x[0], x[1], None, None, PM.chunk_positions(pos0, T)]
+            want = [PM.fused_page_write_plain(y.clone(), v, jobs, Sc=Sc,
+                                              fill=f)
+                    for y, v, f in zip(leaves, PM.quantized_values(
+                        vals, QUANT_PAIRS), fills)]
+            n0 = PM.fused_page_write.launches
+            PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills,
+                                quantize=QUANT_PAIRS)
+            torch.cuda.synchronize()
+            assert PM.fused_page_write.launches == n0 + 1
+            same_leaves(f'quantizing write {label} {dtype}', leaves, want)
+            msg = (f'[kernel] fused_page_write quantizing {str(dtype)[6:]} '
+                   f'K/V -> int8 leaves {label}, {jobs.shape[0]} jobs: '
+                   'bitwise the quantizer + plain write, one launch')
+            if dtype is torch.bfloat16 and label.startswith('linear'):
+                n_w, n_f = write_counts(jobs, Sc, ps)
+                rb = [y[0, 0].numel() * y.element_size() for y in leaves]
+                # a written row reads its K and V rows and its position
+                # once and writes every leaf's row; a filled row writes
+                src = 2 * KV * d * x.element_size() + 4
+                moved = n_w * (src + sum(rb)) + n_f * sum(rb) + nbytes(jobs)
+                b_ms, by = bound(moved, 0, dtype)
+                ms = time_ms(lambda: PM.fused_page_write(
+                    leaves, vals, jobs, Sc=Sc, fills=fills,
+                    quantize=QUANT_PAIRS))
+                quant = time_ms(lambda: PM.quantized_values(vals,
+                                                            QUANT_PAIRS))
+                eager = time_ms(lambda: PM.fused_page_write(
+                    leaves, PM.quantized_values(vals, QUANT_PAIRS), jobs,
+                    Sc=Sc, fills=fills))
+                n_eager = device_kernels(lambda: PM.fused_page_write(
+                    leaves, PM.quantized_values(vals, QUANT_PAIRS), jobs,
+                    Sc=Sc, fills=fills))
+                assert device_kernels(lambda: PM.fused_page_write(
+                    leaves, vals, jobs, Sc=Sc, fills=fills,
+                    quantize=QUANT_PAIRS)) == 1
+                msg += (f'; kernel {ms:.4f} ms (1 device kernel), eager '
+                        f'quantizer on K and V {quant:.4f} ms, eager '
+                        f'quantizer + write of the quantized leaves '
+                        f'{eager:.4f} ms ({n_eager} device kernels), bound '
+                        f'{b_ms:.6f} ms ({by})')
+                key = 'quant_ms' if T == 1 else f'quant_t{T}_ms'
+                row.update({key: ms, key.replace('quant', 'eager_quant'):
+                            eager, key.replace('quant', 'quant_bound'): b_ms})
+            log(msg)
+    n_cases = 0
+    for ps_, Sc, T, dtype in itertools.product(
+            (1, 16), (GLM_SEQ, 27), (1, 16), (torch.bfloat16, torch.float32)):
+        pool, k, v, pos0, nv, table, pending = quant_write_case(
+            ps_ + Sc + T, ps=ps_, Sc=Sc, T=T, KV=KV, hd=d)
+        pools = [torch.from_numpy(pool[nm]).cuda() for nm in QUANT_LEAVES]
+        pools[2:4] = [y.to(torch.bfloat16) for y in pools[2:4]]
+        pos0, nv, table, pending = (torch.from_numpy(a).cuda()
+                                    for a in (pos0, nv, table, pending))
+        jobs = PM.build_jobs(pos0, nv, table, Sc, ps_, T, pending)
+        vals = [torch.from_numpy(k).cuda().to(dtype),
+                torch.from_numpy(v).cuda().to(dtype), None, None,
+                PM.chunk_positions(pos0, T)]
+        want = [PM.fused_page_write_plain(y.clone(), w, jobs, Sc=Sc, fill=f)
+                for y, w, f in zip(pools, PM.quantized_values(
+                    vals, QUANT_PAIRS), fills)]
+        PM.fused_page_write(pools, vals, jobs, Sc=Sc, fills=fills,
+                            quantize=QUANT_PAIRS)
+        torch.cuda.synchronize()
+        same_leaves(f'quantizing write edge rows ps={ps_} Sc={Sc} T={T} '
+                    f'{dtype}', pools, want)
+        n_cases += 1
+    log(f'[kernel] fused_page_write quantizing, edge rows (NaN, zeros, .5 '
+        f'ties, bf16 max, division vs reciprocal) at KV {KV} d {d}, page '
+        f'sizes 1 and 16, Sc {GLM_SEQ} and 27, T 1 and 16, bf16 and fp32: '
+        f'{n_cases} cases bitwise the quantizer + plain write')
+    return row
+
+
+def same_leaves(label, got, want) -> None:
+    """Every pool leaf bitwise (bf16 scales compared as bits: NaN too)."""
+    for nm, g, w in zip(QUANT_LEAVES, got, want):
+        bits = torch.int16 if g.dtype == torch.bfloat16 else g.dtype
+        assert torch.equal(g.view(bits), w.view(bits)), f'{label}: {nm}'
 
 
 # --------------------------------- phase 3: full-sequence flash attention
@@ -1980,15 +2166,17 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
     return launches, [r.generated for r in reqs], cache_bytes(eng)
 
 
-def profile_engine(eng, reqs, spans=()) -> None:
+def profile_engine(eng, reqs, spans=()) -> dict:
     """Device time by kernel over a batch like the measured one
-    (torch.profiler recording device activity only), and the device's
-    idle share of that window. With ``spans`` (names of engine methods),
-    each call of them runs in a ``record_function`` range of its name, the
-    host's activity is traced too (its cost falls in the window's wall
-    time), and each span's device time is the sum of the kernels and
-    copies launched inside it: busy time, without the gaps in which the
-    stream waits for the host."""
+    (torch.profiler recording device activity only), the device kernels
+    (and copies) a step, and the device's idle share of that window.
+    -> device ms a step by group and ``kernels`` a step ({} when the
+    profiler recorded no device time). With ``spans`` (names of engine
+    methods), each call of them runs in a ``record_function`` range of its
+    name, the host's activity is traced too (its cost falls in the
+    window's wall time), and each span's device time is the sum of the
+    kernels and copies launched inside it: busy time, without the gaps in
+    which the stream waits for the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2039,7 +2227,7 @@ def profile_engine(eng, reqs, spans=()) -> None:
     busy = sum(ms for _, ms, _ in kern)
     if not busy:
         log('[profile] torch.profiler recorded no device time')
-        return
+        return {}
     groups = {'paged_attention': 0.0, 'gather_rope': 0.0,
               'embed_gather': 0.0, 'fused_page_write': 0.0,
               'cow_page_copy': 0.0, 'matmul': 0.0, 'other': 0.0}
@@ -2057,9 +2245,28 @@ def profile_engine(eng, reqs, spans=()) -> None:
         f'device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}); '
         f'device ms by group '
         f'{json.dumps({k: round(v, 2) for k, v in groups.items()})}; per '
-        f'step {json.dumps({k: round(v / steps, 3) for k, v in groups.items()})}')
+        f'step {json.dumps({k: round(v / steps, 3) for k, v in groups.items()})}'
+        f'; device kernels a step {sum(n for _, _, n in kern) / steps:.1f}')
     for key, ms, n in sorted(kern, key=lambda x: -x[1])[:8]:
         log(f'[profile]   {ms:8.2f} ms  x{n:<5d} {key[:90]}')
+    return dict({k: v / steps for k, v in groups.items()},
+                kernels=sum(n for _, _, n in kern) / steps)
+
+
+class count_calls:
+    """Counts the calls of ``module.name`` until :meth:`undo`."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.fn = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+        setattr(module, name, counted)
+
+    def undo(self):
+        setattr(self.module, self.name, self.fn)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -2133,7 +2340,7 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
         if run_mesh is None:
             continue
         base_tag = run_tag.replace(tag + '_mesh', tag, 1)
-        (lb, tb, _), (lm, tm, _) = out[base_tag], out[run_tag]
+        (lb, tb, _, _), (lm, tm, _, _) = out[base_tag], out[run_tag]
         assert tm == tb, f'{run_tag}: greedy tokens differ from {base_tag}'
         H = run_mesh.shape[1]
         assert lm[kernel] == lm['sharded_paged_attention'] \
@@ -2146,10 +2353,16 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
             f'{lm["fused_page_write"]}, cow_page_copy {lm["cow_page_copy"]} '
             'as unsharded')
     if int8:
-        (l16, tok16, b16), (l8, tok8, b8) = out[tag], out[tag + '_int8']
+        (l16, tok16, b16, _), (l8, tok8, b8, _) = out[tag], out[tag + '_int8']
         log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
             f'({b8 / b16:.3f}); greedy tokens equal to the bf16 run\'s: '
             f'{token_share(tok8, tok16)} (reported, not checked)')
+        for t16 in [t for t in out if not t.endswith('_int8')]:
+            p16, p8 = out[t16][3], out[t16 + '_int8'][3]
+            if p16 and p8:
+                log(f'[{t16}_int8] device ms a step, "other" {p8["other"]:.3f}'
+                    f' against bf16\'s {p16["other"]:.3f}; device kernels a '
+                    f'step {p8["kernels"]:.1f} against {p16["kernels"]:.1f}')
     phases = {k: v[0] for k, v in out.items()}
     if apply_seq:
         check_layer0(model, params, table, LAYER0_COUNTS, rows)
@@ -2189,6 +2402,7 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     steps0, drops0 = eng.steps, eng.moe_token_drops
+    eager = count_calls(A, 'kv_values')
     zero_launches()
     waves = []
     t_all = time.perf_counter()
@@ -2202,6 +2416,12 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         waves.append(time.perf_counter() - t0)
     dt = time.perf_counter() - t_all
     launches = read_launches()
+    eager.undo()
+    # the paged write quantizes inside fused_page_write: no eager
+    # quantizer, one write launch a layer and a step
+    assert eager.calls == 0, f'{tag}: the eager quantizer ran {eager.calls}x'
+    assert not on_card or launches['fused_page_write'] == \
+        (eng.steps - steps0) * cfg.num_layers, launches
     for r in reqs:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
         assert len(r.generated) == 16, (r.uid, len(r.generated))
@@ -2247,12 +2467,12 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
                   for row in leaf.blocks for b in row]
     else:
         leaves = [x for pool, _ in eng._pools for x in pool.values()]
-    if on_card:
-        profile_engine(eng, glm_requests(cfg, rng, system, 200,
-                                         tails=(50, 17, 90, 33)),
-                       spans=() if mesh is None else ('_rep_in',
-                                                      '_shard_out'))
-    return launches, [r.generated for r in reqs], nbytes(*leaves)
+    prof = profile_engine(eng, glm_requests(cfg, rng, system, 200,
+                                            tails=(50, 17, 90, 33)),
+                          spans=() if mesh is None else ('_rep_in',
+                                                         '_shard_out')) \
+        if on_card else {}
+    return launches, [r.generated for r in reqs], nbytes(*leaves), prof
 
 
 def state_leaves(states) -> list:
@@ -2483,7 +2703,7 @@ def main() -> None:
     rows['paged_attention_mla'] = check_paged_attention_mla(gen)
     check_mla_page_writes(gen)
     rows['paged_attention_quant'] = check_paged_attention_quant(gen)
-    check_quant_page_writes(gen)
+    rows['fused_page_write'].update(check_quant_page_writes(gen))
     rows['sharded_paged_attention'] = check_sharded_paged_attention(gen)
     rows['flash_attention'] = check_flash_attention(gen)
     free()

@@ -41,7 +41,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         'embed_gather': (_P, _P, _P, _I, _I, _L, _I, _P)},
     'gather_rope': {
         # table, ids, pos, inv_freq, out, n, vocab, width, dtype_code,
-        # seg_off[4], seg_heads[4], seg_hd[4], seg_inv_off[4], n_segs, stream
+        # seg_off[n_segs], seg_heads[n_segs], seg_hd[n_segs],
+        # seg_inv_off[n_segs], n_segs, stream
         'gather_rope': (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _I, _P)},
     'paged_attention': {
@@ -78,10 +79,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # B, KV, rows T*G, keys P*ps -> key chunk length of the split forms
         'paged_attention_split_chunk': (_I, _I, _I, _I)},
     'fused_page_write': {
-        # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n, jobs,
-        # n_jobs, NP, B, ps, Sc, stream
-        'fused_page_write': (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                             _P)},
+        # pools[n], vals[n], strides[2n], row_bytes[n], fills[n], n,
+        # quant[4 n_quant], n_quant, jobs, n_jobs, NP, B, ps, Sc, stream
+        'fused_page_write': (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
+                             _I, _I, _P)},
     'rmsnorm_matmul': {
         # x, scale, w0, w1, w2, out0, out1, out2, W0, W1, W2, n_mats, N, d,
         # eps, dtype_code, form, workspace, workspace bytes, stream

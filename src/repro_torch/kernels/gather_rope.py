@@ -5,14 +5,18 @@ token's position (fp32 trigonometry, result cast to the table dtype).
 Port of ``repro/kernels/gather_rope.py::gather_rope`` (Pallas). The CUDA
 kernel is ``repro_torch/csrc/gather_rope.cu``; it rotates by the inverse
 frequencies of :func:`repro_torch.models.layers.rope_freqs`, the same fp32
-vector the plain version uses. No 128-lane padding of the row width.
+vector the plain version uses, built on the device once per (head widths,
+theta, device) and kept: after the first call a call allocates its output
+and launches one kernel. The kernel takes at most ``MAX_SEGS`` segments and
+``MAX_HEADS`` rotated heads over all of them; the wrapper raises beyond.
+No 128-lane padding of the row width.
 Ids follow ``jnp.take``, as the unfused table read does; the JAX Pallas
 kernel clamps out-of-range ids instead (ROADMAP C2).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -24,6 +28,47 @@ Segs = Tuple[Tuple[int, int, int], ...]
 # segments per launch (csrc kMaxSegs): GQA rows have 2 (q, k); MLA rows one
 # per head's q_pe slice plus k_pe, 17 for deepseek-v2-lite-16b
 MAX_SEGS = 32
+# rotated heads over all segments per launch (csrc kMaxHeads): 64 q + 64 k
+# heads of full multi-head attention; the plain version has no such limit
+MAX_HEADS = 128
+_INV: Dict[tuple, torch.Tensor] = {}
+_SEG_ARGS: Dict[Segs, tuple] = {}
+
+
+def inverse_frequencies(hds: Tuple[int, ...], theta: float,
+                        device: torch.device) -> torch.Tensor:
+    """The kernel's fp32 frequency vector: :func:`rope_freqs` of each head
+    width in ``hds``, one after the other, made on ``device`` at the first
+    call for these arguments and kept. A first call may not fall inside a
+    CUDA graph capture (the vector would live in the graph's memory)."""
+    key = (hds, float(theta), torch.device(device))
+    inv = _INV.get(key)
+    if inv is None:
+        require(not (key[2].type == 'cuda'
+                     and torch.cuda.is_current_stream_capturing()),
+                'gather_rope', 'the first call for these head widths and '
+                'theta must not be captured in a CUDA graph')
+        inv = torch.cat([rope_freqs(hd, theta, device) for hd in hds])
+        _INV[key] = inv
+    return inv
+
+
+def _seg_args(segs: Segs) -> tuple:
+    """ctypes arrays of the segments' offsets, heads, widths and frequency
+    offsets, and their head widths in order, for the kernel; kept per
+    segment tuple."""
+    args = _SEG_ARGS.get(segs)
+    if args is None:
+        hds = tuple(sorted({hd for _, _, hd in segs}))
+        starts = dict(zip(hds, [sum(h // 2 for h in hds[:i])
+                                for i in range(len(hds))]))
+
+        def arr(vals):
+            return (ctypes.c_int * MAX_SEGS)(*vals)
+        args = (hds, arr([s[0] for s in segs]), arr([s[1] for s in segs]),
+                arr([s[2] for s in segs]), arr([starts[s[2]] for s in segs]))
+        _SEG_ARGS[segs] = args
+    return args
 
 
 def _check_segs(segs: Sequence[Tuple[int, int, int]], W: int) -> Segs:
@@ -82,30 +127,20 @@ def gather_rope(table: torch.Tensor, ids: torch.Tensor,
     V, W = table.shape
     segs = _check_segs(segs, W)
     require(len(segs) <= MAX_SEGS, name, f'at most {MAX_SEGS} segments')
+    require(sum(s[1] for s in segs) <= MAX_HEADS, name,
+            f'at most {MAX_HEADS} rotated heads over all segments')
     code = dtype_code(name, table)
     N = ids.shape[0]
     out = torch.empty((N, W), dtype=table.dtype, device=table.device)
     if N == 0:
         return out
-    # one inverse-frequency vector per distinct head width (MLA's 17
-    # segments share one), made on the device in this call
-    hds = sorted({hd for _, _, hd in segs})
-    inv = torch.cat([rope_freqs(hd, theta, table.device) for hd in hds])
-    starts = dict(zip(hds, [sum(h // 2 for h in hds[:i])
-                            for i in range(len(hds))]))
-    inv_off = [starts[hd] for _, _, hd in segs]
-
-    def arr(vals):
-        return (ctypes.c_int * MAX_SEGS)(*vals)
-
-    offs, heads, hds = (arr([s[i] for s in segs]) for i in range(3))
-    ioff = arr(inv_off)
-    lib = build.load(name)
-    build.check(lib.gather_rope(
+    hds, offs, heads, widths, ioff = _seg_args(segs)
+    inv = inverse_frequencies(hds, theta, table.device)
+    build.check(build.load(name).gather_rope(
         table.data_ptr(), ids.data_ptr(), positions.data_ptr(),
         inv.data_ptr(), out.data_ptr(), N, V, W, code,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(heads, ctypes.c_void_p),
-        ctypes.cast(hds, ctypes.c_void_p), ctypes.cast(ioff, ctypes.c_void_p),
+        ctypes.cast(widths, ctypes.c_void_p), ctypes.cast(ioff, ctypes.c_void_p),
         len(segs), build.stream_of(table)), name)
     gather_rope.launches += 1
     return out

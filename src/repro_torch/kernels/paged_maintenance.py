@@ -20,17 +20,20 @@ merge job covers the page, and page 0 always holds the fill value.
 Unlike the Pallas kernel, the CUDA kernel writes only the rows a job
 changes and never copies a page back, and one launch writes every leaf of
 a layer's cache (k, v, the int8 cache's k_scale / v_scale, and the
-position leaf) from the shared job list.
+position leaf) from the shared job list. For an int8 cache it takes the
+float K/V chunk values and quantizes them in the same launch (JAX runs its
+``_quantize`` as XLA ops in front of the Pallas kernel); the plain version
+is :func:`quantize_rows` followed by :func:`fused_page_write_plain`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import on_cpu, require
+from repro_torch.kernels.common import dtype_code, on_cpu, require
 
 MODE_MERGE = 0
 MODE_FRESH = 1
@@ -91,6 +94,30 @@ def chunk_positions(pos0: torch.Tensor, T: int) -> torch.Tensor:
 
 
 # ========================================================= fused_page_write
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 values + bf16 symmetric scale per row (...),
+    bitwise as JAX's ``_quantize``: the amax and the division in fp32 by
+    the fp32 scale, round half to even, then the scale stored as bf16.
+    The quantizing form of :func:`fused_page_write` computes it in its
+    launch, as this code runs on the card."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def quantized_values(vals: Sequence[Optional[torch.Tensor]],
+                     quantize: Sequence[Tuple[int, int]]
+                     ) -> List[torch.Tensor]:
+    """``vals`` with each ``(value leaf, scale leaf)`` pair of ``quantize``
+    filled in by :func:`quantize_rows` of the value leaf's float rows: the
+    chunk values the plain write stores."""
+    out = list(vals)
+    for i, j in quantize:
+        out[i], out[j] = quantize_rows(vals[i])
+    return out
+
+
 def fused_page_write_plain(pool: torch.Tensor, vals: torch.Tensor,
                            jobs: torch.Tensor, *, Sc: int,
                            fill: int = 0) -> torch.Tensor:
@@ -125,22 +152,35 @@ def _element_ok(name: str, t: torch.Tensor) -> None:
 
 
 def fused_page_write(pools: Sequence[torch.Tensor],
-                     vals: Sequence[torch.Tensor], jobs: torch.Tensor, *,
-                     Sc: int, fills: Sequence[int]) -> List[torch.Tensor]:
+                     vals: Sequence[Optional[torch.Tensor]],
+                     jobs: torch.Tensor, *, Sc: int, fills: Sequence[int],
+                     quantize: Sequence[Tuple[int, int]] = ()
+                     ) -> List[torch.Tensor]:
     """Apply one job list to every pool leaf of a layer, in place.
 
     ``pools[i]`` (NP, ps, ...) contiguous takes chunk values ``vals[i]``
     (B, T, ...) (same trailing shape and dtype; the trailing axes of each
-    (b, t) row contiguous) and fill value ``fills[i]``. CPU tensors take
-    :func:`fused_page_write_plain` leaf by leaf; CUDA tensors launch the
-    kernel once for all leaves. Counts launches in
-    ``fused_page_write.launches``.
+    (b, t) row contiguous) and fill value ``fills[i]``. Each ``(i, j)`` of
+    ``quantize`` names an int8 value leaf ``pools[i]`` (NP, ps, ..., hd)
+    and its bf16 scale leaf ``pools[j]`` (NP, ps, ...): ``vals[i]`` holds
+    the float rows (B, T, ..., hd) that are quantized per row of hd
+    (:func:`quantize_rows`), and ``vals[j]`` is None. CPU tensors take
+    :func:`quantized_values` and :func:`fused_page_write_plain` leaf by
+    leaf; CUDA tensors launch the kernel once for all leaves. Counts
+    launches in ``fused_page_write.launches``.
     """
     name = 'fused_page_write'
     require(len(pools) == len(vals) == len(fills) and pools, name,
             'one chunk value tensor and one fill per pool leaf')
-    if on_cpu(name, jobs, *pools, *vals):
-        for pool, v, f in zip(pools, vals, fills):
+    scale_of = dict(quantize)
+    require(len(scale_of) == len(quantize) and all(
+        vals[j] is None and i != j and j not in scale_of
+        for i, j in quantize), name,
+        'quantize pairs (value leaf, scale leaf) with no chunk values for '
+        'the scale leaf')
+    given = [v for v in vals if v is not None]
+    if on_cpu(name, jobs, *pools, *given):
+        for pool, v, f in zip(pools, quantized_values(vals, quantize), fills):
             fused_page_write_plain(pool, v, jobs, Sc=Sc, fill=f)
         return list(pools)
     require(len(pools) <= MAX_LEAVES, name, f'at most {MAX_LEAVES} leaves')
@@ -148,26 +188,43 @@ def fused_page_write(pools: Sequence[torch.Tensor],
             and jobs.dtype == torch.int32 and jobs.is_contiguous(), name,
             'jobs must be contiguous (NJ, 6) int32')
     NP, ps = pools[0].shape[:2]
-    B, T = vals[0].shape[:2]
-    ptrs, vptrs, strides, row_bytes, fbits = [], [], [], [], []
-    for pool, v, f in zip(pools, vals, fills):
+    B, T = given[0].shape[:2]
+    scales = set(scale_of.values())
+    ptrs, vptrs, strides, row_bytes, fbits, quant = [], [], [], [], [], []
+    for i, (pool, v, f) in enumerate(zip(pools, vals, fills)):
         require(pool.shape[:2] == (NP, ps) and pool.is_contiguous(), name,
                 f'pool leaves must be contiguous (NP, ps, ...), got '
                 f'{tuple(pool.shape)}')
+        _element_ok(name, pool)
+        ptrs.append(pool.data_ptr())
+        row_bytes.append(pool[0, 0].numel() * pool.element_size())
+        fbits.append(_fill_bits(pool, f))
+        if i in scales:
+            require(pool.dtype == torch.bfloat16, name,
+                    f'scale leaves are bfloat16, got {pool.dtype}')
+            vptrs.append(0)
+            strides += [0, 0]
+            continue
+        quantized = i in scale_of
+        want = v.dtype if quantized else pool.dtype
         require(v.shape[:2] == (B, T) and v.shape[2:] == pool.shape[2:]
-                and v.dtype == pool.dtype, name,
+                and v.dtype == want, name,
                 f'chunk values {tuple(v.shape)} {v.dtype} do not match pool '
                 f'leaf {tuple(pool.shape)} {pool.dtype}')
-        _element_ok(name, pool)
         tail = v[0, 0]
         require(tail.is_contiguous(), name,
                 'each (b, t) row of the chunk values must be contiguous')
+        if quantized:
+            sc = pools[scale_of[i]]
+            require(pool.dtype == torch.int8 and sc.shape == pool.shape[:-1],
+                    name, f'a quantized leaf is int8 (NP, ps, ..., hd) with '
+                    f'scales (NP, ps, ...), got {tuple(pool.shape)} '
+                    f'{pool.dtype} and {tuple(sc.shape)}')
+            quant += [i, scale_of[i], pool.shape[-1],
+                      dtype_code(name, v)]
         es = v.element_size()
-        ptrs.append(pool.data_ptr())
         vptrs.append(v.data_ptr())
         strides += [v.stride(0) * es, v.stride(1) * es]
-        row_bytes.append(tail.numel() * es)
-        fbits.append(_fill_bits(pool, f))
     NJ = jobs.shape[0]
     if NJ == 0:
         return list(pools)
@@ -177,8 +234,10 @@ def fused_page_write(pools: Sequence[torch.Tensor],
         (ctypes.c_void_p * n)(*ptrs), (ctypes.c_void_p * n)(*vptrs),
         (ctypes.c_longlong * (2 * n))(*strides),
         (ctypes.c_int * n)(*row_bytes),
-        (ctypes.c_uint * n)(*fbits), n, jobs.data_ptr(), NJ, NP, B, ps,
-        int(Sc), build.stream_of(jobs)), name)
+        (ctypes.c_uint * n)(*fbits), n,
+        (ctypes.c_int * max(len(quant), 1))(*quant), len(quant) // 4,
+        jobs.data_ptr(), NJ, NP, B, ps, int(Sc), build.stream_of(jobs)),
+        name)
     fused_page_write.launches += 1
     return list(pools)
 
@@ -195,15 +254,31 @@ def fused_chunk_scatter(cache: Dict[str, torch.Tensor],
     ``jobs`` (:func:`build_jobs`, shared by every layer), with its pending
     page clears applied to every leaf of ``cache``, in place: bitwise equal
     to clearing the pending pages and then running
-    ``attention.paged_scatter``."""
+    ``attention.paged_scatter``. For an int8 cache (``k_scale`` /
+    ``v_scale`` leaves) ``vals`` holds the float ``k`` / ``v`` alone: the
+    launch quantizes them (:func:`quantize_rows`)."""
+    quant = 'k_scale' in cache
+    if quant:
+        require(set(vals) == {'k', 'v'} and all(
+            v.is_floating_point() for v in vals.values()),
+            'fused_chunk_scatter', f'an int8 cache takes the float k / v '
+            f'alone, got {sorted((nm, v.dtype) for nm, v in vals.items())}')
+        vals = dict(vals, k_scale=None, v_scale=None)
     vals = dict(vals, pos=pos_t)
     names = list(cache)
     require(set(names) == set(vals), 'fused_chunk_scatter',
             f'chunk values {sorted(vals)} must cover every cache leaf '
             f'{sorted(names)}')
-    fused_page_write([cache[nm] for nm in names],
-                     [vals[nm].to(cache[nm].dtype) for nm in names], jobs,
-                     Sc=Sc, fills=[leaf_fill(nm) for nm in names])
+    pairs = [(names.index(nm), names.index(nm + '_scale'))
+             for nm in ('k', 'v')] if quant else []
+
+    def value(nm):
+        if quant and nm != 'pos':
+            return vals[nm]     # quantized in the launch, never cast to int8
+        return vals[nm].to(cache[nm].dtype)
+    fused_page_write([cache[nm] for nm in names], [value(nm) for nm in names],
+                     jobs, Sc=Sc, fills=[leaf_fill(nm) for nm in names],
+                     quantize=pairs)
     return cache
 
 

@@ -16,7 +16,8 @@ windows and unwritten rows. Sliding-window layers keep a ring of
 **int8 caches** (``quant=True``): K/V are int8 with a bf16 scale per
 (token, kv head) in ``k_scale`` / ``v_scale`` (B, Sc, KV), made by
 :func:`_quantize` at every write; the scale leaves are written wherever
-K/V are. The attend folds ``k_scale`` into the scores and ``v_scale`` into
+K/V are. A ``fused_maintenance`` backend's paged write quantizes inside the
+``fused_page_write`` launch instead, to the same bits. The attend folds ``k_scale`` into the scores and ``v_scale`` into
 the probabilities (:func:`_attend_lanes`).
 
 **Caches are updated in place.** JAX returns new cache arrays; PyTorch runs
@@ -43,6 +44,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_maintenance import quantize_rows
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30   # large-negative that survives bf16
@@ -199,14 +201,9 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window: int = 0,
                       quant, device)
 
 
-def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., hd) -> int8 values + bf16 symmetric scale per row (...),
-    bitwise as JAX's ``_quantize``: the amax and the division in fp32 by
-    the fp32 scale, round half to even, then the scale stored as bf16."""
-    xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale.to(torch.bfloat16)
+# (..., hd) -> int8 values + bf16 scale per row, bitwise as JAX's
+# ``_quantize``; the paged write's kernel quantizes in its own launch
+_quantize = quantize_rows
 
 
 def kv_values(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor
@@ -413,7 +410,9 @@ def paged_write(cache: Dict, vals: Dict[str, torch.Tensor],
     the position leaf included. A ``fused_maintenance`` backend writes
     with the ``fused_page_write`` job list ``paged.jobs``, which also
     applies the step's deferred clears, and raises without it; otherwise
-    :func:`paged_scatter`."""
+    :func:`paged_scatter`. Into an int8 cache ``vals`` carries the float
+    ``k`` / ``v`` alone: the fused write quantizes them in its launch, the
+    plain scatter through :func:`kv_values`."""
     table, Sc = paged.table_for(window, cache['pos'].shape[1])
     device = next(iter(vals.values())).device
     if getattr(_backend(backend, device), 'fused_maintenance', False):
@@ -423,6 +422,8 @@ def paged_write(cache: Dict, vals: Dict[str, torch.Tensor],
                 'fused paged writes need the step job list of the linear '
                 'page table: PageTables.jobs (see PageTables.with_jobs)')
         return PM.fused_chunk_scatter(cache, vals, *paged.jobs, Sc=Sc)
+    if 'k_scale' in cache:
+        vals = kv_values(cache, vals['k'], vals['v'])
     return paged_scatter(cache, vals, pos0, n_valid, table, Sc)
 
 
@@ -434,7 +435,7 @@ def chunk_write(cache: Dict, k_h: torch.Tensor, v_h: torch.Tensor,
     with the scales)."""
     if paged is None:
         return cache_update_chunk(cache, k_h, v_h, pos0, n_valid)
-    return paged_write(cache, kv_values(cache, k_h, v_h), pos0, n_valid,
+    return paged_write(cache, {'k': k_h, 'v': v_h}, pos0, n_valid,
                        window=window, paged=paged, backend=backend)
 
 

@@ -115,3 +115,72 @@ def clean_after_failed(engine, vocab):
     pages = [{p for failed, got in taken if failed == k for p in got}
              for k in (0, 1)]
     return after, fresh, pages
+
+
+# ------------------------------------------- the quantizing page write
+# An amax (a bf16 value) whose scale differs by one ulp between amax / 127
+# and amax * fl(1 / 127): for its half, x / scale rounds to 63 by the one
+# and to 64 by the other
+DIVISION_AMAX = 0.008728027
+
+
+def quant_edge_rows(rng, hd: int) -> np.ndarray:
+    """(5, hd) float32 rows, every value a bf16 value, that test the
+    quantizer's bits: one NaN (the whole row gives 0 and a NaN scale); all
+    zeros (the 1e-8 scale floor); amax 127 (scale exactly 1) with values on
+    .5 boundaries (round half to even); bf16's largest finite values; and
+    ``DIVISION_AMAX`` with its half and minus its half."""
+    rows = np.zeros((5, hd), np.float32)
+    rows[0] = rng.standard_normal(hd)
+    rows[0, hd // 3] = np.nan
+    ties = np.arange(hd) % 9 - 4.5
+    rows[2] = np.where(np.arange(hd) % 2 == 0, ties, -ties)
+    rows[2, 0], rows[2, -1] = 127, 126.5
+    big = np.float32(torch.finfo(torch.bfloat16).max)
+    rows[3] = big * np.sign(rng.standard_normal(hd))
+    rows[3, 1::2] /= 3
+    a = np.float32(DIVISION_AMAX)
+    rows[4] = rng.uniform(-a / 4, a / 4, hd)
+    rows[4, :3] = [a, a / 2, -a / 2]
+    return torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
+
+
+def quant_write_case(seed: int, *, ps: int, Sc: int, T: int, KV: int,
+                     hd: int):
+    """One layer's int8 pool leaves and a chunk write into them: slot 0
+    wraps the ring of ``Sc`` entries (merge pages; a last page past the
+    ring's end when Sc is not a page multiple), slot 1 starts on a fresh
+    page awaiting its clear (mode 1), slot 2 writes one lane; two more
+    pending pages are cleared whole (mode 2) and a 0 pads the pending
+    list. The float K/V values (B, T, KV, hd) carry
+    :func:`quant_edge_rows`; the NaN row is the only lane written from its
+    slot. -> (pool leaves as numpy arrays, keyed as the cache; K and V as
+    float32 numpy arrays; pos0, n_valid, table, pending as int32 numpy
+    arrays)."""
+    rng = np.random.default_rng(seed)
+    B = 3
+    P = -(-Sc // ps)
+    NP = 1 + B * P + 3
+    lead = (NP, ps)
+    scale = np.abs(rng.standard_normal(lead + (KV,))) * 0.05 + 1e-3
+    pool = {'k': rng.integers(-127, 128, lead + (KV, hd)).astype(np.int8),
+            'v': rng.integers(-127, 128, lead + (KV, hd)).astype(np.int8),
+            'k_scale': torch.from_numpy(scale).to(torch.bfloat16).float()
+            .numpy(),
+            'v_scale': torch.from_numpy(scale[::-1].copy())
+            .to(torch.bfloat16).float().numpy(),
+            'pos': rng.integers(0, 99, lead).astype(np.int32)}
+    for nm in pool:
+        pool[nm][0] = -1 if nm == 'pos' else 0
+    table = (rng.permutation(B * P) + 1).reshape(B, P).astype(np.int32)
+    pos0 = np.array([Sc - 2, 0, 5 % Sc], np.int32)
+    n_valid = np.array([T, T, 1], np.int32)
+    pending = np.array([table[1, 0], NP - 1, NP - 2, 0], np.int32)
+    x = (rng.standard_normal((2, B, T, KV, hd)) * 2).astype(np.float32)
+    edge = quant_edge_rows(rng, hd)
+    x[0, 2, 0, 0] = edge[0]                      # NaN: slot 2's one lane
+    x[0, 0, min(1, T - 1), KV - 1] = edge[1]     # zeros
+    x[1, 0, 0, 0] = edge[2]                      # ties
+    x[0, 1, 0, 0] = edge[3]                      # bf16's largest
+    x[1, 1, T - 1, KV - 1] = edge[4]             # division
+    return pool, x[0], x[1], pos0, n_valid, table, pending

@@ -13,7 +13,9 @@ chunk gives 256 query rows per (slot, kv head). The plain versions of
 
 Tests marked ``cuda`` hold each CUDA kernel against its plain version on a
 card and skip without one (bitwise for the two page-maintenance kernels,
-also on the int8 cache's five leaves; the MLA form of ``paged_attention``
+also on the int8 cache's five leaves and for the quantizing form of
+``fused_page_write``, float K/V in; ``gather_rope`` at N 1, 4 and 64, one
+kernel a call after the first; the MLA form of ``paged_attention``
 and the 17-segment ``gather_rope`` at deepseek-v2-lite-16b widths; the
 int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths;
 ``sharded_paged_attention`` over a mesh of the card repeated, bitwise
@@ -24,6 +26,7 @@ only the port they run with:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+import itertools
 import re
 
 import numpy as np
@@ -49,7 +52,7 @@ from repro_torch.kernels.rmsnorm_qkv import (rmsnorm_matmul,
 from repro_torch.models.attn_backend import KERNEL_TOL
 
 from _torch_scenarios import (clean_after_failed, cow_retaken_run,
-                              oov_prompts, serve_outcomes)
+                              oov_prompts, quant_write_case, serve_outcomes)
 
 
 @pytest.fixture(scope='module')
@@ -469,24 +472,50 @@ def test_out_of_vocab_fails_only_its_request_on_card(cuda):
             assert pages[0] & pages[1], pages
 
 
+def _device_kernels(fn) -> int:
+    """Device kernels (and copies) that one call of ``fn`` runs, by the
+    profiler's trace; a trace with no device activity at all recorded
+    nothing and is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_gather_rope_kernel_matches_plain(cuda, dtype, tol):
+    """mistral-7b rows (q 32 x 128, k 8 x 128 of width 10240) at N 1, 4
+    and 64; a second call launches one kernel and nothing else (the
+    frequencies are built once)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    V, W, N = 32000, 10240, 64
+    V, W = 32000, 10240
     tab = torch.randn((V, W), generator=gen, device=cuda).to(dtype)
-    ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
-                        dtype=torch.int32)
-    pos = torch.randint(0, 32768, (N,), generator=gen, device=cuda,
-                        dtype=torch.int32)
     kw = dict(segs=((4096, 32, 128), (8192, 8, 128)), theta=1e4)
-    got = gather_rope(tab, ids, pos, **kw)
-    want = gather_rope_plain(tab, ids, pos, **kw)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-    rows = tab[ids.long()]
-    assert torch.equal(got[:, :4096], rows[:, :4096])
-    assert torch.equal(got[:, 9216:], rows[:, 9216:])
+    for N in (1, 4, 64):
+        ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        pos = torch.randint(0, 32768, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        got = gather_rope(tab, ids, pos, **kw)
+        want = gather_rope_plain(tab, ids, pos, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        rows = tab[ids.long()]
+        assert torch.equal(got[:, :4096], rows[:, :4096])
+        assert torch.equal(got[:, 9216:], rows[:, 9216:])
+        n0 = gather_rope.launches
+        assert _device_kernels(lambda: gather_rope(tab, ids, pos, **kw)) == 1
+        assert gather_rope.launches == n0 + 1
 
 
 @pytest.mark.cuda
@@ -545,17 +574,21 @@ def test_gather_rope_kernel_mla_segments(cuda, dtype, tol, N):
                         dtype=torch.int32)
     segs = tuple((d + h * (dn + dr) + dn, 1, dr) for h in range(H)) \
         + ((d + H * (dn + dr) + r, 1, dr),)
-    n0 = gather_rope.launches
-    got = gather_rope(tab, ids, pos, segs=segs, theta=1e4)
-    want = gather_rope_plain(tab, ids, pos, segs=segs, theta=1e4)
-    torch.cuda.synchronize()
-    assert gather_rope.launches == n0 + 1
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     rotated = torch.zeros(W, dtype=torch.bool, device=cuda)
     for off, _, w in segs:
         rotated[off:off + w] = True
-    rows = tab[ids.long()]
-    assert torch.equal(got[:, ~rotated], rows[:, ~rotated])
+    for n in (1, N):
+        n0 = gather_rope.launches
+        got = gather_rope(tab, ids[:n], pos[:n], segs=segs, theta=1e4)
+        want = gather_rope_plain(tab, ids[:n], pos[:n], segs=segs, theta=1e4)
+        torch.cuda.synchronize()
+        assert gather_rope.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        rows = tab[ids[:n].long()]
+        assert torch.equal(got[:, ~rotated], rows[:, ~rotated])
+        assert _device_kernels(lambda: gather_rope(
+            tab, ids[:n], pos[:n], segs=segs, theta=1e4)) == 1
 
 
 @pytest.mark.cuda
@@ -636,6 +669,46 @@ def test_fused_page_write_kernel_bitwise(cuda, dtype, ps, Sc, T):
     assert PM.fused_page_write.launches == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_quantizing_page_write_kernel_bitwise(cuda):
+    """The quantizing form (float K/V in, int8 rows and bf16 scales out, in
+    the write's own launch) bitwise its plain version (``quantize_rows`` +
+    the plain write, torch's CUDA kernels) on all five leaves at glm4-9b
+    shapes (KV 2, hd 128): page sizes 1 and 16, T 1 and 16, a linear table
+    of 2048 and a ring of 27, fp32 and bf16 values, with rows of NaN,
+    zeros, .5 ties, bf16's largest values and an amax at which division and
+    reciprocal differ (``tests/_torch_scenarios.py``). One launch a
+    write."""
+    names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+    pairs = [(0, 2), (1, 3)]
+    for ps, Sc, T, dtype in itertools.product(
+            (1, 16), (2048, 27), (1, 16), (torch.float32, torch.bfloat16)):
+        pool, k, v, pos0, nv, table, pending = quant_write_case(
+            ps + Sc + T, ps=ps, Sc=Sc, T=T, KV=2, hd=128)
+        leaves = [torch.from_numpy(pool[nm]).to(cuda) for nm in names]
+        for i in (2, 3):
+            leaves[i] = leaves[i].to(torch.bfloat16)
+        jobs = PM.build_jobs(*(torch.from_numpy(a).to(cuda)
+                               for a in (pos0, nv, table)), Sc, ps, T,
+                             torch.from_numpy(pending).to(cuda))
+        pos_t = PM.chunk_positions(torch.from_numpy(pos0).to(cuda), T)
+        vals = [torch.from_numpy(k).to(cuda).to(dtype),
+                torch.from_numpy(v).to(cuda).to(dtype), None, None, pos_t]
+        fills = [PM.leaf_fill(nm) for nm in names]
+        want = [PM.fused_page_write_plain(x.clone(), y, jobs, Sc=Sc, fill=f)
+                for x, y, f in zip(leaves, PM.quantized_values(vals, pairs),
+                                   fills)]
+        n0 = PM.fused_page_write.launches
+        PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills,
+                            quantize=pairs)
+        torch.cuda.synchronize()
+        assert PM.fused_page_write.launches == n0 + 1
+        for nm, g, w in zip(names, leaves, want):
+            bits = torch.int16 if 'scale' in nm else g.dtype
+            assert torch.equal(g.view(bits), w.view(bits)), \
+                (ps, Sc, T, dtype, nm)
 
 
 @pytest.mark.cuda

@@ -54,6 +54,8 @@ from repro_torch.models.model import Model
 from repro_torch.params import from_numpy_tree
 from repro_torch.serving.engine import Request, RequestStatus, ServingEngine
 
+from _torch_scenarios import quant_write_case
+
 # model logits across frameworks in int8: JAX's own backends differ by
 # 4.06e-4 / 1.08e-2 on the gqa config (int8 step flips); see the docstring
 INT8_MODEL_TOL = dict(atol=1e-3, rtol=2e-2)
@@ -266,6 +268,83 @@ def test_paged_chunk_write_quant_matches_jax_bitwise(T):
                   backend=REFERENCE)
     for nm in LEAVES:
         assert torch.equal(fused[nm], eager[nm]), nm
+
+
+def _same_bits(got: np.ndarray, want: np.ndarray) -> bool:
+    """Bitwise equal, a NaN equal to a NaN whatever its bits (torch's CPU
+    bf16 conversion gives NaN 0xFFFF, JAX's 0x7FC0)."""
+    nan = np.isnan(got.astype(np.float32))
+    if not np.array_equal(nan, np.isnan(want.astype(np.float32))):
+        return False
+    bits = {2: np.int16, 4: np.int32, 1: np.int8}[got.dtype.itemsize]
+    return np.array_equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+def test_quantizing_page_write_matches_jax_bitwise():
+    """The quantizing form of ``fused_page_write`` (float K/V in, the
+    plain version here: ``quantize_rows`` + the plain write) against JAX's
+    ``_quantize`` + ``fused_page_write`` (Pallas, interpret mode) on all
+    five leaves: page sizes 1 and 16, fp32 and bf16 values, modes 0/1/2,
+    a ring whose last page runs past its end (the vbase rule), and rows of
+    NaN, zeros, .5 ties, bf16's largest values and an amax at which
+    division and reciprocal differ. int8 values and positions bitwise;
+    scales bitwise with NaN equal to NaN. JAX's kernel gathers by a one-hot
+    matmul, so a NaN lane would reach every row written from its slot's
+    chunk: the NaN row is its slot's only written lane."""
+    from repro.kernels import paged_maintenance as JPM
+    KV, hd, T = 2, 16, 4
+    for (ps, Sc), dtype in [((1, 11), 'float32'), ((1, 11), 'bfloat16'),
+                            ((16, 27), 'float32'), ((16, 27), 'bfloat16')]:
+        pool, k, v, pos0, nv, table, pending = quant_write_case(
+            ps + Sc, ps=ps, Sc=Sc, T=T, KV=KV, hd=hd)
+        tjobs = PM.build_jobs(*map(torch.from_numpy, (pos0, nv, table)), Sc,
+                              ps, T, torch.from_numpy(pending))
+        assert set(tjobs[:, 4].tolist()) == {0, 1, 2}, tjobs
+        jobs = jnp.asarray(tjobs.numpy())
+        pos_t = pos0[:, None] + np.arange(T, dtype=np.int32)[None]
+        jk, jv = (jnp.asarray(x).astype(dtype) for x in (k, v))
+        (kq, ks), (vq, vs) = JA._quantize(jk), JA._quantize(jv)
+        jvals = {'k': kq, 'v': vq, 'k_scale': ks, 'v_scale': vs,
+                 'pos': jnp.asarray(pos_t)}
+        want = {nm: JPM.fused_page_write(x, jvals[nm].astype(x.dtype), jobs,
+                                         Sc=Sc, fill=PM.leaf_fill(nm),
+                                         interpret=True)
+                for nm, x in _to_jax(pool).items()}
+        got = _to_torch(pool)
+        names = list(got)
+        tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (k, v))
+        vals = {'k': tk, 'v': tv, 'k_scale': None, 'v_scale': None,
+                'pos': torch.from_numpy(pos_t)}
+        n0 = PM.fused_page_write.launches
+        PM.fused_page_write([got[nm] for nm in names],
+                            [vals[nm] for nm in names], tjobs, Sc=Sc,
+                            fills=[PM.leaf_fill(nm) for nm in names],
+                            quantize=[(names.index('k'),
+                                       names.index('k_scale')),
+                                      (names.index('v'),
+                                       names.index('v_scale'))])
+        assert PM.fused_page_write.launches == n0
+        for nm in names:
+            g, w = got[nm], np.asarray(want[nm])
+            if 'scale' in nm:                    # bf16 widened: exact
+                g, w = g.float(), w.astype(np.float32)
+            assert _same_bits(g.numpy(), w), (ps, dtype, nm)
+        # the edge rows landed where the case put them
+        page, row = _slot_row(table[2], pos0[2], Sc, ps)
+        assert not got['k'][page, row, 0].any()
+        assert got['k_scale'][page, row, 0].isnan()
+        page, row = _slot_row(table[0], pos0[0] + min(1, T - 1), Sc, ps)
+        assert got['k_scale'][page, row, KV - 1] == \
+            torch.tensor(1e-8).to(torch.bfloat16)
+        page, row = _slot_row(table[0], pos0[0], Sc, ps)
+        assert got['v'][page, row, 0, :4].tolist() == [127, 4, -2, 2]
+
+
+def _slot_row(table_row, pos, Sc, ps):
+    """(page, row) that ring position ``pos`` of a slot lands on."""
+    idx = int(pos) % Sc
+    return int(table_row[idx // ps]), idx % ps
 
 
 # ---------------------------------------------------------------- attention
