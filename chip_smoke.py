@@ -15,21 +15,28 @@ Phases, in order; any failure raises and exits non-zero:
               card, in bf16 and fp32, and times kernel, plain version, one
               PyTorch library call where one computes the same function,
               and the roofline bound: embed_gather (bitwise; N 1-4096 at
-              mistral-7b and glm4-9b width) and gather_rope (both also with
+              mistral-7b and glm4-9b width, N 1-2048 at pythia-6.9b's 16384)
+              and gather_rope (both also with
               the ids -1, -V, -V - 1, V, V + 7: wrapped rows and NaN rows,
               bitwise the plain versions, NaN equal to NaN; gather_rope at N
-              1, 4, 64 and 512 for the mistral-7b, glm4-9b and
-              deepseek-v2-lite-16b rows, one device kernel a call after the
-              first, by the profiler), paged_attention at mistral-7b
+              1, 4, 64 and 512 for the mistral-7b, glm4-9b,
+              deepseek-v2-lite-16b and pythia-6.9b rows (64 rotated heads
+              of 128), one device kernel a call after the first, the nodes
+              of a CUDA graph of the call), paged_attention at mistral-7b
               full-width shapes; paged_attention
               at glm4-9b's G 16 through a scattered page table (in bf16 the
               split kernel, also held to the flash check's row-scaled limit,
               and row t of each 16-token call bitwise a one-token call at pos0
-              + t); fused_page_write (bitwise; linear and ring jobs, modes
-              0/1/2, page-0 collisions, the int32 position leaf) and
-              cow_page_copy (bitwise; rem 0/7/16 over a body leaf flattened
-              over 39 layers) at glm4-9b page shapes, each timed beside one
-              launch of an empty kernel (the launch floor); the MLA form of
+              + t), and at pythia-6.9b's G 1 (32 kv heads, one query row a
+              (slot, kv head) at T 1) in bf16; fused_page_write (bitwise;
+              linear and ring jobs, modes 0/1/2, page-0 collisions, the int32
+              position leaf) and cow_page_copy (bitwise; rem 0/7/16 over a
+              body leaf flattened over 39 layers) at glm4-9b page shapes,
+              each timed beside one launch of an empty kernel (the launch
+              floor), and cow_page_copy at pythia-6.9b's 128 KB leaf pages
+              over 31 layers, bf16 k/v/pos and the five int8 leaves
+              (bitwise; rem 7 timed with the same pages every replay and
+              with pages new to the L2); the MLA form of
               paged_attention at deepseek-v2-lite-16b shapes (fp32 queries over
               bf16 latent pages on the split kernel, row t of the 16-token
               call bitwise a one-token call, and over fp32 pages on the
@@ -37,8 +44,9 @@ Phases, in order; any failure raises and exits non-zero:
               MLA segments (width 5696), and fused_page_write / cow_page_copy
               on its ckv / kpe / pos leaves over 27 layers (bitwise); the int8
               form of paged_attention (paged_attention_quant) at mistral-7b
-              shapes on identity-table pages and at glm4-9b shapes through a
-              scattered table (bf16 queries on the split kernel, also held to
+              shapes on identity-table pages and at glm4-9b and pythia-6.9b
+              (G 1) shapes through a scattered table (bf16 queries on the
+              split kernel, also held to
               the row-scaled limit, row t of each 16-token call bitwise a
               one-token call; fp32 queries on the template kernel), and
               fused_page_write / cow_page_copy on the five
@@ -105,11 +113,26 @@ Phases, in order; any failure raises and exits non-zero:
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
               count.
-7. pressure — the glm4-9b smoke config in fp32 without the fused gather
+7. pythia  — serves pythia-6.9b (the paper's parallel block: LayerNorm,
+              MHA, a GELU MLP; the table's rows [s, q, k, v] carry layer
+              0's FFN and skip too) at full width and depth on seeded random
+              bf16 weights: dense caches with the table and the fused
+              gather-RoPE, 4 requests of 64-200 tokens + 16 new, then the
+              same requests without the table (the share of equal greedy
+              tokens printed); the paged pool with the radix cache (phase
+              5's two waves, a copy-on-write at 128 KB leaf pages); the
+              layer-0 comparison (embedding rows + LN1 + Q/K/V + LN2 + FFN +
+              skip against embed_gather of table rows, N 1, 4, 64, 2048) and
+              Model.apply at B 1, S 2048, baseline and with the table.
+              Launches: one gather a step, paged_attention once a layer and
+              step, fused_page_write once a layer and step on the paged run,
+              cow_page_copy once per cache and copy, flash_attention once a
+              layer a forward, rmsnorm_matmul never.
+8. pressure — the glm4-9b smoke config in fp32 without the fused gather
               (so embed_gather runs on the paged path) and a pool too small
               for its slots: preemptions happen, tokens equal an
               unpressured run's.
-8. consistency — on the card, fp32 smoke configs, with fp32 and then
+9. consistency — on the card, fp32 smoke configs, with fp32 and then
               int8 KV caches: mistral-7b's cuda and reference backends
               give equal greedy tokens; glm4-9b and deepseek-v2-lite-16b
               paged with the cuda backend give dense reference's tokens
@@ -126,9 +149,10 @@ Phases, in order; any failure raises and exits non-zero:
 In each engine phase the launch counters are zeroed just before the run
 and read just after; every kernel of that path must have run (the int8
 runs: paged_attention_quant once per attention layer and step, the dense
-form never; the baseline run: no gather). Each Model.apply forward is
-counted on its own: flash_attention once a layer, rmsnorm_matmul once a
-layer without the table and once less with it. Ends with a
+form never; the baseline run: no gather; with the table one gather a step;
+cow_page_copy once per cache and copy). Each Model.apply forward is
+counted on its own: flash_attention once a layer, rmsnorm_matmul (RMSNorm
+models) once a layer without the table and once less with it. Ends with a
 ``{"kernels": [...]}`` line and, last, the device JSON line. Imports
 nothing of JAX or of the JAX package ``repro``.
 """
@@ -170,7 +194,8 @@ from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models.attention import (_quantize,  # noqa: E402
                                           paged_view)
-from repro_torch.models.blocks import preproj_layout  # noqa: E402
+from repro_torch.models.blocks import (block_preproj,  # noqa: E402
+                                       preproj_layout)
 from repro_torch.models.transformer import (  # noqa: E402
     fused_rope_segments, layer_plan)
 from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
@@ -278,17 +303,19 @@ def phase_build() -> None:
 
 # ----------------------------------------------------------------- phase 3
 # (config, smoke?, dtypes, token counts) at which each gather kernel runs on
-# an engine path of this script: mistral-7b and glm4-9b at full width
-# (chunk steps of 4 x 16 tokens, decode steps of 4), the glm4-9b smoke
-# config of the pressure phase (3 slots, chunk 8, fp32) and the smoke
-# configs of the consistency phase; for embed_gather also N 1 and 4096, the
-# decode and prefill sizes of the layer-0 comparison.
+# an engine path of this script: mistral-7b, glm4-9b and pythia-6.9b
+# (16384-wide rows, 64 rotated heads) at full width (chunk steps of 4 x 16
+# tokens, decode steps of 4), the glm4-9b smoke config of the pressure phase
+# (3 slots, chunk 8, fp32) and the smoke configs of the consistency phase;
+# for embed_gather also N 1 and 4096 (2048 for pythia-6.9b), the decode and
+# prefill sizes of the layer-0 comparison.
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 512, 4096)),
                ('glm4_9b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 4096)),
                ('glm4_9b', True, (torch.float32,), (3, 24)),
-               ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
+               ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)),
+               ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 2048)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (1, 4, 64, 512)),
               ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -297,7 +324,8 @@ ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (torch.bfloat16, torch.float32), (1, 4, 64, 512)),
               ('mistral_7b', True, (torch.float32,), (3, 12)),
               ('glm4_9b', True, (torch.float32,), (3, 24)),
-              ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)))
+              ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)),
+              ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 512)))
 ROPE_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 
 
@@ -394,22 +422,20 @@ def rope_segments(cfg):
 
 
 def device_kernels(fn) -> int:
-    """Device kernels (and copies) one call of ``fn`` runs, by the
-    profiler's trace. A trace with no device activity at all recorded
-    nothing (the profiler now and then delivers none) and is taken again,
-    up to three times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-        if n:
-            return n
-    return 0
+    """Device kernels (and copies) one call of ``fn`` runs: the nodes of a
+    CUDA graph that captures the call, counted with ``cuGraphGetNodes``
+    of ``libcuda``. The profiler's trace counts the same, but now and then
+    delivers no device activity at all for the rest of a run."""
+    import ctypes
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL('libcuda.so.1').cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f'cuGraphGetNodes: CUDA error {rc}')
+    return n.value
 
 
 def fresh_rows_ms(table, V, n, kw, sets: int = 8) -> float:
@@ -433,9 +459,9 @@ def fresh_rows_ms(table, V, n, kw, sets: int = 8) -> float:
 def check_gather_rope(gen) -> dict:
     """gather_rope against its plain version at ROPE_CASES (within
     ROPE_TOL; unrotated columns, wrapped rows and NaN rows bitwise), one
-    device kernel a call after the first (profiler), timed beside its
-    plain version and bound; the kernels line's row is mistral-7b bf16 N
-    64's, its ``at_n`` the full-width bf16 times."""
+    device kernel a call after the first (``device_kernels``), timed
+    beside its plain version and bound; the kernels line's row is
+    mistral-7b bf16 N 64's, its ``at_n`` the full-width bf16 times."""
     row, at_n = {}, {}
     for name, smoke, dtypes, counts in ROPE_CASES:
         cfg = config_of(name, smoke)
@@ -760,47 +786,110 @@ def library_page_write_ms(leaves, srcs, jobs, Sc, ps) -> float:
 
 
 def check_cow_page_copy(gen) -> dict:
-    cfg = get_config('glm4_9b')
-    KV, d, ps = cfg.num_kv_heads, cfg.head_dim, GLM_PS
-    reps, NP = cfg.num_layers - 1, glm_pool_pages()
-    row = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        k, v, pos = page_leaves(gen, dtype, reps * NP, ps, KV, d)
-        cache = {'k': k.view(reps, NP, ps, KV, d),
-                 'v': v.view(reps, NP, ps, KV, d),
-                 'pos': pos.view(reps, NP, ps)}
-        for src, dst, rem in ((11, 900, 0), (12, 901, 7), (13, 902, ps)):
-            sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
-                                for r in range(reps)], dtype=torch.int32,
-                               device='cuda')
-            want = [PM.cow_page_copy_plain(x.clone(), sdr,
-                                           fill=PM.leaf_fill(nm))
-                    for nm, x in (('k', k), ('v', v), ('pos', pos))]
+    """cow_page_copy at glm4-9b's pages (2 kv heads x 128: 8 KB a bf16 leaf
+    page) over 39 stacked layers of the engine's pool, bf16 and fp32, then
+    at pythia-6.9b's (``row['pythia']``)."""
+    row = check_cow_pages(gen, 'glm4_9b', ('bf16', 'fp32'),
+                          glm_pool_pages())['bf16']
+    row['pythia'] = check_cow_pages(gen, 'pythia_6_9b', ('bf16', 'int8'),
+                                    PYTHIA_COW_NP, fresh=True)
+    return row
+
+
+PYTHIA_COW_NP = 64          # pages a layer in the pythia-6.9b copy checks
+COW_DTYPES = {'bf16': torch.bfloat16, 'fp32': torch.float32}
+
+
+def cow_leaves(gen, arch, kind, NP):
+    """``arch``'s pool leaves over its stacked layers (all but layer 0),
+    ``NP`` pages a layer, flattened to (reps * NP, ps, ...) as
+    ``cow_copy_cache`` passes them: k / v / pos in ``kind`` ('bf16' or
+    'fp32'), or the five int8 leaves ('int8'). -> names, pools, fills,
+    reps."""
+    cfg = get_config(arch)
+    KV, d, ps, reps = cfg.num_kv_heads, cfg.head_dim, GLM_PS, \
+        cfg.num_layers - 1
+    if kind == 'int8':
+        names = QUANT_LEAVES
+        pos = torch.randint(0, 4096, (reps * NP, ps), generator=gen,
+                            device='cuda', dtype=torch.int32)
+        pools = list(int8_leaves(gen, (reps * NP, ps), KV, d)) + [pos]
+    else:
+        names = ('k', 'v', 'pos')
+        pools = list(page_leaves(gen, COW_DTYPES[kind], reps * NP, ps, KV,
+                                 d))
+    return names, pools, [PM.leaf_fill(nm) for nm in names], reps
+
+
+def layer_jobs(reps, NP, src, dst, rem):
+    """One copy-on-write job a stacked layer: page ``src`` into ``dst`` of
+    each layer's ``NP`` pages, ``rem`` rows kept."""
+    return torch.tensor([[src + r * NP, dst + r * NP, rem]
+                         for r in range(reps)], dtype=torch.int32,
+                        device='cuda')
+
+
+def check_cow_pages(gen, arch, kinds, NP, fresh=False) -> dict:
+    """cow_page_copy over ``arch``'s stacked leaves (``cow_leaves``), one
+    job a layer, rem 0, 7 and 16, bitwise the plain version for each kind
+    of ``kinds``; rem 7 timed with the same pages every replay (L2-warm)
+    and, with ``fresh``, with pages new to the L2 (``fresh_cow_ms``).
+    -> rows by kind."""
+    cfg = get_config(arch)
+    ps, out = GLM_PS, {}
+    for kind in kinds:
+        names, pools, fills, reps = cow_leaves(gen, arch, kind, NP)
+        cache = {nm: x.view((reps, NP) + tuple(x.shape[1:]))
+                 for nm, x in zip(names, pools)}
+        what = f'cow_page_copy {cfg.name} {kind} ({"/".join(names)})'
+        for src, dst, rem in ((11, 40, 0), (12, 41, 7), (13, 42, ps)):
+            sdr = layer_jobs(reps, NP, src, dst, rem)
+            want = [PM.cow_page_copy_plain(x.clone(), sdr, fill=f)
+                    for x, f in zip(pools, fills)]
             PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
             torch.cuda.synchronize()
-            for nm, g, w in zip(('k', 'v', 'pos'), (k, v, pos), want):
-                assert torch.equal(g, w), f'cow_page_copy rem={rem} {nm}'
-            if dtype is not torch.bfloat16 or rem != 7:
-                log(f'[kernel] cow_page_copy {str(dtype)[6:]} rem={rem} over '
-                    f'{reps} layers: bitwise equal')
+            for nm, g, w in zip(names, pools, want):
+                assert torch.equal(g, w), f'{what} rem={rem} {nm}'
+            del want
+            if rem != 7:
+                log(f'[kernel] {what} rem={rem} over {reps} layers: bitwise '
+                    f'equal')
                 continue
-            pools = [k, v, pos]
-            fills = [0, 0, -1]
             rb = [x[0, 0].numel() * x.element_size() for x in pools]
             moved = reps * sum((rem + ps) * b for b in rb) + nbytes(sdr)
-            b_ms, by = bound(moved, 0, dtype)
+            b_ms, by = bound(moved, 0, torch.bfloat16)
             ms = time_ms(lambda: PM.cow_page_copy(pools, sdr, fills=fills))
+            new_ms = fresh_cow_ms(lambda jobs: PM.cow_page_copy(
+                pools, jobs, fills=fills), reps, NP, rem) if fresh else None
             plain = time_ms(lambda: [PM.cow_page_copy_plain(x, sdr, fill=f)
                                      for x, f in zip(pools, fills)])
             lib = library_cow_copy_ms(pools, sdr, ps)
-            log(f'[kernel] cow_page_copy {str(dtype)[6:]} rem={rem} over '
-                f'{reps} layers (k, v, pos; NP={NP}): bitwise equal; kernel '
-                f'{ms:.4f} ms, plain {plain:.4f} ms, indexed assignment x3 '
-                f'(no fills) {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
-            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=by, library_ms=lib)
-        del cache, k, v, pos
-    return row
+            fresh_text = '' if new_ms is None else \
+                f', {new_ms:.4f} ms (pages new to the L2)'
+            log(f'[kernel] {what} rem={rem} over {reps} layers '
+                f'(KV={cfg.num_kv_heads}, NP={NP}, {moved} bytes): bitwise '
+                f'equal; kernel {ms:.4f} ms (same pages every replay)'
+                f'{fresh_text}, plain {plain:.4f} ms, indexed assignment '
+                f'x{len(pools)} (no fills) {lib:.4f} ms, bound {b_ms:.4f} ms '
+                f'({by})')
+            out[kind] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=by, library_ms=lib)
+            if fresh:
+                out[kind]['fresh_ms'] = new_ms
+        del cache, pools
+        free()
+    return out
+
+
+def fresh_cow_ms(copy, reps, NP, rem, sets: int = 8) -> float:
+    """Device ms a copy-on-write of ``reps`` stacked layers when its pages
+    are not in the L2 cache: each call of a round copies its own pages
+    (job set i: page 2i into page 2i + 1 on every layer), ``sets`` of
+    them (about 94 MB a round at pythia-6.9b's bf16 pages, rem 7, against
+    the H100's 50 MB L2). ``copy(sdr)`` launches one copy."""
+    jobs = [layer_jobs(reps, NP, 2 * i, 2 * i + 1, rem)
+            for i in range(1, sets + 1)]
+    return time_ms(lambda: [copy(j) for j in jobs], iters=4) / sets
 
 
 def library_cow_copy_ms(pools, sdr, ps) -> float:
@@ -835,10 +924,11 @@ def launch_floor_ms() -> float:
 GLM_LENGTHS = (300, 271, 0, 365)          # tokens held by the 4 slots
 
 
-def glm4_pool(gen, dtype):
-    """glm4-9b's K/V pages (the engine's pool, KV 2, d 128) with slots of
-    ``GLM_LENGTHS`` tokens through a scattered table: k, v, cpos, table."""
-    cfg = get_config('glm4_9b')
+def scattered_pool(gen, dtype, arch='glm4_9b'):
+    """``arch``'s K/V pages over glm4-9b's engine pool (glm4-9b: KV 2, d
+    128; pythia-6.9b: KV 32) with slots of ``GLM_LENGTHS`` tokens through
+    a scattered table: k, v, cpos, table."""
+    cfg = get_config(arch)
     NP, ps = glm_pool_pages(), GLM_PS
     k, v, cpos = page_leaves(gen, dtype, NP, ps, cfg.num_kv_heads,
                              cfg.head_dim)
@@ -851,9 +941,11 @@ def glm4_pool(gen, dtype):
     return k, v, cpos, table
 
 
-def glm4_queries(gen, dtype, T):
-    """q (4, T, 2, 16, 128) for the last T positions of each slot, pos0."""
-    cfg = get_config('glm4_9b')
+def scattered_queries(gen, dtype, T, arch='glm4_9b'):
+    """q (4, T, KV, G, d) of ``arch`` (glm4-9b: (4, T, 2, 16, 128);
+    pythia-6.9b: (4, T, 32, 1, 128)) for the last T positions of each
+    slot, pos0."""
+    cfg = get_config(arch)
     KV = cfg.num_kv_heads
     pos0 = torch.tensor([max(n - T, 0) for n in GLM_LENGTHS],
                         dtype=torch.int32, device='cuda')
@@ -862,19 +954,34 @@ def glm4_queries(gen, dtype, T):
     return q, pos0
 
 
-def check_paged_attention_glm4(gen) -> dict:
+def check_paged_attention_pools(gen) -> dict:
     """glm4-9b's KV 2, G 16, d 128 through a scattered table over the
-    engine's pool: 16 query rows per (slot, kv head) at T 1, 256 at T 16."""
-    cfg = get_config('glm4_9b')
+    engine's pool: 16 query rows per (slot, kv head) at T 1, 256 at T 16;
+    then pythia-6.9b's MHA (KV 32, G 1: one query row per (slot, kv head)
+    at T 1, 16 at T 16) in bf16, its times under the row's ``pythia``."""
+    row = check_paged_pool(gen, 'glm4_9b', (torch.bfloat16, torch.float32))
+    row['pythia'] = check_paged_pool(gen, 'pythia_6_9b', (torch.bfloat16,),
+                                     by_t=True)
+    return row
+
+
+def check_paged_pool(gen, arch, dtypes, by_t=False) -> dict:
+    """``paged_attention`` over ``arch``'s scattered pool (``scattered_pool``),
+    T 1 and 16, each dtype of ``dtypes``; bf16 held by
+    ``check_paged_bf16`` and timed. -> the bf16 T 1 row, or with ``by_t``
+    the bf16 rows by T."""
+    cfg = get_config(arch)
     KV, d = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
     B, NP = GLM_SLOTS, glm_pool_pages()
-    row = {}
-    for dtype, tol in ((torch.bfloat16, 2e-2),
-                       (torch.float32, KERNEL_TOL['atol'])):
-        k, v, cpos, table = glm4_pool(gen, dtype)
+    tag = cfg.name.split('-')[0]
+    row, rows_t = {}, {}
+    tols = {torch.bfloat16: 2e-2, torch.float32: KERNEL_TOL['atol']}
+    for dtype in dtypes:
+        tol = tols[dtype]
+        k, v, cpos, table = scattered_pool(gen, dtype, arch)
         for T in (1, 16):
-            q, pos0 = glm4_queries(gen, dtype, T)
+            q, pos0 = scattered_queries(gen, dtype, T, arch)
             args = (q, k, v, cpos, table, pos0)
             kw = dict(scale=d ** -0.5, window=0)
             got = paged_attention(*args, **kw)
@@ -886,27 +993,26 @@ def check_paged_attention_glm4(gen) -> dict:
             assert not got[2].any(), 'empty slot must attend to zeros'
             view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, GLM_SEQ)
             if dtype is not torch.bfloat16:
-                log(f'[kernel] paged_attention {str(dtype)[6:]} glm4 G={G} '
+                log(f'[kernel] paged_attention {str(dtype)[6:]} {tag} G={G} '
                     f'T={T}: max |err| {err:.3g} (tol {tol})')
                 continue
-            held = check_paged_bf16(f'glm4 T={T}', got, want, args, kw)
+            held = check_paged_bf16(f'{tag} T={T}', got, want, args, kw)
             ms = time_ms(lambda: paged_attention(*args, **kw))
             plain = time_ms(lambda: paged_attention_plain(*args, **kw))
             lib = library_attention_ms(q, view['k'], view['v'], view['pos'],
                                        pos0, 0)
             b_ms, by = attention_bound(q, view['k'], view['pos'], pos0, 0,
                                        dtype)
-            log(f'[kernel] paged_attention {str(dtype)[6:]} glm4 B={B} G={G} '
-                f'T={T} ({T * G} rows per (slot, kv head)) scattered table '
-                f'over NP={NP}: max |err| {err:.3g} (tol {tol}; {held}), '
-                f'empty slot '
-                f'zeros; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa '
-                f'{lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
-            if T == 1:                                 # the decode step
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=lib)
+            log(f'[kernel] paged_attention {str(dtype)[6:]} {tag} B={B} '
+                f'KV={KV} G={G} T={T} ({T * G} rows per (slot, kv head)) '
+                f'scattered table over NP={NP}: max |err| {err:.3g} (tol '
+                f'{tol}; {held}), empty slot zeros; kernel {ms:.4f} ms, '
+                f'plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} '
+                f'ms ({by})')
+            rows_t[T] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=by, library_ms=lib)
         del k, v, cpos
-    return row
+    return rows_t if by_t else rows_t[1]         # T 1: the decode step
 
 
 # ------------------------------------ phase 3: deepseek-v2-lite-16b (MLA)
@@ -1221,9 +1327,10 @@ def quant_cases(gen, dtypes):
     """(label, args, kwargs, stored positions in dense order) of the int8
     form at the shapes of both int8 engine phases: mistral-7b (KV 8, G 4)
     on dense rings of 512 viewed as identity-table pages, with its 4096
-    window and a 300 one; glm4-9b (KV 2, G 16) through a scattered table
-    over the engine's pool. T 1 and 16, queries of each of ``dtypes`` (the
-    engines' bf16, the smoke configs' fp32)."""
+    window and a 300 one; glm4-9b (KV 2, G 16) and pythia-6.9b's MHA (KV
+    32, G 1) through a scattered table over the engine's pool. T 1 and 16,
+    queries of each of ``dtypes`` (the engines' bf16, the smoke configs'
+    fp32)."""
     cfg = get_config('mistral_7b')
     KV, G, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim
@@ -1248,41 +1355,47 @@ def quant_cases(gen, dtypes):
                        (q, *pages, table, pos0),
                        dict(scale=d ** -0.5, window=window), cpos)
     del k, v, ks, vs, cpos, pages
-    cfg = get_config('glm4_9b')
-    KV, d = cfg.num_kv_heads, cfg.head_dim
-    G = cfg.num_heads // KV
-    B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
-    P = GLM_SEQ // ps
-    lengths = [300, 271, 0, 365]
-    k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
-    table = scattered_table(gen, B, P, NP, lengths, ps)
-    cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
-    for b, n in enumerate(lengths):
-        p = torch.arange(n, device='cuda')
-        cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
-    view = paged_view({'pos': cpos}, table, GLM_SEQ)
-    for dtype in dtypes:
-        for T in (1, 16):
-            pos0 = torch.tensor([max(n - T, 0) for n in lengths],
-                                dtype=torch.int32, device='cuda')
-            q = torch.randn((B, T, KV, G, d), generator=gen,
-                            device='cuda').to(dtype)
-            yield (f'glm4 scattered table over NP={NP} T={T}',
-                   (q, k, v, ks, vs, cpos, table, pos0),
-                   dict(scale=d ** -0.5, window=0), view['pos'])
+    for arch in ('glm4_9b', 'pythia_6_9b'):
+        cfg = get_config(arch)
+        KV, d = cfg.num_kv_heads, cfg.head_dim
+        G = cfg.num_heads // KV
+        B, ps, NP = GLM_SLOTS, GLM_PS, glm_pool_pages()
+        P = GLM_SEQ // ps
+        lengths = [300, 271, 0, 365]
+        k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+        table = scattered_table(gen, B, P, NP, lengths, ps)
+        cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
+        for b, n in enumerate(lengths):
+            p = torch.arange(n, device='cuda')
+            cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+        view = paged_view({'pos': cpos}, table, GLM_SEQ)
+        for dtype in dtypes:
+            for T in (1, 16):
+                pos0 = torch.tensor([max(n - T, 0) for n in lengths],
+                                    dtype=torch.int32, device='cuda')
+                q = torch.randn((B, T, KV, G, d), generator=gen,
+                                device='cuda').to(dtype)
+                yield (f'{cfg.name.split("-")[0]} scattered table over '
+                       f'NP={NP} T={T}', (q, k, v, ks, vs, cpos, table, pos0),
+                       dict(scale=d ** -0.5, window=0), view['pos'])
+        del k, v, ks, vs, cpos
 
 
 def check_paged_attention_quant(gen) -> dict:
     """Every case of ``quant_cases``, bf16 and fp32 queries, held and timed
-    by ``check_quant_case``. Row: glm4 bf16 T 1 (the decode step)."""
-    row = {}
+    by ``check_quant_case``. Row: glm4 bf16 T 1 (the decode step); under
+    ``pythia``, pythia-6.9b's bf16 rows by T."""
+    row, pythia = {}, {}
     for label, args, kw, view_pos in quant_cases(
             gen, (torch.bfloat16, torch.float32)):
         r = check_quant_case(label, args, kw, view_pos)
-        if args[0].dtype is torch.bfloat16 and label.startswith('glm4') \
-                and args[0].shape[1] == 1:
+        if args[0].dtype is not torch.bfloat16:
+            continue
+        if label.startswith('glm4') and args[0].shape[1] == 1:
             row = r
-    return row
+        if label.startswith('pythia'):
+            pythia[args[0].shape[1]] = r
+    return dict(row, pythia=pythia)
 
 
 # ----------------------- phase 3: sharded_paged_attention over a mesh
@@ -1591,9 +1704,11 @@ def check_quantizing_write(gen, leaves, written) -> dict:
                 n_eager = device_kernels(lambda: PM.fused_page_write(
                     leaves, PM.quantized_values(vals, QUANT_PAIRS), jobs,
                     Sc=Sc, fills=fills))
-                assert device_kernels(lambda: PM.fused_page_write(
+                n_dev = device_kernels(lambda: PM.fused_page_write(
                     leaves, vals, jobs, Sc=Sc, fills=fills,
-                    quantize=QUANT_PAIRS)) == 1
+                    quantize=QUANT_PAIRS))
+                assert n_dev == 1, f'quantizing write {label}: {n_dev} ' \
+                    'device kernels a call'
                 msg += (f'; kernel {ms:.4f} ms (1 device kernel), eager '
                         f'quantizer on K and V {quant:.4f} ms, eager '
                         f'quantizer + write of the quantized leaves '
@@ -1632,6 +1747,79 @@ def check_quantizing_write(gen, leaves, written) -> dict:
     return row
 
 
+def check_page_writes_pythia(gen) -> dict:
+    """fused_page_write at pythia-6.9b's rows of 32 kv heads over the
+    engine's pool, linear job lists at T 1 and 16 as phase 5's: bf16 k /
+    v / pos bitwise the plain write, and the quantizing form (bf16 K/V
+    into the five int8 leaves) bitwise the eager quantizer + the plain
+    write; each timed with its bound (the plain write also with its plain
+    version and the indexed copies). -> times by form and T."""
+    cfg = get_config(PYTHIA)
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
+    NP, P = glm_pool_pages(), GLM_SEQ // GLM_PS
+    k, v, pos = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
+    qk, qv, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    quant = [qk, qv, ks, vs, pos.clone()]
+    for y, f in zip(quant, [PM.leaf_fill(nm) for nm in QUANT_LEAVES]):
+        y[0] = f                                  # the null page
+    out = {}
+    for T in (1, 16):
+        pos0 = torch.tensor([300, 272, 0, 365], dtype=torch.int32,
+                            device='cuda')
+        nv = torch.tensor([T, T, 0, 1], dtype=torch.int32, device='cuda')
+        table = scattered_table(gen, B, P, NP, [300 + T, 272 + T, 0, 365 + T],
+                                ps)
+        pending = torch.stack([table[1, 272 // ps], table.new_tensor(NP - 1),
+                               table.new_tensor(0)]).to(torch.int32)
+        jobs = PM.build_jobs(pos0, nv, table, GLM_SEQ, ps, T, pending)
+        n_w, n_f = write_counts(jobs, GLM_SEQ, ps)
+        x = (torch.randn((2, B, T, KV, d), generator=gen, device='cuda')
+             * 3).to(torch.bfloat16)
+        pos_t = PM.chunk_positions(pos0, T)
+        for form, leaves, vals, fills, pairs in (
+                ('bf16', [k, v, pos], [x[0], x[1], pos_t], [0, 0, -1], []),
+                ('quantizing', quant, [x[0], x[1], None, None, pos_t],
+                 [PM.leaf_fill(nm) for nm in QUANT_LEAVES], QUANT_PAIRS)):
+            plain_vals = PM.quantized_values(vals, pairs) if pairs else vals
+            want = [PM.fused_page_write_plain(y.clone(), w, jobs, Sc=GLM_SEQ,
+                                              fill=f)
+                    for y, w, f in zip(leaves, plain_vals, fills)]
+            n0 = PM.fused_page_write.launches
+            PM.fused_page_write(leaves, vals, jobs, Sc=GLM_SEQ, fills=fills,
+                                quantize=pairs)
+            torch.cuda.synchronize()
+            assert PM.fused_page_write.launches == n0 + 1
+            for i, (g, w) in enumerate(zip(leaves, want)):
+                bits = torch.int16 if g.dtype == torch.bfloat16 else g.dtype
+                assert torch.equal(g.view(bits), w.view(bits)), \
+                    f'fused_page_write pythia {form} T={T} leaf {i}'
+            del want
+            rb = [y[0, 0].numel() * y.element_size() for y in leaves]
+            src = 2 * KV * d * x.element_size() + 4 if pairs else sum(rb)
+            moved = n_w * (src + sum(rb)) + n_f * sum(rb) + nbytes(jobs)
+            b_ms, by = bound(moved, 0, torch.bfloat16)
+            ms = time_ms(lambda: PM.fused_page_write(
+                leaves, vals, jobs, Sc=GLM_SEQ, fills=fills, quantize=pairs))
+            r = dict(max_abs_err=0.0, ms=ms, bound_ms=b_ms, bound_by=by)
+            text = f'kernel {ms:.4f} ms'
+            if not pairs:
+                r['plain_ms'] = time_ms(lambda: [PM.fused_page_write_plain(
+                    y, w, jobs, Sc=GLM_SEQ, fill=f)
+                    for y, w, f in zip(leaves, vals, fills)])
+                r['library_ms'] = library_page_write_ms(leaves, vals, jobs,
+                                                        GLM_SEQ, ps)
+                text += (f', plain {r["plain_ms"]:.4f} ms, index_copy_ x3 '
+                         f'(no clears) {r["library_ms"]:.4f} ms')
+            log(f'[kernel] fused_page_write {form} pythia-6.9b KV={KV} d={d} '
+                f'linear T={T} ({jobs.shape[0]} jobs, {n_w} rows written, '
+                f'{n_f} filled): bitwise equal; {text}, bound {b_ms:.6f} ms '
+                f'({by})')
+            out.setdefault(form, {})[T] = r
+    del k, v, pos, quant, qk, qv, ks, vs
+    free()
+    return out
+
+
 def same_leaves(label, got, want) -> None:
     """Every pool leaf bitwise (bf16 scales compared as bits: NaN too)."""
     for nm, g, w in zip(QUANT_LEAVES, got, want):
@@ -1641,10 +1829,11 @@ def same_leaves(label, got, want) -> None:
 
 # --------------------------------- phase 3: full-sequence flash attention
 # (config, S, window): the shapes Model.apply gives the flash kernel
-# (mistral-7b S 8192 with its 4096 window, glm4-9b S 4096 causal) and a
-# ragged S (not a multiple of any tile)
+# (mistral-7b S 8192 with its 4096 window, glm4-9b S 4096 causal,
+# pythia-6.9b S 2048 over 32 kv heads) and a ragged S (not a multiple of
+# any tile)
 FLASH_CASES = (('mistral_7b', 8192, 4096), ('glm4_9b', 4096, 0),
-               ('glm4_9b', 4097, 0))
+               ('glm4_9b', 4097, 0), ('pythia_6_9b', 2048, 0))
 # tests/test_kernels.py's tolerances (2e-5 fp32, 3e-2 bf16); and in bf16 a
 # limit scaled by the output, |err| <= 0.02 rms(row) + 0.016 |want|: the
 # kernel rounds its probabilities to bf16 (2^-9 relative), an error that
@@ -1982,6 +2171,9 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
     run."""
     cfg = model.cfg
     nl = cfg.num_layers
+    # a layer's LN1 + Q/K/V is one rmsnorm_matmul launch with RMSNorm; a
+    # LayerNorm model (pythia-6.9b) runs them as torch ops: no launch
+    rms = nl if cfg.norm == 'rmsnorm' else 0
     rng = np.random.default_rng(SEED + 7)
     prompt = rng.integers(3, cfg.vocab_size, size=S).astype(np.int32)
     batch = {'tokens': torch.from_numpy(prompt)[None].to('cuda')}
@@ -1999,8 +2191,8 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
         dt = (time.perf_counter() - t0) * 1e3
         ln = read_launches()
         assert ln['flash_attention'] == nl, (mode, ln)
-        assert ln['rmsnorm_matmul'] == (nl if pre is None else nl - 1), \
-            (mode, ln)
+        assert ln['rmsnorm_matmul'] == (rms if pre is None or not rms
+                                        else rms - 1), (mode, ln)
         if i < 2:                    # first of each: checks, not timed
             assert logits.shape == (1, S, cfg.vocab_size), logits.shape
             assert bool(torch.isfinite(logits).all()), f'{mode} logits'
@@ -2012,14 +2204,17 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
             times[mode].append(dt)
         del logits
     mean = {m: float(np.mean(t)) for m, t in times.items()}
+    spread = max(max(t) - min(t) for t in times.values())
+    diff = mean['baseline'] - mean['precomputed']
     log(f'[apply] {cfg.name} B=1 S={S}: ms per forward baseline '
         f'{[round(t, 2) for t in times["baseline"]]} (mean '
         f'{mean["baseline"]:.2f}), precomputed '
         f'{[round(t, 2) for t in times["precomputed"]]} (mean '
-        f'{mean["precomputed"]:.2f}); baseline - precomputed '
-        f'{mean["baseline"] - mean["precomputed"]:.2f} ms; launches a '
-        f'forward: flash_attention {nl}, rmsnorm_matmul {nl} baseline / '
-        f'{nl - 1} precomputed')
+        f'{mean["precomputed"]:.2f}); baseline - precomputed {diff:.2f} ms, '
+        f'{"inside" if abs(diff) <= spread else "outside"} the largest '
+        f'spread between forwards of one mode ({spread:.2f} ms); launches a '
+        f'forward: flash_attention {nl}, rmsnorm_matmul {rms} baseline / '
+        f'{max(rms - 1, 0)} precomputed')
     base, pre = last['baseline'], last['precomputed']
     log(f'[apply] {cfg.name} last 64 positions, precomputed vs baseline '
         f'logits: {diff_text(pre, base)} (tol {APPLY_TOL}); '
@@ -2148,6 +2343,9 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
     steps = eng.steps - steps0
     assert launches[attn] == cfg.num_layers * steps, \
         (attn, launches[attn], steps)
+    if table is not None:       # one gather a step: one-token or chunked
+        assert sum(launches[name] for name in gathers) == steps, \
+            (launches, steps)
     if kv_quant:
         assert launches['paged_attention'] == 0, launches
     log(f'{tag} 4 requests, prompts {[len(r.prompt) for r in reqs]}, '
@@ -2158,8 +2356,9 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
         f'mean latency {stats["mean_latency_s"]:.3f}s; peak memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     log(f'{tag} launches {json.dumps(launches)} over {steps} steps '
-        f'({attn}: {cfg.num_layers} a step); all requests FINISHED with 16 '
-        'tokens (finite logits)')
+        f'({attn}: {cfg.num_layers} a step'
+        + (', one gather a step' if table is not None else '')
+        + '); all requests FINISHED with 16 tokens (finite logits)')
     profile_engine(eng, [Request(uid=10 + i, prompt=rng.integers(
         3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
         max_new_tokens=16) for i in range(4)])
@@ -2401,7 +2600,7 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    steps0, drops0 = eng.steps, eng.moe_token_drops
+    steps0, drops0, cow0 = eng.steps, eng.moe_token_drops, eng.cow_copies
     eager = count_calls(A, 'kv_values')
     zero_launches()
     waves = []
@@ -2440,6 +2639,14 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
     shards = 1 if mesh is None else mesh.shape[1]
     assert launches[attn_kernel] == shards * cfg.num_layers * steps, \
         (attn_kernel, launches[attn_kernel], steps)
+    # one gather a step; one copy-on-write launch per cache (layer 0, each
+    # stacked body slot) and copy
+    assert not on_card or launches['gather_rope'] \
+        + launches['embed_gather'] == steps, (launches, steps)
+    if on_card and mesh is None:
+        assert launches['cow_page_copy'] == \
+            len(eng._pools) * (eng.cow_copies - cow0), \
+            (launches, len(eng._pools), eng.cow_copies - cow0)
     if kv_quant:
         assert launches['paged_attention'] == 0, launches
     ttft = [[r.first_token_t - r.submit_t for r in w]
@@ -2459,8 +2666,10 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         f'preemptions {stats["preemptions"]}, MoE token drops '
         f'{eng.moe_token_drops - drops0}')
     log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
-        f'({attn_kernel}: {shards * cfg.num_layers} a step); all requests '
-        'FINISHED with 16 tokens (finite logits)')
+        f'({attn_kernel}: {shards * cfg.num_layers} a step, one gather a '
+        f'step, cow_page_copy {launches["cow_page_copy"]} for '
+        f'{eng.cow_copies - cow0} copies); all requests FINISHED with 16 '
+        'tokens (finite logits)')
     if mesh is not None:
         check_at_rest(eng, mesh, tag)
         leaves = [b for leaf in state_leaves(eng.states)
@@ -2508,7 +2717,137 @@ def check_at_rest(eng, mesh, tag) -> None:
         'and kv-head blocks of the gathered leaves')
 
 
-# ----------------------------------------------------------------- phase 6
+# ----------------------------------------------------------------- phase 7
+PYTHIA = 'pythia_6_9b'
+PYTHIA_LAYER0_COUNTS = (1, 4, 64, 2048)
+PYTHIA_APPLY_SEQ = 2048                  # the config's max_seq_len
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return nbytes(tree)
+
+
+def phase_pythia(rows) -> dict:
+    """pythia-6.9b, the paper's parallel block (LayerNorm, MHA: G 1), at
+    full width and depth on seeded random bf16 weights: dense caches with
+    the table (whose rows also carry layer 0's FFN and skip) and the fused
+    gather-RoPE, then the same requests without the table; the paged pool
+    with the radix cache (phase 5's two waves: prefix hits and a
+    copy-on-write at 128 KB leaf pages); then the layer-0 comparison
+    (``check_layer0_parallel``) and Model.apply at S 2048. rmsnorm_matmul
+    never launches (LayerNorm). -> launches by run."""
+    cfg = get_config(PYTHIA)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
+    table = model.build_table(params)
+    torch.cuda.synchronize()
+    log(f'[pythia] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, '
+        f'{cfg.num_heads}H/{cfg.num_kv_heads}KV, {cfg.block_type} block, '
+        f'{cfg.norm}, {cfg.act} MLP {cfg.d_ff}, vocab {cfg.vocab_size}; '
+        f'weights {tree_bytes(params) / 1e9:.2f} GB + table '
+        f'{tuple(table.table.shape)} {str(table.table.dtype)[6:]} '
+        f'({nbytes(table.table) / 1e9:.2f} GB, layout {table.layout}) made '
+        f'on the card in {time.perf_counter() - t0:.1f}s')
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        64, 201))).astype(np.int32) for _ in range(4)]
+    out = {}
+    for run, tab in (('pythia', table), ('pythia_baseline', None)):
+        out[run] = serve_dense(model, params, tab, prompts, rng, False)
+        assert out[run][0]['rmsnorm_matmul'] == 0, out[run][0]
+        free()
+    log(f'[engine baseline] {cfg.name}: greedy tokens equal to the table '
+        f'run\'s: {token_share(out["pythia_baseline"][1], out["pythia"][1])}'
+        ' (reported, not checked)')
+    phases = {run: v[0] for run, v in out.items()}
+    system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
+    reqs = glm_requests(cfg, rng, system, 0)
+    warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
+    launches, _, pool_bytes, _ = serve_waves(
+        model, params, table, 'pythia_paged', 'paged_attention', False,
+        system, warm, reqs, rng, 'cuda', torch.bfloat16)
+    assert launches['rmsnorm_matmul'] == 0, launches
+    log(f'[pythia_paged] KV pool {pool_bytes / 2**30:.2f} GiB at rest beside '
+        f'{tree_bytes(params) / 2**30:.2f} GiB of weights and a '
+        f'{nbytes(table.table) / 2**30:.2f} GiB table')
+    phases['pythia_paged'] = launches
+    free()
+    check_layer0_parallel(model, params, table, rows)
+    phases.update(phase_apply(model, params, table, PYTHIA_APPLY_SEQ,
+                              'pythia'))
+    return phases
+
+
+def check_layer0_parallel(model, params, table, rows,
+                          counts=PYTHIA_LAYER0_COUNTS) -> None:
+    """The paper's layer-0 comparison for a parallel block on the model's
+    own weights and table: baseline = the embedding rows + LN1 + Q/K/V +
+    LN2 + FFN + skip (``blocks.block_preproj``: torch ops, as JAX leaves
+    them to XLA), precomputed = ``embed_gather`` of the table's rows (the
+    same four pieces); the gathered rows against the baseline's within
+    RMS_TOL (the table was built in chunks of 8192 rows, so its products
+    may round otherwise). Ids rotate over 16 sets; the weights (369 MB at
+    pythia-6.9b) exceed the 50 MB L2, so every replay reads them from
+    device memory. The times go to ``rows['embed_gather']['layer0']``."""
+    cfg = model.cfg
+    plan = layer_plan(cfg)
+    lay0 = params['backbone']['layer0']
+    embed, rows_tab = params['embed']['table'], table.table
+    d, W, es = cfg.d_model, rows_tab.shape[1], embed.element_size()
+    attn = lay0['attn']
+    w_bytes = tree_bytes([lay0['ln1'], lay0['ln2'], lay0['ffn']]) \
+        + nbytes(attn['wq']['w'], attn['wk']['w'], attn['wv']['w'])
+    ops = 2 * d * (cfg.q_size + 2 * cfg.kv_size + 2 * cfg.d_ff)   # a row
+
+    def preproj(ids):
+        pieces = block_preproj(lay0, embed[ids.long()][None], cfg,
+                               plan.kinds[0], plan.use_moe[0])
+        return torch.cat([pieces[nm] for nm, _ in table.layout], dim=-1)[0]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    out = {}
+    for n in counts:
+        ids = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device='cuda', dtype=torch.int32)
+               for _ in range(16)]
+        want = preproj(ids[0])
+        got = embed_gather(rows_tab, ids[0])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=RMS_TOL,
+                                   rtol=RMS_TOL)
+        del got, want
+        calls = [0]
+
+        def pick():
+            calls[0] += 1
+            return ids[calls[0] % 16]
+        it = (20, 5) if n <= 64 else (3, 3)
+        base = time_ms(lambda: preproj(pick()), *it)
+        pre = time_ms(lambda: embed_gather(rows_tab, pick()), *it)
+        base_bytes = n * d * es + w_bytes
+        pre_bytes = n * W * es
+        b_ms, by = bound(base_bytes + n * W * es, n * ops, torch.bfloat16)
+        log(f'[layer0] {cfg.name} N={n}: baseline (embedding rows + LN1 + '
+            f'Q/K/V + LN2 + FFN + skip, torch ops) {base:.4f} ms, '
+            f'{base_bytes} bytes read, bound {b_ms:.4f} ms ({by}); '
+            f'precomputed (embed_gather of {W}-wide rows) {pre:.4f} ms, '
+            f'{pre_bytes} bytes read; baseline / precomputed '
+            f'{base / pre:.1f}x, bytes {base_bytes / pre_bytes:.1f}x; rows '
+            f'agree, max |diff| {err:.3g} (tol {RMS_TOL})')
+        out[n] = dict(baseline_ms=base, precomputed_ms=pre,
+                      baseline_bound_ms=b_ms, max_abs_diff=err)
+        del ids
+    rows['embed_gather'].setdefault('layer0', {})[cfg.name] = out
+    free()
+
+
+# ----------------------------------------------------------------- phase 8
 def pressure_prompts(cfg, seed):
     rng = np.random.default_rng(seed)
     system = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
@@ -2555,7 +2894,7 @@ def phase_pressure(device='cuda') -> dict:
     return launches
 
 
-# ----------------------------------------------------------------- phase 7
+# ----------------------------------------------------------------- phase 9
 class ReferenceAttendKernelWrites(ReferenceBackend):
     """The reference attend with the kernel write path (fused_page_write,
     deferred clears, cow_page_copy): isolates the maintenance kernels, so
@@ -2694,7 +3033,7 @@ def main() -> None:
     rows = {'embed_gather': check_embed_gather(gen),
             'gather_rope': check_gather_rope(gen)}
     check_paged_attention(gen)                 # mistral-7b shapes
-    rows['paged_attention'] = check_paged_attention_glm4(gen)
+    rows['paged_attention'] = check_paged_attention_pools(gen)
     rows['fused_page_write'] = check_fused_page_write(gen)
     rows['cow_page_copy'] = check_cow_page_copy(gen)
     floor = launch_floor_ms()
@@ -2704,6 +3043,7 @@ def main() -> None:
     check_mla_page_writes(gen)
     rows['paged_attention_quant'] = check_paged_attention_quant(gen)
     rows['fused_page_write'].update(check_quant_page_writes(gen))
+    rows['fused_page_write']['pythia'] = check_page_writes_pythia(gen)
     rows['sharded_paged_attention'] = check_sharded_paged_attention(gen)
     rows['flash_attention'] = check_flash_attention(gen)
     free()
@@ -2715,6 +3055,8 @@ def main() -> None:
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
                               'paged_attention_mla'))
+    free()
+    phases.update(phase_pythia(rows))
     free()
     phases['pressure'] = phase_pressure()
     phase_consistency()

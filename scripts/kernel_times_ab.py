@@ -1,5 +1,6 @@
-"""Phase 3's checks and times of ``gather_rope`` and ``fused_page_write``
-(and the launch floor) in this checkout against another checkout's (for
+"""Phase 3's checks and times of ``gather_rope``, ``fused_page_write`` and
+``cow_page_copy`` (and the launch floor) in this checkout against another
+checkout's (for
 example the parent commit, unpacked with ``git archive``), in one call on
 one card: each checkout's own ``chip_smoke.py`` functions run in a
 subprocess of their own, with their own kernels, in the order other, this,
@@ -16,11 +17,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CHECKS = ('check_gather_rope', 'check_fused_page_write',
-          'check_mla_page_writes', 'check_quant_page_writes')
+          'check_cow_page_copy', 'check_mla_page_writes',
+          'check_quant_page_writes')
 
 
 def checks(root: Path) -> None:
-    """In the subprocess: ``root``'s phase 3 checks of the two kernels."""
+    """In the subprocess: ``root``'s phase 3 checks of the three
+    kernels."""
     sys.path[:0] = [str(root), str(root / 'src')]
     import torch
     import chip_smoke as smoke

@@ -249,10 +249,10 @@ def cases(gen) -> list:
                 if label in TIMED else None
             out.append((label, args, dict(scale=d ** -0.5, window=window),
                         lib))
-    k, v, cpos, table = smoke.glm4_pool(gen, bf16)
+    k, v, cpos, table = smoke.scattered_pool(gen, bf16)
     view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, smoke.GLM_SEQ)
     for T in (1, 16):
-        q, pos0 = smoke.glm4_queries(gen, bf16, T)
+        q, pos0 = smoke.scattered_queries(gen, bf16, T)
         lib = smoke.library_attention_ms(q, view['k'], view['v'],
                                          view['pos'], pos0, 0)
         out.append((f'glm4 T={T}', (q, k, v, cpos, table, pos0),

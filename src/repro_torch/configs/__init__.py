@@ -12,9 +12,11 @@ from typing import List
 from repro_torch.config import ModelConfig
 
 # the paper's serial example (sliding window), an all-global GQA model for
-# the paged KV pool and an MLA + MoE model (latent caches, expert FFN);
-# other families join as their modules are ported
-ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b']
+# the paged KV pool, an MLA + MoE model (latent caches, expert FFN) and the
+# paper's parallel example (LayerNorm, MHA; the FFN and the skip fold into
+# the table); other families join as their modules are ported
+ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
+                      'pythia_6_9b']
 
 
 def _norm(name: str) -> str:

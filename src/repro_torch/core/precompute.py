@@ -1,14 +1,19 @@
 """THE PAPER: offline precomputation of the first transformer layer (port of
-``repro/core/precompute.py`` for the serial block).
+``repro/core/precompute.py`` for the serial and the parallel block).
 
 For every vocabulary entry, run layer 0's position-independent part (first
 norm, Q/K/V projections) and store the results as an expanded embedding
 table with rows ``[x, q, k, v]`` (width d + q_size + 2e; 10240 for
 mistral-7b), or ``[x, q, c_kv, k_pe]`` for MLA (d + H·(dn + dr) + r + dr;
-5696 for deepseek-v2-lite-16b), as ``blocks.preproj_layout`` lays out. At serving time the embedding read and those projections
-collapse into one row gather per token (:meth:`PrecomputedTable.gather`),
-which on a CUDA device is the ``embed_gather`` kernel. RoPE and attention
-stay at run time — the enabling condition.
+5696 for deepseek-v2-lite-16b), as ``blocks.preproj_layout`` lays out. A
+parallel block (pythia-6.9b) also runs LN2, the FFN and the skip for every
+row: ``[s, q, k, v]`` with ``s = x + FFN(LN2(x))``, 16384 wide (d + 3 x
+4096), so layer 0 keeps only its attention at run time; no step here
+differs by block type, ``blocks.block_preproj`` does. At serving time the
+embedding read and those projections collapse into one row gather per
+token (:meth:`PrecomputedTable.gather`), which on a CUDA device is the
+``embed_gather`` kernel. RoPE and attention stay at run time — the
+enabling condition.
 """
 from __future__ import annotations
 

@@ -7,16 +7,26 @@
 // and one dst page out, one pallas_call per leaf.
 //
 // Bound: bytes. Each job reads rem rows of one page and writes a whole page
-// per leaf, at 3.35 TB/s on an H100.
+// per leaf, at 3.35 TB/s on an H100: 8 KB a leaf page at glm4-9b (2 kv heads
+// x 128 x bf16 x 16 rows), 128 KB at an MHA model such as pythia-6.9b (32 kv
+// heads), about 11.7 MB for one copy over pythia's 31 stacked layers.
 //
-// Design: a grid of (job, leaf) blocks, so all the leaves of a layer stack
-// go in one launch; leaves stacked over layers are passed flattened
-// ((reps * NP, ps, ...)) with one job per layer, so a copy-on-write at
-// admission costs one launch per cache whatever the depth. Each block
-// streams one page with the widest access (16, 8, 4, 2 or 1 bytes) that the
-// row width and base address allow; the src rows beyond rem are never
-// read. Elements of 4, 2 and 1 bytes take the same code: the fill is a bit
-// pattern (-1 for the int32 position leaf, 0 otherwise).
+// Design: one flat grid over (job, leaf, access unit of the leaf's page), so
+// every leaf of a layer stack goes in one launch and the work spreads over
+// the whole card however many jobs there are. Leaves stacked over layers are
+// passed flattened ((reps * NP, ps, ...)) with one job per layer, so a
+// copy-on-write at admission costs one launch per cache whatever the depth.
+// The unit is the widest access (16, 8, 4, 2 or 1 bytes) that the leaf's row
+// width and base address allow, so a unit never straddles two rows and
+// neighbouring threads touch neighbouring bytes of one page. Each thread
+// reads its job's three words as 4-byte loads, decides its row's fate once
+// (copy below rem, fill from rem on) and does one load and one store, or one
+// store alone: fill rows issue no load, and src rows at or beyond rem are
+// never read. Source loads go through the read-only path (__ldg): no job's
+// dst is another job's src, so nothing the kernel writes is read by it.
+// Elements of 4, 2 and 1 bytes take the same code: the fill is a bit pattern
+// (-1 for the int32 position leaf, 0 otherwise). One unit a thread: 2 and 4
+// were no faster at glm4-9b's or pythia-6.9b's pages on an H100 (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,58 +38,65 @@ constexpr int kThreads = 128;
 struct CowLeaf {
   char* pool;             // (n_pages, ps, row_bytes) contiguous
   long long n_pages;
-  int row_bytes;
-  int unit;
-  unsigned fill;
+  long long page_bytes;   // ps * row_bytes
+  int unit;               // bytes per access
+  int row_units;          // units per page row
+  unsigned fill;          // the fill element's bytes, repeated to 32 bits
 };
 
-struct CowLeaves {
+struct Params {
   CowLeaf l[kMaxLeaves];
-  int n;
+  int end[kMaxLeaves];    // cumulative units of one job's pages, by leaf
+  int n_leaves;
+  int job_units;          // units of one job over every leaf
+  int n_units;            // n_jobs * job_units
 };
 
-template <typename U> __device__ __forceinline__ U pattern(unsigned f);
-template <> __device__ __forceinline__ uint4 pattern<uint4>(unsigned f) {
-  return make_uint4(f, f, f, f);
-}
-template <> __device__ __forceinline__ uint2 pattern<uint2>(unsigned f) {
-  return make_uint2(f, f);
-}
-template <> __device__ __forceinline__ unsigned pattern<unsigned>(unsigned f) { return f; }
-template <> __device__ __forceinline__ unsigned short pattern<unsigned short>(unsigned f) {
-  return (unsigned short)f;
-}
-template <> __device__ __forceinline__ unsigned char pattern<unsigned char>(unsigned f) {
-  return (unsigned char)f;
-}
-
-template <typename U>
-__device__ void copy_page(const CowLeaf& L, long long src, long long dst, int rem, int ps) {
-  const int units = L.row_bytes / (int)sizeof(U);
-  const long long page_units = (long long)ps * units;
-  const U* s = reinterpret_cast<const U*>(L.pool) + src * page_units;
-  U* d = reinterpret_cast<U*>(L.pool) + dst * page_units;
-  const U fillv = pattern<U>(L.fill);
-  const long long keep = (long long)rem * units;
-  for (long long i = threadIdx.x; i < page_units; i += blockDim.x)
-    d[i] = i < keep ? s[i] : fillv;
-}
-
-__global__ void __launch_bounds__(kThreads)
-cow_page_copy_kernel(CowLeaves leaves, const int* __restrict__ sdr, int ps) {
-  const CowLeaf& L = leaves.l[blockIdx.y];
-  const int* job = sdr + 3LL * blockIdx.x;
-  const long long src = job[0], dst = job[1];
-  int rem = job[2];
-  if (src < 0 || src >= L.n_pages || dst < 0 || dst >= L.n_pages) return;
-  rem = rem < 0 ? 0 : (rem > ps ? ps : rem);
-  switch (L.unit) {
-    case 16: copy_page<uint4>(L, src, dst, rem, ps); break;
-    case 8: copy_page<uint2>(L, src, dst, rem, ps); break;
-    case 4: copy_page<unsigned>(L, src, dst, rem, ps); break;
-    case 2: copy_page<unsigned short>(L, src, dst, rem, ps); break;
-    default: copy_page<unsigned char>(L, src, dst, rem, ps);
+__device__ __forceinline__ uint4 load_unit(const char* src, int unit) {
+  switch (unit) {
+    case 16: return __ldg(reinterpret_cast<const uint4*>(src));
+    case 8: {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+      return make_uint4(v.x, v.y, 0, 0);
+    }
+    case 4: return make_uint4(__ldg(reinterpret_cast<const unsigned*>(src)), 0, 0, 0);
+    case 2:
+      return make_uint4(__ldg(reinterpret_cast<const unsigned short*>(src)), 0, 0, 0);
+    default: return make_uint4(__ldg(reinterpret_cast<const unsigned char*>(src)), 0, 0, 0);
   }
+}
+
+__device__ __forceinline__ void store_unit(char* dst, int unit, uint4 v) {
+  switch (unit) {
+    case 16: *reinterpret_cast<uint4*>(dst) = v; break;
+    case 8: *reinterpret_cast<uint2*>(dst) = make_uint2(v.x, v.y); break;
+    case 4: *reinterpret_cast<unsigned*>(dst) = v.x; break;
+    case 2: *reinterpret_cast<unsigned short*>(dst) = (unsigned short)v.x; break;
+    default: *reinterpret_cast<unsigned char*>(dst) = (unsigned char)v.x;
+  }
+}
+
+// one thread a unit of the flat (job, leaf, page unit) sequence
+__global__ void __launch_bounds__(kThreads)
+cow_page_copy_kernel(const __grid_constant__ Params p, const int* __restrict__ sdr) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= p.n_units) return;
+  const int job = g / p.job_units;
+  int u = g - job * p.job_units, l = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxLeaves - 1; ++j)
+    if (j < p.n_leaves - 1 && u >= p.end[j]) l = j + 1;
+  if (l > 0) u -= p.end[l - 1];
+  const CowLeaf& L = p.l[l];
+  const int* jb = sdr + 3LL * job;  // three 4-byte words
+  const long long src = __ldg(jb), dst = __ldg(jb + 1);
+  const int rem = __ldg(jb + 2);
+  if (src < 0 || src >= L.n_pages || dst < 0 || dst >= L.n_pages) return;
+  const long long off = (long long)u * L.unit;
+  const uint4 v = u / L.row_units < rem
+                      ? load_unit(L.pool + src * L.page_bytes + off, L.unit)
+                      : make_uint4(L.fill, L.fill, L.fill, L.fill);
+  store_unit(L.pool + dst * L.page_bytes + off, L.unit, v);
 }
 
 int widest_unit(const void* pool, int row_bytes) {
@@ -99,18 +116,28 @@ extern "C" int cow_page_copy(void* const* pools, const long long* n_pages,
                              const void* sdr, int n_jobs, int ps, void* stream) {
   if (n_jobs <= 0 || n_leaves <= 0) return 0;
   if (n_leaves > kMaxLeaves || ps <= 0) return (int)cudaErrorInvalidValue;
-  CowLeaves leaves{};
-  leaves.n = n_leaves;
+  Params p{};
+  p.n_leaves = n_leaves;
+  long long job_units = 0;
   for (int l = 0; l < n_leaves; ++l) {
-    CowLeaf& L = leaves.l[l];
+    CowLeaf& L = p.l[l];
+    if (row_bytes[l] <= 0) return (int)cudaErrorInvalidValue;
     L.pool = static_cast<char*>(pools[l]);
     L.n_pages = n_pages[l];
-    L.row_bytes = row_bytes[l];
-    L.fill = fills[l];
     L.unit = widest_unit(pools[l], row_bytes[l]);
+    L.row_units = row_bytes[l] / L.unit;
+    L.page_bytes = (long long)ps * row_bytes[l];
+    L.fill = fills[l];
+    job_units += (long long)ps * L.row_units;
+    if (job_units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    p.end[l] = (int)job_units;
   }
-  const dim3 grid(n_jobs, n_leaves);
-  cow_page_copy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      leaves, static_cast<const int*>(sdr), ps);
+  const long long units = (long long)n_jobs * job_units;
+  if (units > 0x7fffffffLL - kThreads) return (int)cudaErrorInvalidValue;
+  p.job_units = (int)job_units;
+  p.n_units = (int)units;
+  const long long blocks = (units + kThreads - 1) / kThreads;
+  cow_page_copy_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const int*>(sdr));
   return (int)cudaGetLastError();
 }

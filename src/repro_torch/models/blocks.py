@@ -1,15 +1,18 @@
 """Per-layer blocks (port of ``repro/models/blocks.py``): the attention kinds
-``'global'`` / ``'local'`` with a serial block, GQA or MLA attention
-(``cfg.mla``) and a dense or MoE FFN (``use_moe``). Other kinds (recurrent,
-hybrid) and the parallel block raise ``NotImplementedError`` until they
-are ported.
+``'global'`` / ``'local'`` with a serial block (GQA or MLA attention,
+``cfg.mla``, and a dense or MoE FFN, ``use_moe``) or a parallel block
+(``h + attn(LN1(h)) + FFN(LN2(h))``: GQA or MHA attention and a dense FFN,
+pythia-6.9b). Other kinds (recurrent, hybrid) and the parallel block with
+MoE or MLA raise ``NotImplementedError`` until they are ported.
 
 ``block_preproj`` is THE PAPER's position-independent first-layer
 computation; ``pre`` (its named pieces, gathered from the precomputed
 table) short-circuits layer 0's norm and projections in ``block_decode``
-and in the full-sequence ``block_apply_full`` (GQA serial blocks with a
-dense FFN; MLA and MoE raise there until ``mla_full`` and the MoE aux loss
-are ported).
+and in the full-sequence ``block_apply_full`` (GQA blocks with a dense FFN;
+MLA and MoE raise there until ``mla_full`` and the MoE aux loss are
+ported). In a parallel block the piece ``'s' = x + FFN(LN2(x))`` also folds
+layer 0's FFN and skip into the table, so layer 0 then runs attention
+alone.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ ATTN_KINDS = ('global', 'local')
 def _supported(cfg: ModelConfig, kind: str) -> None:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f'layer kind {kind!r} is not ported yet')
-    if cfg.block_type != 'serial':
-        raise NotImplementedError('only the serial block is ported yet')
+    if cfg.block_type == 'parallel' and (cfg.moe is not None or cfg.mla):
+        raise NotImplementedError('the parallel block is ported with GQA '
+                                  'attention and a dense FFN only')
 
 
 def kind_window(cfg: ModelConfig, kind: str) -> int:
@@ -66,13 +70,18 @@ def block_preproj(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   use_moe: bool) -> Dict[str, torch.Tensor]:
     """Position-independent first-layer computation on raw embeddings x:
     ``{'x', 'q', 'k', 'v'}``, or ``{'x', 'q', 'ckv', 'kpe'}`` for MLA
-    (serial block)."""
+    (serial block); ``{'s', 'q', 'k', 'v'}`` for the parallel block, with
+    ``s = x + FFN(LN2(x))`` (the skip folded in, per the paper)."""
     _supported(cfg, kind)
     xn = L.norm_apply(params['ln1'], x, cfg.norm)
     if cfg.mla:
         q, ckv, kpe = M.compute_latents(params['attn'], xn, cfg)
         return {'x': x, 'q': q, 'ckv': ckv, 'kpe': kpe}
     q, k, v = A.compute_qkv(params['attn'], xn, cfg)
+    if cfg.block_type == 'parallel':
+        xn2 = L.norm_apply(params['ln2'], x, cfg.norm)
+        s = x + ffn_apply(params['ffn'], xn2, act=cfg.act)
+        return {'s': s, 'q': q, 'k': k, 'v': v}
     return {'x': x, 'q': q, 'k': k, 'v': v}
 
 
@@ -85,18 +94,20 @@ def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
         m = cfg.mla
         return (('x', d), ('q', q), ('ckv', m.kv_lora_rank),
                 ('kpe', m.qk_rope_dim))
-    return (('x', d), ('q', q), ('k', e), ('v', e))
+    first = 's' if cfg.block_type == 'parallel' else 'x'
+    return ((first, d), ('q', q), ('k', e), ('v', e))
 
 
 def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
                      cfg: ModelConfig, kind: str, use_moe: bool, *,
                      pre: Optional[Dict] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence serial block: h (B, S, d), positions (B, S) -> (h_out,
-    aux loss, a float32 zero). ``pre`` (precomputed rows) supplies layer
-    0's q/k/v; otherwise LN1 and the Q/K/V projections are one fused
-    ``rmsnorm_qkv`` (the ``rmsnorm_matmul`` kernel on the card), so the
-    baseline and the precomputed forward differ only in layer 0."""
+    """Full-sequence block: h (B, S, d), positions (B, S) -> (h_out, aux
+    loss, a float32 zero). ``pre`` (precomputed rows) supplies layer 0's
+    q/k/v (and, in a parallel block, ``s``, which replaces LN2, the FFN
+    and the skip); otherwise LN1 and the Q/K/V projections are
+    :func:`_full_qkv`, so the baseline and the precomputed forward differ
+    only in layer 0."""
     _supported(cfg, kind)
     if cfg.mla or use_moe:
         raise NotImplementedError(
@@ -105,17 +116,31 @@ def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         raise NotImplementedError('qk_norm is not ported yet')
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if pre is not None:
-        qkv = (pre['q'], pre['k'], pre['v'])
-    else:
-        a = params['attn']
-        qkv = rmsnorm_qkv(h, params['ln1']['scale'], a['wq']['w'],
-                          a['wk']['w'], a['wv']['w'])
-    h = h + A.full_attention(params['attn'], None, positions, cfg,
-                             rope_theta=kind_theta(cfg, kind),
-                             window=kind_window(cfg, kind), qkv=qkv)
+    qkv = _full_qkv(params, h, cfg) if pre is None \
+        else (pre['q'], pre['k'], pre['v'])
+    attn_out = A.full_attention(params['attn'], None, positions, cfg,
+                                rope_theta=kind_theta(cfg, kind),
+                                window=kind_window(cfg, kind), qkv=qkv)
+    if cfg.block_type == 'parallel':
+        if pre is not None:
+            return pre['s'] + attn_out, aux
+        xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
+        return h + attn_out + ffn_apply(params['ffn'], xn2, act=cfg.act), aux
+    h = h + attn_out
     xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
     return h + ffn_apply(params['ffn'], xn2, act=cfg.act), aux
+
+
+def _full_qkv(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple:
+    """LN1 and the Q/K/V projections of a full sequence: with RMSNorm one
+    fused ``rmsnorm_qkv`` (the ``rmsnorm_matmul`` kernel on the card); with
+    LayerNorm the norm and ``torch.matmul``, as JAX leaves them to XLA
+    outside any Pallas kernel."""
+    a = params['attn']
+    if cfg.norm == 'rmsnorm':
+        return rmsnorm_qkv(h, params['ln1']['scale'], a['wq']['w'],
+                           a['wk']['w'], a['wv']['w'])
+    return A.compute_qkv(a, L.norm_apply(params['ln1'], h, cfg.norm), cfg)
 
 
 def block_make_state(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
@@ -195,6 +220,13 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
             attn_out, state = A.decode_step(
                 params['attn'], xn, state, pos, cfg, rope_theta=theta,
                 window=window, qkv=qkv, backend=backend)
+    if cfg.block_type == 'parallel':      # a dense FFN (``_supported``)
+        drops = torch.zeros((), dtype=torch.int32, device=h.device)
+        if pre is not None:
+            return pre['s'] + attn_out, state, drops
+        xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
+        f = ffn_apply(params['ffn'], xn2, act=cfg.act)
+        return h + attn_out + f, state, drops
     h = h + attn_out
     xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
     if not use_moe:

@@ -1,7 +1,8 @@
 """Primitive layers, ported from ``repro/models/layers.py``.
 
 Parameters are the JAX package's nested dicts (``{'w': (d_in, d_out)}`` for
-a dense layer, ``{'scale': (d,)}`` for a norm), held as torch tensors; see
+a dense layer, ``{'scale': (d,)}`` for an RMSNorm, ``{'scale', 'bias'}`` for
+a LayerNorm), held as torch tensors; see
 ``repro_torch.params``. Norms and RoPE compute in fp32 and cast back to the
 input dtype, as in JAX.
 """
@@ -29,9 +30,10 @@ def dense_schema(d_in: int, d_out: int) -> Dict[str, ParamSpec]:
 
 
 def norm_schema(d: int, kind: str) -> Dict[str, ParamSpec]:
-    if kind != 'rmsnorm':
-        raise NotImplementedError(f'norm {kind!r} is not ported yet')
-    return {'scale': ParamSpec((d,), 'ones')}
+    if kind == 'rmsnorm':
+        return {'scale': ParamSpec((d,), 'ones')}
+    return {'scale': ParamSpec((d,), 'ones'),
+            'bias': ParamSpec((d,), 'zeros')}
 
 
 # ===================================================================== norms
@@ -43,10 +45,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (mean and variance over the last axis), cast back
+    to the input dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def norm_apply(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != 'rmsnorm':
-        raise NotImplementedError(f'norm {kind!r} is not ported yet')
-    return rmsnorm(x, params['scale'])
+    if kind == 'rmsnorm':
+        return rmsnorm(x, params['scale'])
+    return layernorm(x, params['scale'], params['bias'])
 
 
 # ==================================================================== linear

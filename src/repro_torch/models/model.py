@@ -39,8 +39,9 @@ class Model:
         (B, S, V), aux loss, a float32 scalar on the tokens' device). With
         ``precomputed`` (``build_table``) layer 0 reads table rows instead of
         running its norm and projections; the logits equal the baseline's
-        (the paper's contract). Serial GQA blocks with a dense FFN; MLA and
-        MoE blocks raise ``NotImplementedError``."""
+        (the paper's contract). GQA blocks with a dense FFN, serial or
+        parallel (a parallel table row also carries layer 0's FFN and
+        skip); MLA and MoE blocks raise ``NotImplementedError``."""
         return T.lm_apply(params, batch['tokens'], self.cfg,
                           precomputed=precomputed,
                           return_hidden=return_hidden)

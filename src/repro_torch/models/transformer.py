@@ -2,8 +2,9 @@
 full-sequence forward (``lm_apply``) and decode/serving (``lm_decode_step``).
 
 Layer 0 is always unstacked: with a precomputed table it consumes gathered
-``[x, q, k, v]`` rows instead of running its norm and projections, and
-nothing after it changes. The remaining layers repeat the config's pattern:
+``[x, q, k, v]`` rows (``[s, q, k, v]`` for a parallel block, whose ``s``
+is the first hidden state) instead of running its norm and projections,
+and nothing after it changes. The remaining layers repeat the config's pattern:
 ``body[s]`` holds pattern slot s's parameters and caches stacked over
 ``reps`` (a Python loop over reps replaces JAX's ``lax.scan``; each rep
 reads views of the stacked tensors, so cache updates land in place), and a
@@ -113,7 +114,7 @@ def lm_apply(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                              device=tokens.device)[None].expand(B, S)
     if precomputed is not None:
         pre0 = precomputed.gather(tokens)
-        h = pre0['x']
+        h = pre0['s'] if 's' in pre0 else pre0['x']
     else:
         pre0 = None
         h = embed_tokens(params, tokens, cfg)
@@ -230,7 +231,7 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
             rope_applied = True
         else:
             pre0 = precomputed.gather(tokens)
-        h = pre0['x']
+        h = pre0['s'] if 's' in pre0 else pre0['x']
     else:
         pre0 = None
         h = embed_tokens(params, tokens, cfg)

@@ -928,6 +928,43 @@ def test_cow_page_copy_kernel_int8_leaves_bitwise(cuda):
 
 
 @pytest.mark.cuda
+def test_cow_page_copy_kernel_pythia_pages_bitwise(cuda):
+    """pythia-6.9b's pages (32 kv heads x 128: 128 KB a bf16 leaf page, 64
+    KB an int8 one) stacked over its 31 body layers, one job a layer: bf16
+    k / v / pos, then the five int8 leaves (k, v int8; k_scale, v_scale bf16
+    of 64-byte rows; pos), at rem 0, 7 and 16 and at rem -3 and 20 (all
+    fill, all copy), bitwise the plain version, one launch a copy."""
+    reps, NP, ps, KV, d = 31, 8, 16, 32, 128
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    pos = torch.randint(0, 99, (reps, NP, ps), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    bf16 = {'k': torch.randn((reps, NP, ps, KV, d), generator=gen,
+                             device=cuda).to(torch.bfloat16),
+            'v': torch.randn((reps, NP, ps, KV, d), generator=gen,
+                             device=cuda).to(torch.bfloat16),
+            'pos': pos.clone()}
+    int8 = dict(zip(('k', 'v', 'k_scale', 'v_scale'),
+                    _int8_pages(gen, (reps, NP, ps), KV, d, cuda)),
+                pos=pos.clone())
+    for cache in (bf16, int8):
+        for src, dst, rem in ((1, 5, 0), (2, 6, 7), (3, 7, 16), (1, 4, -3),
+                              (2, 4, 20)):
+            sdr = torch.tensor([[src + r * NP, dst + r * NP, rem]
+                                for r in range(reps)], dtype=torch.int32,
+                               device=cuda)
+            want = {nm: PM.cow_page_copy_plain(
+                x.clone().view((reps * NP,) + x.shape[2:]), sdr,
+                fill=PM.leaf_fill(nm)) for nm, x in cache.items()}
+            n0 = PM.cow_page_copy.launches
+            PM.cow_copy_cache(cache, src, dst, rem, reps=reps)
+            torch.cuda.synchronize()
+            assert PM.cow_page_copy.launches == n0 + 1
+            for nm, x in cache.items():
+                assert torch.equal(x.view(want[nm].shape), want[nm]), \
+                    (sorted(cache), nm, rem)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('N,d,q,e', RMS_SHAPES + [(5, 4096, 4096, 1024),
                                                   (70, 4096, 4096, 256),

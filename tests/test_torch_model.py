@@ -43,7 +43,8 @@ def _leaves(tree):
 def test_config_copy_matches_jax():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import ALL_IDS
-    assert ALL_IDS == ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b']
+    assert ALL_IDS == ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
+                       'pythia_6_9b']
     # field by field, nested MLA / MoE configs included (the copies are
     # other classes, so compare their fields and class names)
     def fields(c):
@@ -199,10 +200,12 @@ def test_unported_families_raise():
     cfg = get_smoke_config('mistral_7b')
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(cfg, arch_class='audio'))
+    # the parallel block with an MoE FFN (a parallel Mixtral) is not ported
+    moe = dataclasses.replace(get_smoke_config('deepseek_v2_lite_16b'),
+                              mla=None, block_type='parallel')
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, block_type='parallel')).make_states(
-            1, 8, device='cpu')
+        Model(moe).make_states(1, 8, device='cpu')
     with pytest.raises(NotImplementedError):
-        get_config('pythia_6_9b')
+        get_config('gemma3_1b')
     with pytest.raises(NotImplementedError):
         get_config('mixtral_8x7b')

@@ -25,8 +25,8 @@ S and at G 64; the MLA split kernel against the plain version (fp32 q
 over bf16 pages at deepseek-v2-lite-16b's widths and two narrower ones,
 page sizes 1, 8, 16) and its row independence; the int8 split kernel (bf16
 q over int8 pages at mistral-7b's and glm4-9b's KV, G and d) against the
-chunked plain version and its row independence. They import nothing of
-JAX:
+chunked plain version and its row independence; both split kernels at G 1
+(pythia-6.9b's MHA), T 1 and 16. They import nothing of JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_split.py
 """
@@ -511,6 +511,50 @@ def test_quant_split_kernel_matches_plain(cuda):
         assert _row_share(got, want) <= 1, (KV, G, window, ps, T)
         assert not got[2].any()
         _assert_late_rows(got, T)
+
+
+@pytest.mark.cuda
+def test_split_kernels_at_group_1(cuda):
+    """MHA (pythia-6.9b: 32 kv heads, G 1, d 128), one query row a (slot,
+    kv head) at T 1: the dense split kernel (bf16 q and pages) within
+    SPLIT_TOL and the row-scaled limit of its plain version, and the int8
+    split kernel (bf16 q over int8 pages) within KERNEL_TOL and one bf16
+    step and the row-scaled limit of the chunked plain version, at T 1 and
+    16 over scattered 16-token pages; for T 16, row t bitwise a one-token
+    call at pos0 + t."""
+    KV, d, ps = 32, 128, 16
+    lengths = [300, 271, 0, 365]
+    for form, T in itertools.product(('dense', 'int8'), (1, 16)):
+        if form == 'dense':
+            args = _scattered(cuda, 11 + T, len(lengths), T, KV, 1, d, 384,
+                              ps, lengths)
+            fn = paged_attention
+            assert split_form(*args[:3])
+        else:
+            args = _quant_cuda(cuda, 13 + T, T, KV, 1, ps, lengths)
+            fn = paged_attention_quant
+            assert quant_split_form(*args[:2])
+        q, pos0 = args[0], args[-1]
+        kw = dict(scale=d ** -0.5, window=0)
+        got = fn(*args, **kw)
+        if form == 'dense':
+            want = paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=SPLIT_TOL, rtol=SPLIT_TOL)
+        else:
+            want = paged_attention_chunked_plain(
+                q, args[1], args[2], *args[5:], chunk=64,
+                k_scale_pages=args[3], v_scale_pages=args[4], **kw)
+            torch.cuda.synchronize()
+            assert bool(((got.float() - want.float()).abs()
+                         <= _quant_limit(want, torch.bfloat16)).all()), T
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert _row_share(got, want) <= 1, (form, T)
+        assert not got[2].any()
+        for t in range(T if T > 1 else 0):
+            one = fn(q[:, t:t + 1].contiguous(), *args[1:-1], pos0 + t, **kw)
+            assert torch.equal(one, got[:, t:t + 1]), (form, t)
 
 
 @pytest.mark.cuda
