@@ -70,7 +70,14 @@ Phases, in order; any failure raises and exits non-zero:
               table pages), bf16 and int8: bitwise the unsharded kernel, H
               launches, within KERNEL_TOL of its plain version, timed against
               the unsharded call on card 0 repeated (CUDA-graph replays, as
-              every kernel time).
+              every kernel time); at the paged mistral-7b engine's ring
+              shapes (Sc 4111, 257 ring pages a slot scattered over its
+              4485-page pool, 4 slots, window 4096): paged_attention and
+              paged_attention_quant (bf16 q) at T 1 and 16 through the ring
+              table, fused_page_write (bf16 and quantizing) with ring job
+              lists at T 1, T 16 and T 16 with all 4 x 257 ring pages
+              pending, each with its bound, plain version, library call and
+              the launch floor.
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
@@ -87,7 +94,16 @@ Phases, in order; any failure raises and exits non-zero:
               library calls) at N 1, 4, 64, 4096, 8192, and Model.apply at
               B 1, S 8192, baseline and precomputed: ms per forward, launch
               counts, logits of the two against each other and against the
-              engine's chunked decode of the same prompt.
+              engine's chunked decode of the same prompt. Between the two,
+              on the same weights and table, mistral-7b through the paged
+              pool and the radix cache (ring pages with snapshots: page 16,
+              max_seq 4608, chunk 16, Sc 4111, 257 ring pages a slot, the
+              default 4485-page pool), a two-turn chat: 4 prompts of
+              4160-4400 tokens, then each with its 16 tokens and 32 new
+              ones (a prefix hit at its snapshot and a restore), 16 new
+              tokens each; bf16, then an int8 pool: TTFT on a miss and on
+              a hit, snapshot count and bytes, the device ms of a capture
+              and of a restore, cow_page_copy never launched.
 5. glm4     — serves glm4-9b at full width through the paged KV pool and
               the radix prefix cache (bf16, seeded random weights,
               precomputed table, page 16, max_seq 2048, chunk 16, fused
@@ -128,15 +144,18 @@ Phases, in order; any failure raises and exits non-zero:
               step, fused_page_write once a layer and step on the paged run,
               cow_page_copy once per cache and copy, flash_attention once a
               layer a forward, rmsnorm_matmul never.
-8. pressure — the glm4-9b smoke config in fp32 without the fused gather
-              (so embed_gather runs on the paged path) and a pool too small
-              for its slots: preemptions happen, tokens equal an
+8. pressure — the glm4-9b and mistral-7b (ring pages with snapshots)
+              smoke configs in fp32 without the fused gather (so
+              embed_gather runs on the paged path) and a pool too small
+              for the slots: preemptions happen, tokens equal an
               unpressured run's.
 9. consistency — on the card, fp32 smoke configs, with fp32 and then
               int8 KV caches: mistral-7b's cuda and reference backends
               give equal greedy tokens; glm4-9b and deepseek-v2-lite-16b
               paged with the cuda backend give dense reference's tokens
-              through a copy-on-write and preemptions; pool contents after
+              through a copy-on-write and preemptions, and mistral-7b paged
+              (ring pages) through ring wraps, snapshot hits and
+              preemptions; pool contents after
               the kernel write path (fused_page_write, deferred clears,
               cow_page_copy) equal those after the plain scatters with
               eager clears, bit for bit, on every leaf (five with int8);
@@ -1274,14 +1293,14 @@ def quant_plain(args, kw):
                                  k_scale_pages=ks, v_scale_pages=vs)
 
 
-def check_quant(label, got, want, args, kw) -> tuple:
+def check_quant(label, got, want, args, kw, empty: bool = True) -> tuple:
     """An int8 attend against its plain version: fp32 queries within
     KERNEL_TOL; bf16 queries within KERNEL_TOL on top of one bf16 step of
     the output (2^-7 of its magnitude: two fp32 sums that differ in their
     last bits may round to neighbouring bf16 values), then
     ``check_paged_bf16`` (the row-scaled limit, and a T 16 call's rows
-    bitwise one-token calls); the empty slot zeros. Returns (max |err|,
-    the text of what held)."""
+    bitwise one-token calls); with ``empty``, slot 2 (an empty slot)
+    zeros. Returns (max |err|, the text of what held)."""
     q = args[0]
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
@@ -1290,7 +1309,7 @@ def check_quant(label, got, want, args, kw) -> tuple:
         lim = lim + want.float().abs() * 2.0 ** -7
     assert bool((diff <= lim).all()), f'paged_attention_quant {label}: ' \
         f'max |err| {err:.3g}'
-    assert got.dtype == q.dtype and not got[2].any(), \
+    assert got.dtype == q.dtype and not (empty and got[2].any()), \
         'empty slot must attend to zeros'
     held = 'KERNEL_TOL'
     if q.dtype is torch.bfloat16:
@@ -1299,14 +1318,15 @@ def check_quant(label, got, want, args, kw) -> tuple:
     return err, held
 
 
-def check_quant_case(label, args, kw, view_pos) -> dict:
+def check_quant_case(label, args, kw, view_pos, empty: bool = True
+                     ) -> dict:
     """One int8 attend held by ``check_quant``, timed with the bound.
     ``view_pos`` is the slots' stored positions in dense order."""
     q, k, pos0 = args[0], args[1], args[-1]
     got = paged_attention_quant(*args, **kw)
     want = quant_plain(args, kw)
     torch.cuda.synchronize()
-    err, held = check_quant(label, got, want, args, kw)
+    err, held = check_quant(label, got, want, args, kw, empty)
     ms = time_ms(lambda: paged_attention_quant(*args, **kw))
     plain_ms = time_ms(lambda: quant_plain(args, kw))
     B, _, KV, G, d = q.shape
@@ -1316,7 +1336,8 @@ def check_quant_case(label, args, kw, view_pos) -> dict:
     form = 'split' if quant_split_form(q, k) else 'template'
     log(f'[kernel] paged_attention_quant q {str(q.dtype)[6:]} {label} B={B} '
         f'KV={KV} G={G} d={d}: {form} kernel; max |err| {err:.3g} '
-        f'({held}), empty slot zeros; kernel {ms:.4f} ms, plain '
+        f'({held})' + (', empty slot zeros' if empty else '') + f'; kernel '
+        f'{ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, no library call reads int8 pages with scales, '
         f'bound {b_ms:.4f} ms ({by})')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1820,6 +1841,168 @@ def check_page_writes_pythia(gen) -> dict:
     return out
 
 
+# ------------------------------- phase 3: mistral-7b ring pages (paged)
+RING_PS, RING_SEQ, RING_SLOTS = 16, 4608, 4
+# tokens held by the 4 slots of the ring checks: every ring wrapped
+RING_LENGTHS = (4400, 4700, 4171, 4608)
+
+
+def ring_geometry():
+    """(Sc, ring pages a slot, the engine's default pool) of paged
+    mistral-7b at page 16, max_seq 4608, chunk 16, 4 slots."""
+    cfg = get_config('mistral_7b')
+    Sc = A.cache_len(cfg.window, RING_SEQ, 16)
+    P = -(-Sc // RING_PS)
+    lin = RING_SEQ // RING_PS
+    return Sc, P, 1 + RING_SLOTS * (lin + P) + 8 * lin
+
+
+def ring_pool(gen, Sc, P, NP):
+    """A scattered ring table over the pool and the position leaf of slots
+    holding ``RING_LENGTHS`` tokens: row ``p % Sc`` of each slot holds its
+    position p for the last Sc positions; the rows past Sc of each ring's
+    partial last page, as every unwritten row, hold -1. -> table, cpos."""
+    table = scattered_table(gen, RING_SLOTS, P, NP, [Sc] * RING_SLOTS,
+                            RING_PS)
+    cpos = torch.full((NP, RING_PS), -1, dtype=torch.int32, device='cuda')
+    for b, n in enumerate(RING_LENGTHS):
+        p = torch.arange(n - Sc, n, device='cuda')
+        idx = p % Sc
+        cpos[table[b, idx // RING_PS].long(), idx % RING_PS] = \
+            p.to(torch.int32)
+    return table, cpos
+
+
+def check_ring_pages(gen, floor: float) -> dict:
+    """The paged mistral-7b engine's ring shapes: Sc 4111 (window 4096 +
+    15), 257 ring pages a slot scattered over the engine's 4485-page pool,
+    4 slots, KV 8, G 4, d 128. paged_attention (bf16) and
+    paged_attention_quant (bf16 q over int8 pages) at T 1 and 16 through
+    the ring table, held as the other attends are; fused_page_write (bf16
+    k / v / pos, and the quantizing form into the five int8 leaves) with
+    ring job lists at T 1 (a decode step), T 16 (a prefill step), and T 16
+    with every ring page of the 4 slots pending (a wave's first step: 4 x
+    257 deferred clears). Each timed with its bound, its plain version,
+    the library call (sdpa on the gathered view; index_copy_ of the chunk
+    rows) and beside the launch floor ``floor``. -> rows by kernel."""
+    cfg = get_config('mistral_7b')
+    KV, d, G = cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_heads // cfg.num_kv_heads
+    Sc, P, NP = ring_geometry()
+    B, ps, window = RING_SLOTS, RING_PS, cfg.window
+    out = {'paged_attention': {}, 'paged_attention_quant': {},
+           'fused_page_write': {}}
+    k, v, _ = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
+    table, cpos = ring_pool(gen, Sc, P, NP)
+    k[0], v[0] = 0, 0
+    view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, Sc)
+    assert bool((view['pos'] >= 0).all()), 'every ring row is written'
+    assert int((cpos >= 0).sum()) == B * Sc, 'rows past Sc stay -1'
+    for T in (1, 16):
+        pos0 = torch.tensor([n - T for n in RING_LENGTHS], dtype=torch.int32,
+                            device='cuda')
+        q = torch.randn((B, T, KV, G, d), generator=gen,
+                        device='cuda').to(torch.bfloat16)
+        args = (q, k, v, cpos, table, pos0)
+        kw = dict(scale=d ** -0.5, window=window)
+        got = paged_attention(*args, **kw)
+        want = paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        held = check_paged_bf16(f'mistral ring T={T}', got, want, args, kw)
+        ms = time_ms(lambda: paged_attention(*args, **kw))
+        plain = time_ms(lambda: paged_attention_plain(*args, **kw))
+        lib = library_attention_ms(q, view['k'], view['v'], view['pos'],
+                                   pos0, window)
+        b_ms, by = attention_bound(q, view['k'], view['pos'], pos0, window,
+                                   torch.bfloat16)
+        log(f'[kernel] paged_attention bf16 mistral ring B={B} KV={KV} G={G} '
+            f'T={T} Sc={Sc} window={window}, {P} ring pages a slot scattered '
+            f'over NP={NP}: max |err| {err:.3g} (tol 2e-2; {held}); kernel '
+            f'{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound '
+            f'{b_ms:.4f} ms ({by})')
+        out['paged_attention'][T] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=by, library_ms=lib)
+    del k, v, view
+    qk, qv, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    for x in (qk, qv, ks, vs):
+        x[0] = 0
+    view_pos = paged_view({'pos': cpos}, table, Sc)['pos']
+    for T in (1, 16):
+        pos0 = torch.tensor([n - T for n in RING_LENGTHS], dtype=torch.int32,
+                            device='cuda')
+        q = torch.randn((B, T, KV, G, d), generator=gen,
+                        device='cuda').to(torch.bfloat16)
+        out['paged_attention_quant'][T] = check_quant_case(
+            f'mistral ring Sc={Sc} {P} pages a slot over NP={NP} T={T}',
+            (q, qk, qv, ks, vs, cpos, table, pos0),
+            dict(scale=d ** -0.5, window=window), view_pos, empty=False)
+    del qk, qv, ks, vs
+    free()
+    # the ring writes: chunks at each slot's next positions
+    k, v, pos = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
+    qk, qv, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    quant = [qk, qv, ks, vs, pos.clone()]
+    for y, f in zip(quant, [PM.leaf_fill(nm) for nm in QUANT_LEAVES]):
+        y[0] = f                                  # the null page
+    ring_pages = table[table > 0].to(torch.int32)
+    for label, T, pending in (('T=1', 1, table.new_zeros(0)),
+                              ('T=16', 16, table.new_zeros(0)),
+                              (f'T=16, {ring_pages.numel()} pending', 16,
+                               ring_pages)):
+        pos0 = torch.tensor(RING_LENGTHS, dtype=torch.int32, device='cuda')
+        nv = torch.full((B,), T, dtype=torch.int32, device='cuda')
+        jobs = PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)
+        n_w, n_f = write_counts(jobs, Sc, ps)
+        x = (torch.randn((2, B, T, KV, d), generator=gen, device='cuda')
+             * 3).to(torch.bfloat16)
+        pos_t = PM.chunk_positions(pos0, T)
+        for form, leaves, vals, fills, pairs in (
+                ('bf16', [k, v, pos], [x[0], x[1], pos_t], [0, 0, -1], []),
+                ('quantizing', quant, [x[0], x[1], None, None, pos_t],
+                 [PM.leaf_fill(nm) for nm in QUANT_LEAVES], QUANT_PAIRS)):
+            plain_vals = PM.quantized_values(vals, pairs) if pairs else vals
+            want = [PM.fused_page_write_plain(y.clone(), w, jobs, Sc=Sc,
+                                              fill=f)
+                    for y, w, f in zip(leaves, plain_vals, fills)]
+            n0 = PM.fused_page_write.launches
+            PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills,
+                                quantize=pairs)
+            torch.cuda.synchronize()
+            assert PM.fused_page_write.launches == n0 + 1
+            for i, (g, w, f) in enumerate(zip(leaves, want, fills)):
+                bits = torch.int16 if g.dtype == torch.bfloat16 else g.dtype
+                assert torch.equal(g.view(bits), w.view(bits)), \
+                    f'fused_page_write {form} mistral ring {label} leaf {i}'
+                assert bool((g[0] == f).all()), 'the null page was written'
+            del want
+            rb = [y[0, 0].numel() * y.element_size() for y in leaves]
+            src = 2 * KV * d * x.element_size() + 4 if pairs else sum(rb)
+            moved = n_w * (src + sum(rb)) + n_f * sum(rb) + nbytes(jobs)
+            b_ms, by = bound(moved, 0, torch.bfloat16)
+            ms = time_ms(lambda: PM.fused_page_write(
+                leaves, vals, jobs, Sc=Sc, fills=fills, quantize=pairs))
+            plain = time_ms(lambda: [PM.fused_page_write_plain(
+                y, w, jobs, Sc=Sc, fill=f)
+                for y, w, f in zip(leaves, plain_vals, fills)])
+            lib = library_page_write_ms(leaves, plain_vals, jobs, Sc, ps)
+            log(f'[kernel] fused_page_write {form} mistral ring Sc={Sc} '
+                f'{label} KV={KV} d={d} ({jobs.shape[0]} jobs, {n_w} rows '
+                f'written, {n_f} filled, NP={NP}): bitwise the plain write; '
+                f'kernel {ms:.4f} ms, plain {plain:.4f} ms, index_copy_ x'
+                f'{len(leaves)} (no clears) {lib:.4f} ms, launch floor '
+                f'{floor:.4f} ms, bound {b_ms:.6f} ms ({by})')
+            out['fused_page_write'].setdefault(form, {})[label] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib, launch_floor_ms=floor)
+    del k, v, pos, quant, qk, qv, ks, vs
+    free()
+    return out
+
+
 def same_leaves(label, got, want) -> None:
     """Every pool leaf bitwise (bf16 scales compared as bits: NaN too)."""
     for nm, g, w in zip(QUANT_LEAVES, got, want):
@@ -2247,8 +2430,9 @@ def phase_mistral(rows) -> dict:
     """mistral-7b on dense ring caches, in bf16 with the table, without it
     (the baseline: embedding read and layer 0's norm and projections at
     run time) and with int8 KV caches, on the same weights and requests;
-    then, on the same weights, the layer-0 comparison and Model.apply at
-    S 8192."""
+    then, on the same weights, through the paged pool with ring pages
+    (:func:`phase_mistral_paged`), the layer-0 comparison and Model.apply
+    at S 8192."""
     cfg = get_config('mistral_7b')
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -2277,9 +2461,220 @@ def phase_mistral(rows) -> dict:
         f'{token_share(out["mistral_baseline"][1], base)} (reported, not '
         'checked)')
     phases = {run: v[0] for run, v in out.items()}
+    phases.update(phase_mistral_paged(model, params, table))
     check_layer0(model, params, table, LAYER0_COUNTS + (8192,), rows)
     phases.update(phase_apply(model, params, table, 8192, 'mistral'))
     return phases
+
+
+def phase_mistral_paged(model, params, table, device='cuda',
+                        lengths=(4160, 4401)) -> dict:
+    """mistral-7b through the paged pool and the radix cache on phase 4's
+    weights and table: ring pages with snapshots (page 16, max_seq 4608,
+    chunk 16: Sc 4111, 257 ring pages a slot, the default pool), a
+    two-turn chat (:func:`serve_ring`) in bf16 and then with an int8 pool.
+    Logs the phase's own seconds. -> launches by run."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 4)
+    cfg = model.cfg
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        *lengths))).astype(np.int32) for _ in range(RING_SLOTS)]
+    out = {}
+    for run, kv_quant in (('mistral_paged', False),
+                          ('mistral_paged_int8', True)):
+        out[run] = serve_ring(model, params, table, prompts, run, kv_quant,
+                              device)
+        if torch.device(device).type == 'cuda':
+            free()
+    log(f'[mistral_paged_int8] greedy tokens equal to the bf16 run\'s: '
+        f'{token_share(out["mistral_paged_int8"][1], out["mistral_paged"][1])}'
+        f' (reported, not checked); phase seconds (both runs) '
+        f'{time.perf_counter() - t0:.1f}')
+    return {run: v[0] for run, v in out.items()}
+
+
+def snapshots_held(eng) -> tuple:
+    """(snapshots on the radix index, their bytes)."""
+    n, size, stack = 0, 0, [eng.kv.root]
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        if node.snapshot is not None:
+            n += 1
+            size += nbytes(*node.snapshot)
+    return n, size
+
+
+def timed_calls(eng, name, events) -> None:
+    """Record CUDA events around each call of the engine method ``name``
+    (the instance's attribute shadows the method)."""
+    fn = getattr(eng, name)
+
+    def run(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        events.append((start, end))
+        return out
+    setattr(eng, name, run)
+
+
+def calls_ms(fn, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` between CUDA events over ``reps`` calls
+    after one warm-up call; each result is dropped before the next call,
+    so the allocator reuses its blocks."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_ring(model, params, table, prompts, tag, kv_quant, device):
+    """One paged engine (ring pages with snapshots) over a two-turn chat,
+    16 new tokens a request. Wave 1: ``prompts`` (every ring wraps in its
+    prefill; each publishes a snapshot at ((P - 1) // 16) * 16). Wave 2:
+    each prompt + its 16 greedy tokens + 32 new tokens, a prefix hit at
+    that snapshot and a restore. Then a profiled batch of four more second
+    turns. Checks the launch counts (attention and fused_page_write once a
+    layer and a step, one gather a step, cow_page_copy never), the hit
+    tokens and that every request FINISHED with 16 tokens. -> (launches,
+    greedy tokens of both waves)."""
+    cfg = model.cfg
+    on_card = torch.device(device).type == 'cuda'
+    attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
+    rng = np.random.default_rng(SEED + 5)
+    eng = ServingEngine(model, params, max_slots=RING_SLOTS, max_seq=RING_SEQ,
+                        precomputed=table, seed=SEED,
+                        dtype=next(iter(params['embed'].values())).dtype,
+                        chunk_size=16, fused_gather_rope=True,
+                        prefix_cache=True, page_size=RING_PS,
+                        kv_quant=kv_quant, attn_backend='cuda', device=device)
+    assert eng.paged and eng.fused_gather_rope and eng._fused_maint \
+        and eng._needs_snapshot and not eng._lin_layers
+    if cfg.window == get_config('mistral_7b').window:
+        assert (eng._sc_ring, eng._pages_ring, eng.num_pages) == \
+            ring_geometry(), (eng._sc_ring, eng._pages_ring, eng.num_pages)
+    log(f'[{tag}] paged pool with ring pages: {eng.num_pages} pages x '
+        f'{eng.page_size} tokens x {cfg.num_layers} layers; Sc '
+        f'{eng._sc_ring}, {eng._pages_ring} ring pages and '
+        f'{eng._pages_lin} linear pages a slot; leaves '
+        f'{sorted(eng.states["layer0"])}; pool bytes '
+        f'{nbytes(*[x for pool, _ in eng._pools for x in pool.values()])}')
+    warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
+    eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
+    eng.run()
+    captures, restores = [], []
+    if on_card:
+        timed_calls(eng, '_capture', captures)
+        timed_calls(eng, '_restore', restores)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    snaps0 = snapshots_held(eng)[0]
+    steps0 = eng.steps
+    zero_launches()
+    first = [Request(uid=i, prompt=p, max_new_tokens=16)
+             for i, p in enumerate(prompts)]
+    waves, t_all = [], time.perf_counter()
+    second = []
+    for wave in range(2):
+        reqs = first if wave == 0 else second
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        if on_card:
+            torch.cuda.synchronize()
+        waves.append(time.perf_counter() - t0)
+        if wave == 0:
+            assert snapshots_held(eng)[0] == snaps0 + len(first)
+            second = [Request(uid=10 + i, prompt=np.concatenate(
+                [r.prompt, np.asarray(r.generated, np.int32), rng.integers(
+                    3, cfg.vocab_size, size=32).astype(np.int32)]),
+                max_new_tokens=16) for i, r in enumerate(first)]
+    dt = time.perf_counter() - t_all
+    launches = read_launches()
+    steps = eng.steps - steps0
+    reqs = first + second
+    for r in reqs:
+        assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
+        assert len(r.generated) == 16, (r.uid, len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    hits = [((len(p) - 1) // RING_PS) * RING_PS for p in prompts]
+    assert [r.prefix_hit_tokens for r in first] == [0] * len(first)
+    assert [r.prefix_hit_tokens for r in second] == hits, \
+        ([r.prefix_hit_tokens for r in second], hits)
+    stats = eng.stats(reqs)
+    assert stats['cow_copies'] == 0 and launches['cow_page_copy'] == 0, \
+        launches
+    for name in (attn, 'fused_page_write'):
+        assert launches[name] == cfg.num_layers * steps, \
+            (name, launches[name], steps)
+    assert launches['gather_rope'] + launches['embed_gather'] == steps \
+        and launches['gather_rope'] > 0, (launches, steps)
+    if kv_quant:
+        assert launches['paged_attention'] == 0, launches
+    ttft = [[r.first_token_t - r.submit_t for r in w]
+            for w in (first, second)]
+    n_snap, snap_bytes = snapshots_held(eng)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    log(f'[{tag}] 8 requests (wave 1 prompts {[len(p) for p in prompts]}, '
+        f'wave 2 second turns {[len(r.prompt) for r in second]}), '
+        f'{stats["tokens"]} new tokens in {dt:.3f}s -> '
+        f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
+        f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
+        f'{[round(w, 3) for w in waves]}; mean TTFT on a miss (wave 1) '
+        f'{np.mean(ttft[0]):.3f}s, on a hit (wave 2) {np.mean(ttft[1]):.3f}s '
+        f'({np.mean(ttft[0]) / np.mean(ttft[1]):.1f}x); peak memory '
+        f'{peak:.2f} GiB')
+    log(f'[{tag}] prefix hits {stats["prefix_hits"]}, misses '
+        f'{stats["prefix_misses"]}, hit tokens {stats["prefix_hit_tokens"]} '
+        f'(per request {[r.prefix_hit_tokens for r in reqs]}), '
+        f'copy-on-write {stats["cow_copies"]}, pages in use '
+        f'{stats["pages_in_use"]}, evictions {stats["evictions"]}, '
+        f'preemptions {stats["preemptions"]}; snapshots held {n_snap} '
+        f'({snap_bytes} bytes, {snap_bytes / max(n_snap, 1) / 2**30:.3f} GiB '
+        'each)')
+    if on_card:
+        torch.cuda.synchronize()
+        for name in ('_capture', '_restore'):
+            delattr(eng, name)
+        # the copies alone: a capture and a restore of free pages, repeated
+        # with the allocator's blocks reused (no new device memory)
+        pages = eng.kv.alloc(eng._pages_ring)
+        eng.slot_ring[0] = pages
+        snap = eng._capture(0)
+        alone = {'capture': calls_ms(lambda: eng._capture(0)),
+                 'restore': calls_ms(lambda: eng._restore(0, snap))}
+        eng.slot_ring[0] = []
+        eng.kv.free(pages)
+        del snap
+        # a snapshot's bytes read once and written once
+        b_ms, by = bound(2 * snap_bytes / max(n_snap, 1), 0, torch.bfloat16)
+        for what, ev in (('capture', captures), ('restore', restores)):
+            ms = [a.elapsed_time(b) for a, b in ev]
+            log(f'[{tag}] snapshot {what}: {len(ms)} calls in the waves, '
+                f'ms between CUDA events (the device waits while the host '
+                f'allocates a capture\'s memory) mean {np.mean(ms):.4f}, min '
+                f'{min(ms):.4f}, max {max(ms):.4f}; the copies alone '
+                f'{alone[what]:.4f} device ms; bound {b_ms:.4f} ms ({by})')
+    log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
+        f'({attn} and fused_page_write {cfg.num_layers} a step, one gather '
+        'a step, cow_page_copy 0); all requests FINISHED with 16 tokens '
+        '(finite logits)')
+    if on_card:
+        profile_engine(eng, [Request(uid=20 + i, prompt=np.concatenate(
+            [r.prompt, np.asarray(r.generated, np.int32), rng.integers(
+                3, cfg.vocab_size, size=32).astype(np.int32)]),
+            max_new_tokens=16) for i, r in enumerate(first)])
+    return launches, [r.generated for r in reqs]
 
 
 def token_share(got, base) -> str:
@@ -2856,12 +3251,31 @@ def pressure_prompts(cfg, seed):
     return [np.concatenate([system, t]) for t in tails]
 
 
+def ring_prompts(cfg, seed):
+    """``pressure_prompts`` and, for ring pages with snapshots, the first
+    and third prompts again (prefix hits at their snapshots)."""
+    prompts = pressure_prompts(cfg, seed)
+    return prompts + [prompts[0].copy(), prompts[2].copy()]
+
+
 def phase_pressure(device='cuda') -> dict:
-    cfg = get_smoke_config('glm4_9b')
+    """glm4-9b's smoke config, and then mistral-7b's (ring pages with
+    snapshots), fp32, paged, without the fused gather: a pool too small
+    for the slots preempts, and the tokens equal an unpressured run's.
+    -> glm4's launches."""
+    launches = pressure_run('glm4_9b', device)
+    pressure_run('mistral_7b', device)
+    return launches
+
+
+def pressure_run(arch, device) -> dict:
+    cfg = get_smoke_config(arch)
     model = Model(cfg)
     params = model.init(SEED, device=device, dtype=torch.float32)
     table = model.build_table(params)
-    prompts = pressure_prompts(cfg, SEED + 2)
+    ring = arch == 'mistral_7b'
+    prompts = ring_prompts(cfg, SEED + 2) if ring \
+        else pressure_prompts(cfg, SEED + 2)
     out, launches = {}, {}
     for num_pages in (None, 8):
         eng = ServingEngine(model, params, max_slots=3, max_seq=128,
@@ -2880,16 +3294,21 @@ def phase_pressure(device='cuda') -> dict:
         assert all(r.status is RequestStatus.FINISHED for r in reqs), \
             [(r.uid, r.status, r.error) for r in reqs]
         out[num_pages] = ([r.generated for r in reqs], report['preemptions'],
-                          eng.num_pages)
-    (base, pre0, np0), (tok, pre, np1) = out[None], out[8]
+                          eng.num_pages, eng.kv.hits)
+    (base, pre0, np0, hits0), (tok, pre, np1, hits) = out[None], out[8]
     assert pre0 == 0 and pre > 0, (pre0, pre)
     assert tok == base, 'tokens changed under pool pressure'
     for name in ('embed_gather', 'fused_page_write', 'paged_attention'):
         assert launches[name] > 0, f'{name} never launched under pressure'
     assert launches['gather_rope'] == 0
+    if ring:
+        assert hits0 > 0 and launches['cow_page_copy'] == 0, \
+            (hits0, launches)
     log(f'[pressure] {cfg.name} fp32, 3 slots, {len(prompts)} requests: '
         f'{pre} preemptions with {np1} pages (none with {np0}); greedy '
-        f'tokens equal ({sum(map(len, tok))} tokens); launches '
+        f'tokens equal ({sum(map(len, tok))} tokens); prefix hits {hits0} '
+        f'and {hits}' + (f' (ring pages: Sc {eng._sc_ring}, snapshots)'
+                         if ring else '') + f'; launches '
         f'{json.dumps(launches)}')
     return launches
 
@@ -2943,13 +3362,17 @@ def consistency(kv_quant: bool, device) -> list:
         f'reference backends equal ({sum(map(len, out["cuda"]))} tokens, '
         f'{len(prompts)} requests)')
 
-    for name in ('glm4_9b', DS):
+    for name in ('glm4_9b', DS, 'mistral_7b'):
         cfg = get_smoke_config(name)
         model = Model(cfg)
         params = model.init(SEED, device=device, dtype=torch.float32)
         table = model.build_table(params)
-        prompts = pressure_prompts(cfg, SEED + 3)
-        prompts.append(prompts[0][:44].copy())   # stops inside a cached page
+        ring = name == 'mistral_7b'         # ring pages with snapshots
+        if ring:
+            prompts = ring_prompts(cfg, SEED + 3)
+        else:
+            prompts = pressure_prompts(cfg, SEED + 3)
+            prompts.append(prompts[0][:44].copy())  # stops inside a page
 
         def serve(backend, num_pages, mesh=None):
             kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
@@ -2971,7 +3394,8 @@ def consistency(kv_quant: bool, device) -> list:
         tokens, _ = serve('reference', 0)
         if name == DS:
             ds_tokens = tokens
-        # 16 pages: prefix hits and a copy-on-write; 12: preemptions as well
+        # 16 pages: prefix hits and a copy-on-write (ring: hits at
+        # snapshots, no copy-on-write); 12: preemptions as well
         for num_pages in (16, 12):
             runs = {'paged cuda': serve('cuda', num_pages),
                     'paged reference': serve('reference', num_pages),
@@ -2981,8 +3405,11 @@ def consistency(kv_quant: bool, device) -> list:
                 assert tok == tokens, f'{label} ({num_pages} pages): tokens ' \
                     'differ from dense reference'
             eng = runs['paged cuda'][1]
-            assert eng.cow_copies > 0 if num_pages == 16 \
-                else eng.preemptions > 0
+            if num_pages == 16:
+                assert eng.kv.hits > 0 and (eng.cow_copies == 0 if ring
+                                            else eng.cow_copies > 0)
+            else:
+                assert eng.preemptions > 0
             plain = runs['paged reference'][1]._pools
             for label, every_leaf in (('paged reference+kernel writes', True),
                                       ('paged cuda', False)):
@@ -2998,7 +3425,9 @@ def consistency(kv_quant: bool, device) -> list:
                                 (label, num_pages, li, nm)
             leaves = sorted(plain[0][0])
             log(f'{tag} {cfg.name} fp32 paged, {num_pages} pages '
-                f'({eng.cow_copies} copy-on-write, {eng.preemptions} '
+                + (f'(ring pages, Sc {eng._sc_ring}; {eng.kv.hits} prefix '
+                   f'hits at snapshots, ' if ring else '(')
+                + f'{eng.cow_copies} copy-on-write, {eng.preemptions} '
                 f'preemptions): greedy tokens of paged cuda, paged reference '
                 f'and dense reference equal ({sum(map(len, tokens))} tokens); '
                 f'pool leaves {leaves} after the kernel write path bitwise '
@@ -3006,7 +3435,8 @@ def consistency(kv_quant: bool, device) -> list:
                 'reference pools bitwise on layer 0 and every position leaf')
             # the mesh engine: MLA (deepseek) falls back to one-device
             # attends; 12 pages preempt under the mesh too
-            for spec in ('2x2', '1x2') if name == 'glm4_9b' else ('2x2',):
+            for spec in {'glm4_9b': ('2x2', '1x2'), DS: ('2x2',)}.get(
+                    name, ()):
                 mesh = card_mesh(spec)
                 n0 = sharded_paged_attention.launches
                 tok, eng = serve('cuda', num_pages, mesh)
@@ -3045,6 +3475,8 @@ def main() -> None:
     rows['fused_page_write'].update(check_quant_page_writes(gen))
     rows['fused_page_write']['pythia'] = check_page_writes_pythia(gen)
     rows['sharded_paged_attention'] = check_sharded_paged_attention(gen)
+    for name, ring in check_ring_pages(gen, floor).items():
+        rows[name]['mistral_ring'] = ring
     rows['flash_attention'] = check_flash_attention(gen)
     free()
     phases = phase_mistral(rows)

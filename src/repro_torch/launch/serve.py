@@ -13,6 +13,8 @@ paged KV pool with the prefix cache).
         --arch deepseek-v2-lite-16b --prefix-cache --fused-gather-rope  # MLA
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch glm4-9b --prefix-cache --mesh 2x2    # a 2x2 mesh of one CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --prefix-cache --page-size 8 --shared-prefix 16   # ring pages
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -56,9 +58,9 @@ def main() -> None:
     ap.add_argument('--prefix-cache', action='store_true',
                     help='paged KV pool + shared-prefix radix cache: '
                          'requests sharing a cached prompt prefix attach '
-                         'its pages and skip that prefill work (configs '
-                         "whose layers are all 'global': glm4-9b, "
-                         'deepseek-v2-lite-16b)')
+                         'its pages and skip that prefill work; windowed '
+                         "layers (mistral-7b's) keep private ring pages and "
+                         'resume from snapshots')
     ap.add_argument('--page-size', type=int, default=16,
                     help='tokens per KV page (prefix-cache mode; must '
                          'divide --max-seq)')

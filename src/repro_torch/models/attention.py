@@ -302,19 +302,22 @@ class PageTables:
     entries point at it and are masked out by position validity.
 
     ``pending`` (K,) int32, optional: pages awaiting deferred
-    clear-on-alloc. ``jobs``: the step's ``(job list, chunk positions)``
-    pair of ``kernels.paged_maintenance`` for the linear table, which
-    ``fused_maintenance`` backends need: every layer's fused chunk write
-    applies it, pending clears included. The engine builds it once per
-    step on the host; :meth:`with_jobs` builds it on the tables' device.
-    Without ``fused_maintenance`` the engine clears eagerly and neither
-    field is read.
+    clear-on-alloc. ``jobs`` / ``ring_jobs``: the step's ``(job list,
+    chunk positions)`` pair of ``kernels.paged_maintenance`` for the linear
+    and the ring table, which ``fused_maintenance`` backends need: every
+    layer's fused chunk write applies the list of its table, pending clears
+    included (each list carries them all: every layer clears them in its
+    own pool). The engine builds them once per step on the host, only for
+    the tables its layers use; :meth:`with_jobs` builds both on the tables'
+    device. Without ``fused_maintenance`` the engine clears eagerly and no
+    job field is read.
     """
     pt: torch.Tensor
     rt: torch.Tensor
     sc_ring: int
     pending: Optional[torch.Tensor] = None
     jobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ring_jobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def table_for(self, window: int, page_size: int
                   ) -> Tuple[torch.Tensor, int]:
@@ -323,19 +326,28 @@ class PageTables:
             return self.rt, self.sc_ring
         return self.pt, self.pt.shape[1] * page_size
 
+    def jobs_for(self, window: int
+                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The job list of the table :meth:`table_for` gives that layer."""
+        return self.ring_jobs if window and self.sc_ring else self.jobs
+
     def with_jobs(self, pos0: torch.Tensor, n_valid: torch.Tensor,
                   page_size: int, T: int) -> 'PageTables':
-        """A copy carrying the job list of a T-lane chunk step at ``pos0``
-        with ``n_valid`` lanes per slot, over the linear table."""
+        """A copy carrying the job lists of a T-lane chunk step at ``pos0``
+        with ``n_valid`` lanes per slot, over the linear table and (with
+        ``sc_ring``) the ring table."""
         from repro_torch.kernels import paged_maintenance as PM
         pending = self.pending if self.pending is not None else \
             torch.zeros(0, dtype=torch.int32, device=self.pt.device)
-        jobs = PM.build_jobs(pos0, n_valid, self.pt,
-                             self.pt.shape[1] * page_size, page_size, T,
-                             pending)
+        pos_t = PM.chunk_positions(pos0, T)
+
+        def jobs(table, Sc):
+            return PM.build_jobs(pos0, n_valid, table, Sc, page_size, T,
+                                 pending), pos_t
         return dataclasses.replace(
             self, pending=pending,
-            jobs=(jobs, PM.chunk_positions(pos0, T)))
+            jobs=jobs(self.pt, self.pt.shape[1] * page_size),
+            ring_jobs=jobs(self.rt, self.sc_ring) if self.sc_ring else None)
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
@@ -408,8 +420,9 @@ def paged_write(cache: Dict, vals: Dict[str, torch.Tensor],
     """Chunk write of the leaves ``vals`` (B, T, ...) — K/V, or MLA's
     latents — into pool storage through the layer's page table, in place,
     the position leaf included. A ``fused_maintenance`` backend writes
-    with the ``fused_page_write`` job list ``paged.jobs``, which also
-    applies the step's deferred clears, and raises without it; otherwise
+    with the ``fused_page_write`` job list of the layer's table
+    (``paged.jobs_for``), which also applies the step's deferred clears,
+    and raises without it; otherwise
     :func:`paged_scatter`. Into an int8 cache ``vals`` carries the float
     ``k`` / ``v`` alone: the fused write quantizes them in its launch, the
     plain scatter through :func:`kv_values`."""
@@ -417,11 +430,13 @@ def paged_write(cache: Dict, vals: Dict[str, torch.Tensor],
     device = next(iter(vals.values())).device
     if getattr(_backend(backend, device), 'fused_maintenance', False):
         from repro_torch.kernels import paged_maintenance as PM
-        if paged.jobs is None or table is not paged.pt:
+        jobs = paged.jobs_for(window)
+        if jobs is None:
             raise ValueError(
-                'fused paged writes need the step job list of the linear '
-                'page table: PageTables.jobs (see PageTables.with_jobs)')
-        return PM.fused_chunk_scatter(cache, vals, *paged.jobs, Sc=Sc)
+                'fused paged writes need the step job list of the layer\'s '
+                'page table: PageTables.jobs (linear) or ring_jobs (see '
+                'PageTables.with_jobs)')
+        return PM.fused_chunk_scatter(cache, vals, *jobs, Sc=Sc)
     if 'k_scale' in cache:
         vals = kv_values(cache, vals['k'], vals['v'])
     return paged_scatter(cache, vals, pos0, n_valid, table, Sc)

@@ -16,9 +16,9 @@ layer-0 projections are one row gather per token (the ``embed_gather``
 kernel on a CUDA device); ``fused_gather_rope=True`` also folds layer-0
 RoPE into the gather of chunked steps (the ``gather_rope`` kernel).
 
-**Paged KV + prefix caching** (``prefix_cache=True``, for configurations
-whose layers are all ``'global'`` attention, GQA or MLA): the per-slot
-caches (K/V, or MLA's latent ``ckv``/``kpe``) become a
+**Paged KV + prefix caching** (``prefix_cache=True``; attention layers,
+GQA or MLA, ``'global'`` or windowed ``'local'``): the per-slot caches
+(K/V, or MLA's latent ``ckv``/``kpe``) become a
 global pool of ``page_size``-token pages per layer, addressed through
 per-slot page tables, and admission looks the prompt up in a token-prefix
 radix index (``repro_torch.serving.kvpool``). A request whose prompt
@@ -33,12 +33,27 @@ published to the radix index, and it is requeued at the front, so its
 resume is a prefix hit and its greedy tokens equal an uninterrupted
 run's. A request that cannot be scheduled even then fails with
 ``'unschedulable'``. With a ``fused_maintenance`` backend (``cuda``) page
-writes are one ``fused_page_write`` launch per layer whose job list (built
-once per step on the host, shared by all layers) also clears freshly
+writes are one ``fused_page_write`` launch per layer whose job list (one
+for the linear table and one for the ring table, each built once per step
+on the host and shared by the layers of that table) also clears freshly
 allocated pages, and copy-on-write is ``cow_page_copy``; the reference
 backend clears pages when they are allocated and writes with plain
-scatters. Windowed (ring) layers, recurrent state and meta tokens are not
-ported to paged mode and raise ``NotImplementedError``.
+scatters. Recurrent state and meta tokens are not ported to paged mode
+and raise ``NotImplementedError``.
+
+**Ring pages with snapshots** (configurations with windowed layers):
+each slot also owns ``ceil(sc_ring / page_size)`` private ring pages,
+addressed through a second table ``_rt``, where its windowed layers keep
+the dense engine's ring of ``sc_ring = attention.cache_len(window,
+max_seq, chunk)`` positions. Ring contents are rewritten during decode,
+so they are never shared as pages: a prompt publishes at the last page
+boundary before its final token (``((P - 1) // page_size) * page_size``;
+its prefill stops exactly there) and hangs a **snapshot** on that radix
+node — a copy of its ring pages on every layer (and of any per-slot state
+rows). A later hit matches only nodes that carry one, and its admission
+copies the snapshot into the new request's ring pages (copy-on-attach);
+such configurations never copy on write. A preempted slot publishes only
+when it stands at a page boundary.
 
 **MoE** layers route only real tokens: chunk padding and, in the dense
 one-token step, free slots (``lane_valid``) are masked out of the expert
@@ -103,8 +118,9 @@ import torch
 
 from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.launch.mesh import make_serving_mesh, resolve_device
-from repro_torch.models.attention import PageTables
+from repro_torch.models.attention import PageTables, cache_len
 from repro_torch.models.attn_backend import CudaBackend, get_backend
+from repro_torch.models.blocks import ATTN_KINDS, kind_window
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
                                             lm_logits)
@@ -203,7 +219,8 @@ def _on_full_states(method):
             return method(self, *args, **kwargs)
         finally:
             self._gathered = False
-            self._reset_plan = self._pools = None   # they alias full leaves
+            # they alias full leaves
+            self._reset_plan = self._pools = self._snap_plan = None
             self.states = self._shard_out(self.states)
     return run
 
@@ -275,14 +292,14 @@ class ServingEngine:
             and fused_rope_eligible(precomputed, cfg)
         plan = layer_plan(cfg)
         self.num_pages = 0
+        self._sc_ring = 0
         self.kv: Optional[PrefixCache] = None
         if self.paged:
             if getattr(cfg, 'num_meta_tokens', 0) \
-                    or any(k != 'global' for k in plan.kinds):
+                    or any(k not in ATTN_KINDS for k in plan.kinds):
                 raise NotImplementedError(
-                    'paged prefix caching is ported for configurations '
-                    "whose layers are all 'global' attention; ring pages "
-                    'with snapshots (windowed layers), recurrent state and '
+                    'paged prefix caching is ported for attention layers '
+                    "('global' and windowed 'local'); recurrent state and "
                     f'meta tokens are not ported yet (layers: '
                     f'{sorted(set(plan.kinds))})')
             if max_seq % page_size:
@@ -290,17 +307,31 @@ class ServingEngine:
                                  f'page_size ({page_size}) so the paged '
                                  'virtual cache matches the dense cache '
                                  'length exactly')
+            windows = [kind_window(cfg, k) for k in plan.kinds]
+            # the ring of the windowed layers: the dense ring cache's length
+            self._sc_ring = cache_len(cfg.window, max_seq, chunk_size) \
+                if any(windows) else 0
             self._pages_lin = max_seq // page_size
+            self._pages_ring = -(-self._sc_ring // page_size)
+            # a layer whose state is rewritten in place (a ring) resumes a
+            # prefix only from the snapshot on its radix node
+            self._needs_snapshot = any(k != 'global' for k in plan.kinds)
+            # which job lists a fused step needs: the tables its layers use
+            self._ring_layers = any(windows)
+            self._lin_layers = not all(windows)
             if num_pages is None:
-                num_pages = 1 + max_slots * self._pages_lin \
+                num_pages = 1 + max_slots * (self._pages_lin
+                                             + self._pages_ring) \
                     + 8 * self._pages_lin
-            # one admission needs a COW page and the first dispatch one
-            # linear page; below this floor nothing could ever be admitted
-            floor = 1 + 2
+            # one admission needs its ring pages and a COW page, and the
+            # first dispatch one linear page; below this floor nothing could
+            # ever be admitted
+            floor = 1 + self._pages_ring + 2
             if num_pages < floor:
                 raise ValueError(f'num_pages ({num_pages}) cannot host even '
-                                 f'one request: need >= {floor} (null page + '
-                                 'COW/linear headroom)')
+                                 f'one request: need >= {floor} '
+                                 f'(null page + {self._pages_ring} ring '
+                                 'pages + COW/linear headroom)')
             self.kv = PrefixCache(num_pages, page_size)
             self.num_pages = num_pages
         self.kv_quant = bool(kv_quant)
@@ -313,7 +344,7 @@ class ServingEngine:
         if self.mesh is None:
             self._index_states()
         else:           # at rest in blocks; indexed while gathered
-            self._reset_plan = self._pools = None
+            self._reset_plan = self._pools = self._snap_plan = None
             self.states = self._shard_out(self.states)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_pos = np.zeros(max_slots, np.int64)       # next position
@@ -351,9 +382,12 @@ class ServingEngine:
         self._pending_clear: List[int] = []
         if self.paged:
             self._pt = np.zeros((max_slots, self._pages_lin), np.int32)
+            self._rt = np.zeros((max_slots, max(self._pages_ring, 1)),
+                                np.int32)
             self.slot_node = [None] * max_slots       # attached radix node
             self.slot_nblocks = np.zeros(max_slots, np.int32)
             self.slot_priv: List[List[int]] = [[] for _ in range(max_slots)]
+            self.slot_ring: List[List[int]] = [[] for _ in range(max_slots)]
             self.slot_insert_at = np.full(max_slots, -1, np.int64)
 
     # ------------------------------------------------------ state layout
@@ -371,7 +405,7 @@ class ServingEngine:
 
     def _index_states(self) -> None:
         """Index the leaves of ``self.states`` (full leaves) that slot
-        resets, page clears and copy-on-write touch."""
+        resets, page clears, copy-on-write and snapshots touch."""
         # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
         # slot reset; the page pool is never slot-reset (pages are cleared
         # when they are allocated instead)
@@ -379,11 +413,17 @@ class ServingEngine:
         # (pool leaves, reps) of every layer's page pool: reps > 0 for
         # leaves stacked over the layers of a pattern slot
         self._pools = []
+        # (leaf, page or slot axis, pooled?) of every leaf, in the order of
+        # a snapshot's tensors: one per leaf, stacked leaves included
+        self._snap_plan = []
         for layer, lmask, stacked in self._layers(self.states):
             pool = {nm: leaf for nm, leaf in layer.items() if lmask.get(nm)}
             if pool:
                 reps = next(iter(pool.values())).shape[0] if stacked else 0
                 self._pools.append((pool, reps))
+            axis = 1 if stacked else 0
+            self._snap_plan += [(leaf, axis, bool(lmask.get(nm)))
+                                for nm, leaf in layer.items()]
             self._reset_plan += [(leaf, 1 if stacked else 0,
                                   PM.leaf_fill(nm))
                                  for nm, leaf in layer.items()
@@ -523,6 +563,42 @@ class ServingEngine:
             PM.cow_copy_cache(cache, src, dst, rem, reps=reps,
                               plain=not self._fused_maint)
 
+    def _drop_pending(self, pages: List[int]) -> None:
+        """Drop the deferred clears of pages that a copy has just written in
+        full; a later clear would destroy them (every entry: a page freed
+        and taken again in one step is listed twice)."""
+        keep = set(pages)
+        self._pending_clear = [p for p in self._pending_clear
+                               if p not in keep]
+
+    def _flush_pending(self) -> None:
+        """Clear the deferred pages eagerly: needed before a snapshot
+        capture reads raw page contents."""
+        if self._pending_clear:
+            self._clear_pages(self._pending_clear)
+            self._pending_clear = []
+
+    def _capture(self, slot: int) -> List[torch.Tensor]:
+        """Snapshot of what a shared-page attach cannot restore: every pool
+        leaf at the slot's ring pages (page axis 1 of a stacked leaf) and
+        every per-slot leaf's row of the slot; one new tensor a leaf."""
+        ring = torch.tensor(self.slot_ring[slot], dtype=torch.long,
+                            device=self.device)
+        return [leaf.index_select(axis, ring) if pooled
+                else leaf.select(axis, slot).clone()
+                for leaf, axis, pooled in self._snap_plan]
+
+    def _restore(self, slot: int, snap: List[torch.Tensor]) -> None:
+        """Copy a snapshot into the slot's ring pages and per-slot rows, in
+        place; the snapshot stays as it is (it serves every hit)."""
+        ring = torch.tensor(self.slot_ring[slot], dtype=torch.long,
+                            device=self.device)
+        for (leaf, axis, pooled), sn in zip(self._snap_plan, snap):
+            if pooled:
+                leaf.index_copy_(axis, ring, sn)
+            else:
+                leaf.select(axis, slot).copy_(sn)
+
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         if n == 0:
             return []
@@ -545,7 +621,11 @@ class ServingEngine:
         if self.slot_priv[slot]:
             self.kv.free(self.slot_priv[slot])
             self.slot_priv[slot] = []
+        if self.slot_ring[slot]:
+            self.kv.free(self.slot_ring[slot])
+            self.slot_ring[slot] = []
         self._pt[slot] = 0
+        self._rt[slot] = 0
         self.slot_nblocks[slot] = 0
         self.slot_insert_at[slot] = -1
 
@@ -560,20 +640,27 @@ class ServingEngine:
         P = len(stream)
         node, nblocks, pages = None, 0, []
         if not req.return_logits and P > 1:
-            res = self.kv.match(stream, max_tokens=P - 1)
+            res = self.kv.match(stream, max_tokens=P - 1,
+                                need_snapshot=self._needs_snapshot)
             node, nblocks, pages = res.node, res.n_blocks, res.pages
         # pin the match before any allocation can trigger eviction
         self.kv.attach(node)
+        ring = self._alloc_pages(self._pages_ring)
+        if ring is None:
+            self.kv.release(node)
+            return False
         eff = nblocks * ps
         cow_page = None
-        if not req.return_logits:
+        if not self._needs_snapshot and not req.return_logits:
             # copy-on-write: reuse the head of a cached block this prompt
-            # stops short inside (or diverges from past its shared rows)
+            # stops short inside (or diverges from past its shared rows);
+            # a snapshot holds the state at its node's boundary only
             tail_len = min(P - 1 - eff, ps - 1)
             if tail_len > 0:
                 alloc = self._alloc_pages(1)
                 if alloc is None:
                     self.kv.release(node)
+                    self.kv.free(ring)
                     return False
                 src = self.kv.find_extension(node, stream[eff:eff + tail_len])
                 if src >= 0:
@@ -581,13 +668,12 @@ class ServingEngine:
                     cow_page = alloc[0]
                     self.cow_copies += 1
                     eff += tail_len
-                    # the copy wrote dst in full; a deferred clear would
-                    # destroy it (every entry: a page freed and taken again
-                    # in one step is listed twice)
-                    self._pending_clear = [p for p in self._pending_clear
-                                           if p != cow_page]
+                    self._drop_pending([cow_page])
                 else:
                     self.kv.free(alloc)
+        self._reset_slot(slot)
+        self.slot_ring[slot] = ring
+        self._rt[slot, :len(ring)] = ring
         row = list(pages) + ([cow_page] if cow_page is not None else [])
         self._pt[slot, :len(row)] = row
         self.slot_nblocks[slot] = len(row)
@@ -599,9 +685,21 @@ class ServingEngine:
             req.prefix_hit_tokens = eff
         elif not req.return_logits:
             self.kv.misses += 1
-        # where to publish this prompt's prefix
-        self.slot_insert_at[slot] = P if not req.return_logits \
-            and P // ps > nblocks else -1
+        if self._needs_snapshot and node is not None:
+            # copy-on-attach: the ring as it stood after the node's tokens;
+            # the copy wrote the ring pages in full, so their deferred
+            # clears must go
+            self._restore(slot, node.snapshot)
+            self._drop_pending(ring)
+        # where to publish this prompt's prefix: all its full pages, or,
+        # with snapshots, the last page boundary before its final token
+        if req.return_logits:
+            self.slot_insert_at[slot] = -1
+        elif self._needs_snapshot:
+            target = ((P - 1) // ps) * ps
+            self.slot_insert_at[slot] = target if target > eff else -1
+        else:
+            self.slot_insert_at[slot] = P if P // ps > nblocks else -1
         self.slot_pos[slot] = eff
         self.slot_next_tok[slot] = int(stream[eff])
         return True
@@ -634,9 +732,16 @@ class ServingEngine:
 
     def _publish(self, slot: int, tokens: np.ndarray, n_blocks: int) -> None:
         """Insert the slot's first ``n_blocks`` pages into the radix index
-        and re-pin the slot to the inserted path."""
+        and re-pin the slot to the inserted path. With snapshots the slot
+        stands at that boundary, and the deepest node gets its capture."""
+        snap = None
+        if self._needs_snapshot:
+            if self._fused_maint:
+                self._flush_pending()   # the capture reads raw page contents
+            snap = self._capture(slot)
         node, transferred = self.kv.insert(tokens, n_blocks,
-                                           list(self._pt[slot, :n_blocks]))
+                                           list(self._pt[slot, :n_blocks]),
+                                           snapshot=snap)
         moved = set(transferred)
         self.slot_priv[slot] = [p for p in self.slot_priv[slot]
                                 if p not in moved]
@@ -648,12 +753,16 @@ class ServingEngine:
         """Publish a preempted slot's fully written pages, so its resume is
         a prefix hit that recomputes only the uncached tail. Blocks may
         cover generated tokens too: radix keys are token values, and
-        identical tokens at identical positions give identical pages."""
+        identical tokens at identical positions give identical pages. With
+        snapshots only a slot at a page boundary publishes: a ring resumes
+        only from the state at its node's boundary."""
         req = self.slot_req[slot]
         if req.return_logits:
             return                          # scoring resumes cold anyway
-        n_blocks = int(self.slot_pos[slot]) // self.page_size
-        if n_blocks <= 0:
+        pos = int(self.slot_pos[slot])
+        n_blocks = pos // self.page_size
+        if n_blocks <= 0 or (self._needs_snapshot
+                             and pos != n_blocks * self.page_size):
             return
         stream = np.atleast_1d(np.asarray(req.prompt))
         if req.generated:
@@ -716,9 +825,15 @@ class ServingEngine:
         return True
 
     def _maybe_insert(self, slot: int, p_before: int, p_after: int) -> None:
-        """Publish a prefilled prompt's full pages into the radix index."""
+        """Publish a prefilled prompt's full pages into the radix index;
+        with snapshots, once the slot stands exactly at its target."""
         P = int(self.slot_insert_at[slot])
-        if P < 0 or not (p_before < P <= p_after):
+        if P < 0:
+            return
+        if self._needs_snapshot:
+            if p_after != P:
+                return
+        elif not (p_before < P <= p_after):
             return
         self._publish(slot, self.slot_stream[slot], P // self.page_size)
         self.slot_insert_at[slot] = -1
@@ -830,25 +945,35 @@ class ServingEngine:
 
     def _paged_host(self, pos: np.ndarray, n_valid: np.ndarray,
                     T: int) -> List[np.ndarray]:
-        """The step's page-table inputs on the host: the linear table and,
-        with fused maintenance, the pending clears, the job list and the
-        chunk positions (built once here and shared by every layer)."""
+        """The step's page-table inputs on the host: the linear and ring
+        tables and, with fused maintenance, the pending clears, the chunk
+        positions and a job list for each table that a layer writes through
+        (built once here and shared by the layers of that table). Each list
+        carries the whole pending list: every layer clears the pending
+        pages of its own pool."""
+        tables = [self._pt, self._rt]
         if not self._fused_maint:
-            return [self._pt]
+            return tables
         pending = np.asarray(self._pending_clear, np.int32)
-        jobs = PM.build_jobs(torch.from_numpy(pos), torch.from_numpy(n_valid),
-                             torch.from_numpy(self._pt), self.max_seq,
-                             self.page_size, T, torch.from_numpy(pending))
         pos_t = PM.chunk_positions(torch.from_numpy(pos), T)
-        return [self._pt, pending, jobs.numpy(), pos_t.numpy()]
+        out = tables + [pending, pos_t.numpy()]
+        for used, table, Sc in ((self._lin_layers, self._pt, self.max_seq),
+                                (self._ring_layers, self._rt, self._sc_ring)):
+            if used:
+                out.append(PM.build_jobs(
+                    torch.from_numpy(pos), torch.from_numpy(n_valid),
+                    torch.from_numpy(table), Sc, self.page_size, T,
+                    torch.from_numpy(pending)).numpy())
+        return out
 
     def _page_tables(self, staged: List[torch.Tensor]) -> PageTables:
-        pt = staged[0]
-        rt = pt[:, :0]                       # no ring layers in paged mode
+        pt, rt = staged[:2]
         if not self._fused_maint:
-            return PageTables(pt, rt, 0)
-        pending, jobs, pos_t = staged[1:]
-        return PageTables(pt, rt, 0, pending, (jobs, pos_t))
+            return PageTables(pt, rt, self._sc_ring)
+        pending, pos_t, *lists = staged[2:]
+        jobs = [(lists.pop(0), pos_t) if used else None
+                for used in (self._lin_layers, self._ring_layers)]
+        return PageTables(pt, rt, self._sc_ring, pending, *jobs)
 
     def _dispatch(self):
         active = [s for s in range(self.max_slots)
@@ -875,6 +1000,11 @@ class ServingEngine:
                 # a prefilling slot takes up to T prompt tokens, a decoding
                 # slot its one sampled token
                 take = min(T, len(stream) - p) if p < len(stream) else 1
+                if self.paged and self._needs_snapshot \
+                        and p < self.slot_insert_at[s]:
+                    # land exactly on the snapshot boundary, so that the
+                    # capture is the state after `target` tokens
+                    take = min(take, int(self.slot_insert_at[s]) - p)
                 if self.paged and not self._ensure_blocks(s, p + take):
                     continue      # slot preempted/failed: lane stays empty
                 if p < len(stream):

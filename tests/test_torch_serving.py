@@ -139,22 +139,19 @@ def test_deadline_fails_only_the_expired_request(both):
     assert ok.status is RequestStatus.FINISHED and len(ok.generated) == 3
 
 
-@pytest.mark.parametrize('option', [dict(prefix_cache=True),
-                                    dict(mesh=make_serving_mesh(
+@pytest.mark.parametrize('option', [dict(mesh=make_serving_mesh(
                                         '2x2', devices=['cpu'] * 4)),
                                     dict(async_loop=True),
                                     dict(pack_prefill=True),
                                     dict(telemetry=True),
                                     dict(fault_injector=object())])
 def test_unported_engine_options_raise(both, option):
-    """Options not ported yet raise; ``prefix_cache=True`` is ported for
-    all-global configurations only, and mistral-7b's layers are windowed
-    (ring pages with snapshots are not ported); a mesh is ported for the
-    paged engine only (the dense engine under a mesh is not)."""
+    """Options not ported yet raise; a mesh is ported for the paged engine
+    only (the dense engine under a mesh is not). ``prefix_cache=True`` on
+    mistral-7b's windowed layers is ported (``tests/test_torch_ring.py``)."""
     _, _, tm, tp = both
     assert tm.cfg.pattern == ('local',) and tm.cfg.window
-    match = "all 'global'" if 'prefix_cache' in option else 'not ported'
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match='not ported'):
         _port_engine(tm, tp, **option)
 
 
@@ -190,7 +187,9 @@ def test_histogram_matches_jax_telemetry():
 
 @pytest.mark.parametrize('argv', [
     ['--chunk-size', '4', '--fused-gather-rope', '--attn-backend', 'cuda'],
-    ['--score', '--no-precompute']])
+    ['--score', '--no-precompute'],
+    ['--prefix-cache', '--page-size', '8', '--shared-prefix', '16',
+     '--chunk-size', '4', '--slots', '1']])
 def test_serve_cli_runs_on_cpu(monkeypatch, capsys, argv):
     from repro_torch.launch import serve
     monkeypatch.setattr('sys.argv', ['serve', '--device', 'cpu',
@@ -199,3 +198,4 @@ def test_serve_cli_runs_on_cpu(monkeypatch, capsys, argv):
     serve.main()
     out = capsys.readouterr().out
     assert ('2 requests, 6 new tokens' in out) or ('scored 2 prompts' in out)
+    assert ('prefix cache: ' in out) == ('--prefix-cache' in argv)
