@@ -111,7 +111,18 @@ Phases, in order; any failure raises and exits non-zero:
               sharing a 256-token system prompt, one of which stops short
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
-              memory; then the same two waves on the same weights through
+              memory; then the same waves four times in turns without and
+              with telemetry (off, on, on, off: greedy tokens bitwise,
+              launches equal, every phase observed once a step; the host
+              ms of the five step phases by step kind, and ms/step with
+              telemetry on and off) and under a
+              fault script with telemetry (a page steal that leaves 16
+              pages and forces preemptions, its restore, a cancel
+              mid-prefill, a poisoned lane: CANCELLED, FAILED
+              ('nonfinite_logits'), every other request FINISHED with the
+              unfaulted greedy tokens; no page leaked; the Chrome trace
+              parsed from a file, one track per request); then the same
+              two waves on the same weights through
               an int8 pool (kv_quant=True); then both runs again under a
               2x2 serving mesh (mesh='2x2': pool 2 x heads 2 over card 0
               repeated, 1536 pages so that the pool axis divides): greedy
@@ -181,8 +192,10 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -220,8 +233,10 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
                                              ReferenceBackend)
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import telemetry as TM  # noqa: E402
 from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
                                         ServingEngine)
+from repro_torch.serving.faults import ScriptedFaults  # noqa: E402
 from repro_torch.serving.kvpool import partition_pages  # noqa: E402
 from repro_torch.sharding import ShardedLeaf, gather_leaf  # noqa: E402
 
@@ -2883,7 +2898,8 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
 
 def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                 device='cuda', dtype=torch.bfloat16, rows=None,
-                apply_seq: int = 0, mesh_spec: str = '') -> dict:
+                apply_seq: int = 0, mesh_spec: str = '',
+                observe: bool = False) -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
     16 new tokens each; every attend goes through ``attn_kernel``. With
@@ -2892,10 +2908,13 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
     ``mesh_spec``, the same runs again on the same weights under that
     serving mesh: greedy tokens bitwise the unsharded runs', the attention
     kernel launched once per kv-head shard, the maintenance kernels as
-    often as unsharded. With ``apply_seq``, then the layer-0 comparison and
-    Model.apply at that S on the same weights. -> launches by run (``tag``,
-    ``tag + '_int8'``, ``tag + '_mesh'``, ``tag + '_mesh_int8'``, the apply
-    runs)."""
+    often as unsharded. With ``observe``, after the first run the same
+    waves in turns without and with telemetry and then under a fault script
+    (``observe_waves``). With ``apply_seq``, then the layer-0 comparison
+    and Model.apply at that S on the same weights. -> launches by run
+    (``tag``, ``tag + '_off'``, ``tag + '_telemetry'``, ``tag +
+    '_chaos'``, ``tag + '_int8'``, ``tag + '_mesh'``, ``tag +
+    '_mesh_int8'``, the apply runs)."""
     on_card = torch.device(device).type == 'cuda'
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -2930,6 +2949,10 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                                    dtype, mesh=run_mesh)
         if on_card:
             free()
+        if run_tag == tag and observe:
+            out.update(observe_waves(model, params, table, tag, attn_kernel,
+                                     system, warm, reqs, rng, device, dtype,
+                                     out[tag]))
     for run_tag, kernel, _, run_mesh in runs:
         if run_mesh is None:
             continue
@@ -2951,7 +2974,7 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
         log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
             f'({b8 / b16:.3f}); greedy tokens equal to the bf16 run\'s: '
             f'{token_share(tok8, tok16)} (reported, not checked)')
-        for t16 in [t for t in out if not t.endswith('_int8')]:
+        for t16 in [t for t in out if t + '_int8' in out]:
             p16, p8 = out[t16][3], out[t16 + '_int8'][3]
             if p16 and p8:
                 log(f'[{t16}_int8] device ms a step, "other" {p8["other"]:.3f}'
@@ -2965,12 +2988,18 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
 
 
 def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
-                warm, reqs, rng, device, dtype, mesh=None):
+                warm, reqs, rng, device, dtype, mesh=None, telemetry=False,
+                chaos=None, profile=True, inspect=None):
     """One paged engine over the two waves of ``reqs`` (fresh Request
     objects with their prompts); under ``mesh``, with a pool the mesh's
     pool axis divides, the state at rest checked and the device time of
-    ``_rep_in`` / ``_shard_out`` read from the profiler's trace. ->
-    (launches, greedy tokens, pool bytes at rest)."""
+    ``_rep_in`` / ``_shard_out`` read from the profiler's trace. With
+    ``telemetry``, the engine records; with ``chaos`` (a ``ChaosScript``,
+    armed after the warm-up) it injects faults, and the waves' outcomes are
+    left to the caller; ``inspect(eng, reqs, steps, seconds)`` sees the
+    engine after the waves (then, with ``profile``, a profiled third
+    batch). -> (launches, greedy tokens, pool bytes at rest, the
+    profile)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
     num_pages = None
@@ -2981,7 +3010,8 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
                         chunk_size=16, fused_gather_rope=True,
                         prefix_cache=True, page_size=GLM_PS,
                         num_pages=num_pages, kv_quant=kv_quant,
-                        attn_backend='cuda', mesh=mesh, device=device)
+                        attn_backend='cuda', mesh=mesh, telemetry=telemetry,
+                        fault_injector=chaos, device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint
     log(f'[{tag}] paged pool: {eng.num_pages} pages x {eng.page_size} tokens '
         f'x {cfg.num_layers} layers, leaves {sorted(eng.states["layer0"])}'
@@ -2995,6 +3025,8 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    if chaos is not None:
+        chaos.arm(eng)
     steps0, drops0, cow0 = eng.steps, eng.moe_token_drops, eng.cow_copies
     eager = count_calls(A, 'kv_values')
     zero_launches()
@@ -3017,9 +3049,11 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
     assert not on_card or launches['fused_page_write'] == \
         (eng.steps - steps0) * cfg.num_layers, launches
     for r in reqs:
-        assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
-        assert len(r.generated) == 16, (r.uid, len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
+        if chaos is None:
+            assert r.status is RequestStatus.FINISHED, \
+                (r.uid, r.status, r.error)
+            assert len(r.generated) == 16, (r.uid, len(r.generated))
     for r in reqs[4:]:
         assert r.prefix_hit_tokens > 0, (r.uid, r.prefix_hit_tokens)
     cow_req = reqs[4]
@@ -3044,7 +3078,7 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
             (launches, len(eng._pools), eng.cow_copies - cow0)
     if kv_quant:
         assert launches['paged_attention'] == 0, launches
-    ttft = [[r.first_token_t - r.submit_t for r in w]
+    ttft = [[r.first_token_t - r.submit_t for r in w if r.first_token_t]
             for w in (reqs[:4], reqs[4:])]
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
     log(f'[{tag}] 8 requests (system prompt 256 + tails {list(GLM_TAILS)}), '
@@ -3060,11 +3094,14 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         f'{stats["cow_copies"]}, pages in use {stats["pages_in_use"]}, '
         f'preemptions {stats["preemptions"]}, MoE token drops '
         f'{eng.moe_token_drops - drops0}')
+    if inspect is not None:
+        inspect(eng, reqs, steps, dt)
     log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
         f'({attn_kernel}: {shards * cfg.num_layers} a step, one gather a '
         f'step, cow_page_copy {launches["cow_page_copy"]} for '
-        f'{eng.cow_copies - cow0} copies); all requests FINISHED with 16 '
-        'tokens (finite logits)')
+        f'{eng.cow_copies - cow0} copies)'
+        + ('' if chaos else '; all requests FINISHED with 16 tokens (finite '
+           'logits)'))
     if mesh is not None:
         check_at_rest(eng, mesh, tag)
         leaves = [b for leaf in state_leaves(eng.states)
@@ -3075,8 +3112,188 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
                                             tails=(50, 17, 90, 33)),
                           spans=() if mesh is None else ('_rep_in',
                                                          '_shard_out')) \
-        if on_card else {}
+        if on_card and profile else {}
     return launches, [r.generated for r in reqs], nbytes(*leaves), prof
+
+
+# Phase 5's fault script, in ticks and steps after the warm-up: a steal at
+# tick 3 that leaves CHAOS_LEFT pages (the waves then hold 8 pages and need
+# 4 more a tick while 4 prompts prefill, and about 86 at their longest),
+# given back at tick CHAOS_RESTORE; uid 2 cancelled mid-prefill at tick 4;
+# slot 1's lane (uid 1, prefilling) poisoned at the waves' fifth dispatch
+CHAOS_LEFT, CHAOS_RESTORE = 16, 20
+
+
+class ChaosScript(ScriptedFaults):
+    """``ScriptedFaults`` whose ticks and steps count from where ``arm``
+    is called (after the warm-up), whose steal leaves ``CHAOS_LEFT`` pages
+    of what the pool could give at that tick, and which records the uid of
+    each lane it poisons."""
+
+    def __init__(self):
+        super().__init__()
+        self.steal_at = None
+        self.taken = 0
+        self.poisoned = []
+
+    def arm(self, eng) -> None:
+        t, s = eng.ticks, eng.steps
+        self.steal_at = t + 3
+        self.restore_pages_at.add(t + CHAOS_RESTORE)
+        self.cancel_uids[t + 4] = [2]
+        self.nan_lanes[s + 4] = [1]
+
+    def before_step(self, eng) -> None:
+        steal = eng.ticks == self.steal_at
+        if steal:
+            self.steal_pages[eng.ticks] = eng.kv.reclaimable() - CHAOS_LEFT
+        super().before_step(eng)
+        if steal:
+            self.taken = len(self.stolen)
+
+    def poison_lanes(self, eng, step_idx):
+        lanes = super().poison_lanes(eng, step_idx)
+        self.poisoned += [eng.slot_req[s].uid for s in lanes
+                          if eng.slot_req[s] is not None]
+        return lanes
+
+
+def phase_table(tel) -> dict:
+    """{kind: {phase: (observations, mean ms, p50 ms, p99 ms)}} of the
+    engine's step phases, kinds that ran only."""
+    out = {}
+    for labels, h in tel.registry.find(TM.STEP_PHASE).items():
+        lb = dict(labels)
+        if h.count:
+            out.setdefault(lb['kind'], {})[lb['phase']] = (
+                h.count, h.mean * 1e3, h.percentile(50) * 1e3,
+                h.percentile(99) * 1e3)
+    return out
+
+
+def check_pool_whole(eng, tag) -> None:
+    """Every usable page is free or held by the radix index, once."""
+    kv = eng.kv
+    radix, stack = [], list(kv.root.children.values())
+    while stack:
+        node = stack.pop()
+        radix.append(node.page)
+        stack.extend(node.children.values())
+    free = list(kv._free)
+    assert kv.pages_free() + kv.pages_in_use() == kv.num_pages - 1
+    assert kv.pages_in_use() == len(radix), (kv.pages_in_use(), len(radix))
+    assert sorted(free + radix) == list(range(1, kv.num_pages)), \
+        f'{tag}: pages leaked or listed twice'
+    log(f'[{tag}] pool whole: {kv.pages_free()} free + {kv.pages_in_use()} '
+        f'in use (all {len(radix)} held by the radix index) = '
+        f'{kv.num_pages - 1} usable pages of {kv.num_pages}')
+
+
+def observe_waves(model, params, table, tag, attn_kernel, system, warm,
+                  reqs, rng, device, dtype, base) -> dict:
+    """The waves of ``tag``'s run again on the same weights, five times.
+    Four in turns without and with telemetry (off, on, on, off; the two
+    recording runs share one ``Telemetry``): greedy tokens bitwise
+    ``base``'s, the same launches, every phase observed once a step; the
+    phases' host ms by step kind, and ms/step of each turn. Then under
+    ``ChaosScript`` (telemetry on): preemptions happen, the cancelled
+    request ends CANCELLED, the poisoned one FAILED('nonfinite_logits'),
+    every other FINISHED with ``base``'s tokens; after the stolen pages
+    return no page leaks; the Chrome trace parses from a file with one
+    track per request. -> launches by run."""
+    on_card = torch.device(device).type == 'cuda'
+    launches0, tokens0 = base[0], base[1]
+    out = {}
+    t_tag = tag + '_telemetry'
+    shared = TM.Telemetry()
+    ms = {False: [], True: []}
+    steps = []
+
+    def timed(on):
+        def inspect(eng, _reqs, n, seconds):
+            ms[on].append(seconds / n * 1e3)
+            if on:
+                steps.append(eng.steps)
+        return inspect
+    for on in (False, True, True, False):
+        run_tag = t_tag if on else tag + '_off'
+        out[run_tag] = serve_waves(
+            model, params, table, run_tag, attn_kernel, False, system, warm,
+            reqs, rng, device, dtype, telemetry=shared if on else False,
+            profile=False, inspect=timed(on))
+        launches, tokens = out[run_tag][:2]
+        assert tokens == tokens0, f'{run_tag}: greedy tokens differ'
+        assert launches == launches0, (launches, launches0)
+        if on_card:
+            free()
+    phases = phase_table(shared)
+    for ph in TM.PHASES:
+        n = sum(k[ph][0] for k in phases.values())
+        assert n == sum(steps), (ph, n, steps)
+    log(f'[{t_tag}] greedy tokens bitwise those of [{tag}] '
+        f'({sum(map(len, tokens0))} tokens) and launches equal in every '
+        f'turn; each of the {len(TM.PHASES)} phases observed {sum(steps)} '
+        'times over the two recording engines = their steps (warm-ups '
+        f'included); ms/step in turns off / on / on / off {ms[False][0]:.2f}'
+        f' / {ms[True][0]:.2f} / {ms[True][1]:.2f} / {ms[False][1]:.2f}: '
+        f'with telemetry {np.mean(ms[True]):.2f}, without '
+        f'{np.mean(ms[False]):.2f}')
+    for kind, row in sorted(phases.items()):
+        log(f'[{t_tag}] {kind:7s} host ms mean / p50 / p99 (steps): '
+            + '; '.join(f'{ph} {m:.3f} / {p50:.3f} / {p99:.3f}'
+                        for ph, (_, m, p50, p99) in row.items())
+            + f' ({next(iter(row.values()))[0]})')
+    log(f'[{t_tag}] phases json {json.dumps(phases)}')
+
+    c_tag = tag + '_chaos'
+    chaos = ChaosScript()
+
+    def check_chaos(eng, creqs, n, seconds):
+        stats = eng.stats(creqs)
+        assert stats['preemptions'] > 0, 'the steal forced no preemption'
+        assert chaos.poisoned == [1], chaos.poisoned
+        want = {1: ('FAILED', 'nonfinite_logits'), 2: ('CANCELLED', None)}
+        names = eng.telemetry.tracer.names
+        for r, base_tok in zip(creqs, tokens0):
+            status = (r.status.name, r.error)
+            assert status == want.get(r.uid, ('FINISHED', None)), \
+                (r.uid, status)
+            if r.uid not in want:
+                assert r.generated == base_tok, \
+                    f'{c_tag}: uid {r.uid} greedy tokens differ from [{tag}]'
+        assert TM.EV_FIRST_TOKEN not in names(2), names(2)   # mid-prefill
+        assert stats['cancelled'] == 1 and stats['failed'] == 1, stats
+        chaos.release_stolen(eng)
+        check_pool_whole(eng, c_tag)
+        tmp = tempfile.mkdtemp()
+        try:
+            path = os.path.join(tmp, 'trace.json')
+            eng.telemetry.write_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        finally:
+            shutil.rmtree(tmp)
+        tracks = sorted(e['args']['name'] for e in trace['traceEvents']
+                        if e['ph'] == 'M' and e['name'] == 'thread_name')
+        assert tracks == sorted(['engine', 'request 100']
+                                + [f'request {r.uid}' for r in creqs]), \
+            tracks
+        log(f'[{c_tag}] steal of {chaos.taken} pages at the waves\' tick 3 '
+            f'(leaving {CHAOS_LEFT}), given back at tick {CHAOS_RESTORE}: '
+            f'{stats["preemptions"]} preemptions (per request '
+            f'{[r.preemptions for r in creqs]}); uid 2 CANCELLED '
+            'mid-prefill, uid 1 FAILED(nonfinite_logits) (its lane '
+            f'poisoned), the other {len(creqs) - 2} FINISHED with greedy '
+            f'tokens bitwise those of [{tag}]; fault events '
+            f'{[x for x in names(None) if x.startswith("FAULT")]}; Chrome '
+            f'trace {len(trace["traceEvents"])} events, {len(tracks)} '
+            'tracks (one a request + the engine), parsed from a file; '
+            f'ms/step {seconds / n * 1e3:.2f} over {n} steps')
+    out[c_tag] = serve_waves(
+        model, params, table, c_tag, attn_kernel, False, system, warm, reqs,
+        rng, device, dtype, telemetry=True, chaos=chaos, profile=False,
+        inspect=check_chaos)
+    return out
 
 
 def state_leaves(states) -> list:
@@ -3483,7 +3700,7 @@ def main() -> None:
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
                               'paged_attention', int8=True, rows=rows,
-                              apply_seq=4096, mesh_spec='2x2'))
+                              apply_seq=4096, mesh_spec='2x2', observe=True))
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
                               'paged_attention_mla'))

@@ -15,10 +15,18 @@ paged KV pool with the prefix cache).
         --arch glm4-9b --prefix-cache --mesh 2x2    # a 2x2 mesh of one CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --prefix-cache --page-size 8 --shared-prefix 16   # ring pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch glm4-9b --prefix-cache --metrics-out m.prom \
+        --trace-out trace.json                      # telemetry exports
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
 backend on a CUDA device and the plain ``reference`` backend on the CPU.
+``--metrics-out`` writes the telemetry registry (the five step phases by
+backend and step kind, request latency and TTFT, the pool's gauges):
+Prometheus text for a ``.prom`` / ``.txt`` path, JSON otherwise.
+``--trace-out`` writes the request spans as Chrome trace-event JSON (one
+track per request; open it in ``chrome://tracing`` or Perfetto).
 """
 from __future__ import annotations
 
@@ -90,8 +98,21 @@ def main() -> None:
                          'ValueError')
     ap.add_argument('--deadline', type=float, default=0.0,
                     help='per-request budget in seconds (0 = none)')
+    ap.add_argument('--telemetry', action='store_true',
+                    help='enable the metrics registry + per-request span '
+                         'tracer (host-side; tokens stay bit-identical). '
+                         'Implied by --metrics-out / --trace-out')
+    ap.add_argument('--metrics-out', default='',
+                    help='write the metrics registry to this file: '
+                         'Prometheus exposition text for .prom/.txt, '
+                         'structured JSON otherwise')
+    ap.add_argument('--trace-out', default='',
+                    help='write request spans as Chrome trace-event JSON '
+                         '(chrome://tracing / Perfetto)')
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
+    want_telemetry = bool(args.telemetry or args.metrics_out
+                          or args.trace_out)
 
     mesh = None
     shape = parse_mesh_spec(args.mesh)
@@ -117,6 +138,7 @@ def main() -> None:
                         page_size=args.page_size,
                         num_pages=args.num_pages or None,
                         attn_backend=args.attn_backend, mesh=mesh,
+                        telemetry=want_telemetry,
                         dtype=getattr(torch, cfg.dtype), device=args.device)
     if eng.mesh is not None:
         p, h = eng.mesh.shape
@@ -147,6 +169,7 @@ def main() -> None:
                   f'mean token logprob={mean_lp:.3f}')
         print(f'scored {len(prompts)} prompts '
               f'({sum(len(p) for p in prompts)} tokens) in {dt:.2f}s')
+        _write_exports(eng, args)
         return
     reqs = [Request(uid=i, prompt=np.concatenate(
         [shared, rng.integers(3, cfg.vocab_size,
@@ -173,9 +196,10 @@ def main() -> None:
           f'mean TTFT {fmt("mean_ttft_s")} '
           f'(p50 {fmt("p50_ttft_s")} / p99 {fmt("p99_ttft_s")}), '
           f'engine steps {stats["engine_steps"]}')
-    print(f'{stats["failed"]} failed, {stats["deadline_exceeded"]} '
-          f'deadline-exceeded, {report["stalled"]} stalled, '
-          f'{stats["preemptions"]} preemptions')
+    print(f'fault tolerance: {stats["preemptions"]} preemptions, '
+          f'{stats["failed"]} failed, {stats["cancelled"]} cancelled, '
+          f'{stats["deadline_exceeded"]} deadline-exceeded, '
+          f'{report["stalled"]} stalled')
     if eng.paged:
         print(f'prefix cache: {stats["prefix_hits"]} hits / '
               f'{stats["prefix_misses"]} misses '
@@ -185,6 +209,21 @@ def main() -> None:
               f'{stats["pages_in_use"]} pages in use, '
               f'{stats["evictions"]} evictions; TTFT on hit '
               f'{fmt("mean_ttft_on_hit_s")}')
+    _write_exports(eng, args)
+
+
+def _write_exports(eng: ServingEngine, args) -> None:
+    """Dump the telemetry registry / trace where --metrics-out / --trace-out
+    point. Prometheus text for .prom/.txt metric paths, JSON otherwise."""
+    if args.metrics_out:
+        if args.metrics_out.endswith(('.prom', '.txt')):
+            eng.telemetry.write_prometheus(args.metrics_out)
+        else:
+            eng.telemetry.write_json(args.metrics_out)
+        print(f'metrics -> {args.metrics_out}')
+    if args.trace_out:
+        eng.telemetry.write_chrome_trace(args.trace_out)
+        print(f'trace -> {args.trace_out}')
 
 
 if __name__ == '__main__':

@@ -68,14 +68,67 @@ wherever logits are not within the kernel tolerance of a tie; pool
 contents written by the two are bitwise equal.
 
 **Requests** follow ``QUEUED -> PREFILLING -> DECODING -> FINISHED``
-(``PREEMPTED`` while requeued after a preemption). Malformed submissions
+(``PREEMPTED`` while requeued after a preemption; ``Request.terminal`` is
+true once ``FINISHED``, ``FAILED`` or ``CANCELLED``). Malformed submissions
 (empty prompt, prompt that cannot fit ``max_seq``, ``max_new_tokens <=
 0``) are ``FAILED`` at submit with ``error`` set; duplicate live uids raise
 ``ValueError``; ``deadline_s`` is enforced at every step on the monotonic
-clock; a lane whose sampled logits are not finite fails only its request
-(``'nonfinite_logits'``); ``run()`` marks work still queued when its
-budget expires ``FAILED('stalled')``. ``score()`` returns all-position
-prompt logits (logits on demand); scoring requests always prefill cold.
+clock; ``cancel(uid)`` ends a request wherever it is (queued, mid-prefill,
+mid-decode; dense, paged or on ring pages) as ``CANCELLED``, touching only
+host structures (its slot and pages are freed); a lane whose sampled
+logits are not finite fails only its request (``'nonfinite_logits'``);
+``run()`` marks work still queued when its budget expires
+``FAILED('stalled')``. ``run()`` and ``stats()`` count ``failed``,
+``cancelled``, ``deadline_exceeded``, ``stalled`` and ``preemptions``.
+``score()`` returns all-position prompt logits (logits on demand); scoring
+requests always prefill cold.
+
+**Fault injection** (``fault_injector=``, a
+``repro_torch.serving.faults.FaultInjector`` such as ``ScriptedFaults``):
+``before_step(engine)`` runs at the very top of every ``step_once``, before
+the deadline sweep (page steals and restores, cancels, keyed on
+``engine.ticks``); ``poison_lanes(engine, step_idx)`` names slots whose
+finiteness flags the watchdog reads as false for the dispatch of engine
+step ``step_idx`` (the value of ``engine.steps`` when it was dispatched,
+the index the JAX engine gives the same dispatch, so one script poisons
+the same lane in both engines).
+
+**Telemetry** (``telemetry=False | True | a Telemetry``, through
+``telemetry.coerce``; ``metrics()`` returns the registry's snapshot). Each
+dispatching tick is split into five host-side phases, observed into the
+``engine.step.phase_s`` histograms keyed by ``phase`` x ``backend``
+(``reference`` / ``cuda``) x ``kind`` (``prefill`` / ``decode`` /
+``mixed``: some lanes consume prompt tokens while others decode):
+
+- ``host_schedule``: fault hooks, the deadline sweep, admission, lane
+  building and preemption, with the radix time subtracted;
+- ``radix_lookup``: time inside ``PrefixCache.match`` during this tick's
+  admissions (a tick that admits but dispatches nothing drops it);
+- ``pack_layout``: temperatures, positions and tokens staged to the
+  device, the page tables and job lists (``_paged_host``,
+  ``_page_tables``);
+- ``dispatch``: the ``_forward`` call. Under a mesh it also holds the
+  tick's gather (``_rep_in``) before the body and split (``_shard_out``)
+  after it, which the JAX engine runs inside its jitted step (a scoring
+  run gathers once for all its ticks: that gather is charged to no
+  phase);
+- ``sample_commit``: ``_commit``, whose ``.cpu()`` of the sampled tokens
+  is where the host waits for the device.
+
+Telemetry adds no device synchronisation: no ``.cpu()``, ``.item()`` or
+``torch.cuda.synchronize()``, only host clock reads. PyTorch launches
+kernels asynchronously, so on a CUDA device ``dispatch`` is the host's
+cost of enqueueing the forward's kernels, not their device time, and the
+device's time lands in ``sample_commit``. Enabled engines also register
+``engine.queue.depth`` (a callback gauge), ``request.latency_s`` /
+``request.ttft_s`` (observed at termination), the ``cow_copies`` counter
+and the pool's gauges (``PrefixCache.bind_telemetry``), and record per-uid
+spans (SUBMIT, ADMIT / RESUME with ``prefix_hit_tokens``, PREFILL_CHUNK per
+dispatch, FIRST_TOKEN, DECODE_STEP, PREEMPT, COW, FINISH / FAIL / CANCEL)
+and engine-global events (EVICT, the ``FAULT_*`` injections) at the JAX
+engine's sites. Disabled telemetry costs nothing: every site is guarded by
+the one ``enabled`` bool of the shared ``NULL_TELEMETRY``, with no clock
+read and no allocation per step. Tokens are bitwise the same either way.
 
 **int8 KV** (``kv_quant=True``): K/V caches and pools hold int8 entries
 with bf16 per-(token, kv head) scales, quantized at every write; slot
@@ -102,8 +155,7 @@ there. Each tick copies the whole pool twice, and each layer's kv-head
 slices once more: a faithful port of the layout, not a fast one.
 
 Not ported yet, and rejected with ``NotImplementedError``: the dense
-engine under a mesh, the async host loop, segment-packed prefill,
-telemetry recording and fault injection.
+engine under a mesh, the async host loop and segment-packed prefill.
 """
 from __future__ import annotations
 
@@ -124,6 +176,7 @@ from repro_torch.models.blocks import ATTN_KINDS, kind_window
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
                                             lm_logits)
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvpool import PrefixCache
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving import telemetry as TM
@@ -142,6 +195,10 @@ class RequestStatus(str, enum.Enum):
     FAILED = 'failed'
     CANCELLED = 'cancelled'
     PREEMPTED = 'preempted'
+
+
+TERMINAL_STATUSES = frozenset({RequestStatus.FINISHED, RequestStatus.FAILED,
+                               RequestStatus.CANCELLED})
 
 
 class ScoringError(RuntimeError):
@@ -190,6 +247,10 @@ class Request:
     _stuck: int = dataclasses.field(default=0, repr=False)
     _hold_until: int = dataclasses.field(default=0, repr=False)
 
+    @property
+    def terminal(self) -> bool:
+        return self.status in TERMINAL_STATUSES
+
 
 @dataclasses.dataclass
 class _Lane:
@@ -207,21 +268,29 @@ def _on_full_states(method):
     leaves on the primary device first (``_rep_in``), run the one-device
     code on them, and cut them back into their blocks after
     (``_shard_out``). A nested call (``score`` runs ticks) runs inside the
-    outer one's gather."""
+    outer one's gather. With telemetry, the host seconds of the gather and
+    the split go to ``_t_mesh`` (the tick's ``dispatch`` phase)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
         if self.mesh is None or self._gathered:
             return method(self, *args, **kwargs)
+        tel = self.telemetry
+        t0 = tel.now() if tel.enabled else 0.0
         self.states = self._rep_in(self.states)
         self._gathered = True
         self._index_states()
+        if tel.enabled:
+            self._t_mesh = tel.now() - t0
         try:
             return method(self, *args, **kwargs)
         finally:
+            t0 = tel.now() if tel.enabled else 0.0
             self._gathered = False
             # they alias full leaves
             self._reset_plan = self._pools = self._snap_plan = None
             self.states = self._shard_out(self.states)
+            if tel.enabled:
+                self._t_mesh += tel.now() - t0
     return run
 
 
@@ -247,12 +316,11 @@ class ServingEngine:
                  chunk_size: int = 1, fused_gather_rope: bool = False,
                  prefix_cache: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, attn_backend: str = 'auto',
-                 fault_injector=None, admit_retry_steps: int = 8,
-                 pack_prefill: bool = False, telemetry: bool = False,
-                 mesh=None, async_loop: bool = False,
+                 fault_injector: Optional[FaultInjector] = None,
+                 admit_retry_steps: int = 8, pack_prefill: bool = False,
+                 telemetry=False, mesh=None, async_loop: bool = False,
                  device: torch.device | str = 'cuda'):
-        unported = {'async_loop': async_loop, 'pack_prefill': pack_prefill,
-                    'telemetry': telemetry, 'fault_injector': fault_injector}
+        unported = {'async_loop': async_loop, 'pack_prefill': pack_prefill}
         for name, val in unported.items():
             if val is not None and val is not False:
                 raise NotImplementedError(
@@ -283,6 +351,34 @@ class ServingEngine:
                 # the attend runs one kernel launch per kv-head shard
                 self.attn_backend = CudaBackend(self.mesh)
         self._gathered = False
+        # ------------------------------------------------------ telemetry
+        # False/None -> the shared no-op singleton (every site is guarded
+        # by `if tel.enabled`), True -> a fresh recorder, or a Telemetry
+        # shared between engines
+        self.telemetry = TM.coerce(telemetry)
+        tel = self.telemetry
+        # request latency / TTFT back run()'s percentiles with telemetry off
+        # too (one observation per request); with it on they are registry
+        # series and ride every export
+        if tel.enabled:
+            self._lat_hist = tel.registry.histogram(TM.REQUEST_LATENCY)
+            self._ttft_hist = tel.registry.histogram(TM.REQUEST_TTFT)
+            self._cow_counter = tel.registry.counter(TM.KV_COW_COPIES)
+            self._phase_h = {
+                kind: {ph: tel.registry.histogram(
+                    TM.STEP_PHASE, phase=ph, backend=self.attn_backend.name,
+                    kind=kind) for ph in TM.PHASES}
+                for kind in TM.STEP_KINDS}
+            tel.registry.gauge(TM.QUEUE_DEPTH, fn=lambda: len(self.queue))
+        else:
+            self._lat_hist = Histogram()
+            self._ttft_hist = Histogram()
+            self._cow_counter = None
+            self._phase_h = None
+        self._t_radix = 0.0     # radix-lookup seconds within this tick
+        self._t_mesh = 0.0      # the tick's gather + split seconds (mesh)
+        self._step_obs = None   # (kind, phase seconds) of this tick's step
+        self.fault_injector = fault_injector
         self.page_size = page_size
         # the one-token path never fuses (paged mode has none: its T == 1
         # steps run the chunk path); ineligible layouts use the plain gather
@@ -333,6 +429,8 @@ class ServingEngine:
                                  f'(null page + {self._pages_ring} ring '
                                  'pages + COW/linear headroom)')
             self.kv = PrefixCache(num_pages, page_size)
+            if tel.enabled:
+                self.kv.bind_telemetry(tel)
             self.num_pages = num_pages
         self.kv_quant = bool(kv_quant)
         self.states = model.make_states(
@@ -365,14 +463,13 @@ class ServingEngine:
         self.preemptions = 0
         self.cow_copies = 0
         self.n_failed = 0
+        self.n_cancelled = 0
         self.n_deadline = 0
         self.n_stalled = 0
         self.moe_token_drops = 0
         # chunk-grid utilization: lanes dispatched vs lanes carrying a token
         self.lanes_dispatched = 0
         self.lane_tokens = 0
-        self._lat_hist = Histogram()
-        self._ttft_hist = Histogram()
 
         # ------------------------------------------------ per-slot paging
         # Deferred clear-on-alloc: with a fused_maintenance backend, freshly
@@ -473,12 +570,17 @@ class ServingEngine:
         ``FAILED`` with ``error`` set; a uid already live raises
         ``ValueError``."""
         req.submit_t = time.monotonic()
+        tel = self.telemetry
         err = self._validate(req)
         if err is not None:
             req.status = RequestStatus.FAILED
             req.error = err
             req.finish_t = req.submit_t
             self.n_failed += 1
+            if tel.enabled:
+                tel.event(req.uid, TM.EV_SUBMIT, t=req.submit_t,
+                          prompt_len=len(req.prompt))
+                tel.event(req.uid, TM.EV_FAIL, t=req.finish_t, error=err)
             return
         if req.uid in self._live_uids:
             raise ValueError(f'uid {req.uid} is already live in this engine '
@@ -486,6 +588,9 @@ class ServingEngine:
         self._live_uids.add(req.uid)
         req.status = RequestStatus.QUEUED
         self.queue.append(req)
+        if tel.enabled:
+            tel.event(req.uid, TM.EV_SUBMIT, t=req.submit_t,
+                      prompt_len=len(req.prompt))
 
     def _next_internal_uid(self) -> int:
         while True:
@@ -504,7 +609,18 @@ class ServingEngine:
             self._ttft_hist.observe(req.first_token_t - req.submit_t)
         elif status is RequestStatus.FAILED:
             self.n_failed += 1
+        elif status is RequestStatus.CANCELLED:
+            self.n_cancelled += 1
         self._live_uids.discard(req.uid)
+        tel = self.telemetry
+        if tel.enabled:
+            ev = {RequestStatus.FINISHED: TM.EV_FINISH,
+                  RequestStatus.FAILED: TM.EV_FAIL,
+                  RequestStatus.CANCELLED: TM.EV_CANCEL}[status]
+            attrs = {'generated': len(req.generated)}
+            if error is not None:
+                attrs['error'] = error
+            tel.event(req.uid, ev, t=req.finish_t, **attrs)
 
     def _vacate(self, slot: int) -> None:
         """Free one slot's scheduling state (and pages, in paged mode)."""
@@ -512,6 +628,25 @@ class ServingEngine:
         self.slot_stream[slot] = None
         if self.paged:
             self._release_slot_pages(slot)
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a live request by uid, wherever it is: still queued, or
+        in flight mid-prefill or mid-decode. Only host structures change
+        (the slot, its page table and pages; no state is read, so a mesh
+        needs no gather). Returns False if no live request has that uid
+        (already terminal, or never submitted)."""
+        for i, req in enumerate(self.queue):
+            if req.uid == uid:
+                self.queue.pop(i)
+                self._terminate(req, RequestStatus.CANCELLED)
+                return True
+        for s in range(self.max_slots):
+            req = self.slot_req[s]
+            if req is not None and req.uid == uid:
+                self._vacate(s)
+                self._terminate(req, RequestStatus.CANCELLED)
+                return True
+        return False
 
     def _check_deadlines(self) -> None:
         """Fail every live request whose budget expired (monotonic clock)."""
@@ -640,8 +775,12 @@ class ServingEngine:
         P = len(stream)
         node, nblocks, pages = None, 0, []
         if not req.return_logits and P > 1:
+            tel = self.telemetry
+            r0 = tel.now() if tel.enabled else 0.0
             res = self.kv.match(stream, max_tokens=P - 1,
                                 need_snapshot=self._needs_snapshot)
+            if tel.enabled:
+                self._t_radix += tel.now() - r0
             node, nblocks, pages = res.node, res.n_blocks, res.pages
         # pin the match before any allocation can trigger eviction
         self.kv.attach(node)
@@ -667,6 +806,11 @@ class ServingEngine:
                     self._cow_copy(src, alloc[0], tail_len)
                     cow_page = alloc[0]
                     self.cow_copies += 1
+                    if self.telemetry.enabled:
+                        self._cow_counter.inc()
+                        self.telemetry.event(
+                            req.uid, TM.EV_COW, src_page=int(src),
+                            dst_page=int(alloc[0]), rows=int(tail_len))
                     eff += tail_len
                     self._drop_pending([cow_page])
                 else:
@@ -776,6 +920,11 @@ class ServingEngine:
         re-admission by ``admit_retry_steps`` ticks (a slot yielding to
         pool contention)."""
         req = self.slot_req[slot]
+        if self.telemetry.enabled:
+            self.telemetry.event(
+                req.uid, TM.EV_PREEMPT, slot=slot,
+                pos=int(self.slot_pos[slot]),
+                generated=len(req.generated), hold=bool(hold))
         self._publish_preempted(slot)
         self._vacate(slot)
         req.status = RequestStatus.PREEMPTED
@@ -865,6 +1014,12 @@ class ServingEngine:
                 self._admit_seq += 1
                 req.status = RequestStatus.PREFILLING
                 req._admit_fails = 0
+                if self.telemetry.enabled:
+                    self.telemetry.event(
+                        req.uid,
+                        TM.EV_RESUME if req.preemptions else TM.EV_ADMIT,
+                        slot=slot,
+                        prefix_hit_tokens=int(req.prefix_hit_tokens))
 
     def _admit_with_retry(self, slot: int, req: Request,
                           stream: np.ndarray) -> bool:
@@ -894,45 +1049,79 @@ class ServingEngine:
             return False
 
     # ----------------------------------------------------------------- run
-    @_on_full_states
     def step_once(self) -> None:
-        """One engine tick: deadlines, admission, one dispatch, commit."""
+        """One engine tick: fault hooks, deadlines, admission, one dispatch,
+        commit. With telemetry, the tick's phase seconds are observed once
+        it is over: under a mesh after the split back into blocks, which is
+        charged, with the gather, to the tick's ``dispatch``."""
+        outer = self.mesh is not None and not self._gathered
+        self._tick()
+        obs, self._step_obs = self._step_obs, None
+        if obs is None:
+            return
+        kind, times = obs
+        if outer:
+            times[3] += self._t_mesh
+        for ph, t in zip(TM.PHASES, times):
+            self._phase_h[kind][ph].observe(t)
+
+    @_on_full_states
+    def _tick(self) -> None:
         self.ticks += 1
+        tel = self.telemetry
+        obs = tel.enabled
+        if obs:
+            self._t_radix = 0.0
+        t0 = tel.now() if obs else 0.0
+        if self.fault_injector is not None:
+            self.fault_injector.before_step(self)
         self._check_deadlines()
         self._admit()
-        rec = self._dispatch()
+        rec = self._dispatch(t0, obs)
         if rec is not None:
             self._commit(*rec)
 
-    @torch.no_grad()
-    def _forward(self, tokens: np.ndarray, n_valid: Optional[np.ndarray],
-                 temps: torch.Tensor, want_logits: bool):
-        """Run one step on the device -> (sampled tokens (B,), per-lane
-        finiteness (B,), all-lane logits (B, T, V) or None, MoE dropped
-        token slots (device scalar))."""
-        dev, cfg = self.device, self.model.cfg
-        kw = dict(precomputed=self.precomputed, return_stats=True,
-                  attn_backend=self.attn_backend)
+    def _stage_inputs(self, tokens: np.ndarray,
+                      n_valid: Optional[np.ndarray]) -> dict:
+        """The step's inputs on the device, in one host-to-device copy:
+        tokens, positions and lane validity (the one-token path) or
+        ``n_valid`` and, paged, the page tables and job lists."""
+        dev = self.device
         pos_np = self.slot_pos.astype(np.int32)
         if n_valid is None:
             live = np.array([r is not None for r in self.slot_req], np.int32)
             tok, pos, lane_valid = _stage([tokens, pos_np, live], dev)
+            return dict(tokens=tok, pos=pos, lane_valid=lane_valid.bool())
+        host = [tokens, pos_np, n_valid]
+        if self.paged:
+            host += self._paged_host(pos_np, n_valid, tokens.shape[1])
+        staged = _stage(host, dev)
+        out = dict(tokens=staged[0], pos=staged[1], n_valid=staged[2])
+        if self.paged:
+            out['paged'] = self._page_tables(staged[3:])
+        return out
+
+    @torch.no_grad()
+    def _forward(self, inputs: dict, temps: torch.Tensor, want_logits: bool):
+        """Run one step on the device from ``_stage_inputs``'s tensors ->
+        (sampled tokens (B,), per-lane finiteness (B,), all-lane logits
+        (B, T, V) or None, MoE dropped token slots (device scalar))."""
+        dev, cfg = self.device, self.model.cfg
+        kw = dict(precomputed=self.precomputed, return_stats=True,
+                  attn_backend=self.attn_backend)
+        if 'lane_valid' in inputs:
             logits, _, st = self.model.decode_step(
-                self.params, tok, self.states, pos,
-                lane_valid=lane_valid.bool(), **kw)               # (B,1,V)
+                self.params, inputs['tokens'], self.states, inputs['pos'],
+                lane_valid=inputs['lane_valid'], **kw)            # (B,1,V)
             all_logits = logits if want_logits else None
         else:
-            host = [tokens, pos_np, n_valid]
+            nv = inputs['n_valid']
             if self.paged:
-                host += self._paged_host(pos_np, n_valid, tokens.shape[1])
-            staged = _stage(host, dev)
-            tok, pos, nv = staged[:3]
-            if self.paged:
-                kw['paged'] = self._page_tables(staged[3:])
+                kw['paged'] = inputs['paged']
             h, _, st = self.model.decode_step(
-                self.params, tok, self.states, pos, n_valid=nv,
-                return_hidden=True, fused_gather_rope=self.fused_gather_rope,
-                **kw)
+                self.params, inputs['tokens'], self.states, inputs['pos'],
+                n_valid=nv, return_hidden=True,
+                fused_gather_rope=self.fused_gather_rope, **kw)
             # head only on each slot's last valid lane, not all T lanes
             last = (nv.long() - 1).clamp(min=0)
             h_last = h[torch.arange(h.shape[0], device=dev), last][:, None]
@@ -975,17 +1164,21 @@ class ServingEngine:
                 for used in (self._lin_layers, self._ring_layers)]
         return PageTables(pt, rt, self._sc_ring, pending, *jobs)
 
-    def _dispatch(self):
+    def _dispatch(self, t0: float, obs: bool):
+        """Build this tick's lanes, stage them and run the forward; advance
+        the slots' positions. -> the commit record (sampled tokens,
+        finiteness, logits, MoE drops, lanes, step index, and with ``obs``
+        the step kind and its first four phase seconds), or None when
+        nothing was dispatched."""
+        tel = self.telemetry
         active = [s for s in range(self.max_slots)
                   if self.slot_req[s] is not None]
         if not active:
             return None
+        step_idx = self.steps
         prefilling = self.chunk_size > 1 and any(
             len(self.slot_stream[s]) - int(self.slot_pos[s]) > 1
             for s in active)
-        temps = torch.tensor(
-            [(r.temperature if r is not None else 0.0) for r in self.slot_req],
-            dtype=torch.float32, device=self.device)
         if prefilling or self.paged:
             # paged mode always runs the chunk-shaped step; its T == 1 case
             # is the decode step
@@ -1021,6 +1214,7 @@ class ServingEngine:
                       if self.slot_req[s] is not None and n_valid[s] > 0]
             if not active:
                 return None       # everything was preempted this step
+            lane_n = n_valid
             if prefilling and max(int(n_valid[s]) for s in active) <= 1:
                 # the prefilling slots were all preempted: narrow back to
                 # the T == 1 grid (the chunk path's T == 1 case)
@@ -1036,15 +1230,37 @@ class ServingEngine:
         else:
             tokens = self.slot_next_tok[:, None].copy()
             n_valid = None
-            consumed = np.ones(self.max_slots, np.int32)
+            lane_n = consumed = np.ones(self.max_slots, np.int32)
+        kind = None
+        if obs:
+            n_pre = 0
+            for s in active:
+                p = int(self.slot_pos[s])
+                if p < len(self.slot_stream[s]):
+                    n_pre += 1
+                    tel.event(self.slot_req[s].uid, TM.EV_PREFILL_CHUNK,
+                              step=step_idx, pos=p, n=int(lane_n[s]))
+            kind = ('mixed' if 0 < n_pre < len(active)
+                    else ('prefill' if n_pre else 'decode'))
+            t1 = tel.now()
         # recomputed from the surviving lanes: a step whose only scoring
         # slot was preempted runs without the all-lane head
         want_logits = any(
             self.slot_req[s].return_logits
             and int(self.slot_pos[s]) < len(self.slot_stream[s])
             for s in active)
-        nxt, finite, logits, drops = self._forward(tokens, n_valid, temps,
-                                                   want_logits)
+        temps = torch.tensor(
+            [(r.temperature if r is not None else 0.0) for r in self.slot_req],
+            dtype=torch.float32, device=self.device)
+        inputs = self._stage_inputs(tokens, n_valid)
+        if obs:
+            t2 = tel.now()
+        nxt, finite, logits, drops = self._forward(inputs, temps, want_logits)
+        times = None
+        if obs:
+            t3 = tel.now()
+            times = [max(0.0, t1 - t0 - self._t_radix), self._t_radix,
+                     t2 - t1, t3 - t2]
         self._pending_clear = []
         lanes = []
         for s in active:
@@ -1055,17 +1271,27 @@ class ServingEngine:
                                p_before=p_before,
                                p_after=int(self.slot_pos[s])))
         self.steps += 1
-        return nxt, finite, logits, drops, lanes
+        return nxt, finite, logits, drops, lanes, step_idx, kind, times
 
     def _commit(self, nxt: torch.Tensor, finite: torch.Tensor,
                 logits: Optional[torch.Tensor], drops: torch.Tensor,
-                lanes: List[_Lane]) -> None:
+                lanes: List[_Lane], step_idx: int, kind: Optional[str],
+                times: Optional[list]) -> None:
         """Bring the step's tokens to the host (the device wait) and commit
         them: prompt logits, radix publishes, first/next tokens,
-        terminations, the MoE drop count."""
+        terminations, the MoE drop count. Lanes the fault injector poisons
+        for ``step_idx`` count as non-finite. With telemetry, leaves the
+        step's kind and five phase seconds in ``_step_obs``."""
+        tel = self.telemetry
+        obs = kind is not None
+        t3 = tel.now() if obs else 0.0
         nxt = nxt.cpu().numpy()
         self.moe_token_drops += int(drops)
         bad = ~finite.cpu().numpy()
+        if self.fault_injector is not None:
+            for s in self.fault_injector.poison_lanes(self, step_idx):
+                if 0 <= s < len(bad):
+                    bad[s] = True
         logits = None if logits is None else logits.float().cpu().numpy()
         for ln in lanes:
             s, req = ln.slot, ln.req
@@ -1089,6 +1315,12 @@ class ServingEngine:
             tok = int(nxt[s])
             if not req.generated:
                 req.first_token_t = time.monotonic()
+                if obs:
+                    tel.event(req.uid, TM.EV_FIRST_TOKEN,
+                              t=req.first_token_t, step=step_idx, token=tok)
+            elif obs:
+                tel.event(req.uid, TM.EV_DECODE_STEP, step=step_idx,
+                          token=tok)
             req.generated.append(tok)
             self.slot_next_tok[s] = tok
             hit_eos = req.eos_id is not None and tok == req.eos_id
@@ -1096,6 +1328,9 @@ class ServingEngine:
                     or ln.p_after + 1 >= self.max_seq:
                 self._vacate(s)
                 self._terminate(req, RequestStatus.FINISHED)
+        if obs:
+            times.append(tel.now() - t3)
+            self._step_obs = (kind, times)
 
     def run(self, max_iters: int = 100_000) -> Dict[str, float]:
         """Drive the engine until all submitted work is terminal or
@@ -1118,6 +1353,7 @@ class ServingEngine:
                'in_flight': sum(r is not None for r in self.slot_req),
                'preemptions': self.preemptions,
                'failed': self.n_failed,
+               'cancelled': self.n_cancelled,
                'deadline_exceeded': self.n_deadline}
         if self._lat_hist.count:
             out['p50_latency_s'] = self._lat_hist.percentile(50)
@@ -1148,6 +1384,12 @@ class ServingEngine:
             raise ScoringError(errors, [r.prompt_logits for r in reqs])
         return [r.prompt_logits for r in reqs]
 
+    def metrics(self) -> Dict:
+        """Structured snapshot of the telemetry registry: counters, gauges,
+        and histogram summaries (count/sum/mean/min/max/p50/p90/p99 and the
+        nonzero buckets). ``{'enabled': False}`` when telemetry is off."""
+        return self.telemetry.snapshot()
+
     def stats(self, requests: List[Request]) -> Dict[str, float]:
         """Aggregate statistics over ``requests`` plus engine counters;
         latency/TTFT keys are omitted when they have no samples. Paged
@@ -1170,6 +1412,7 @@ class ServingEngine:
                 if self.lanes_dispatched else 0.0,
             'preemptions': self.preemptions,
             'failed': self.n_failed,
+            'cancelled': self.n_cancelled,
             'deadline_exceeded': self.n_deadline,
             'stalled': self.n_stalled,
         }

@@ -1,7 +1,8 @@
 """Paged KV pool with a token-prefix radix index (host-side policy).
 
 A copy of the JAX package's ``repro/serving/kvpool.py`` (pure Python over
-numpy), without the telemetry binding (the port records no telemetry yet).
+numpy), its telemetry binding included (``bind_telemetry``: the pool's
+gauges and the ``EVICT`` trace event).
 
 The serving engine's paged mode replaces every per-slot contiguous KV cache
 with a **global pool of fixed-size pages**: each attention (or MLA-latent)
@@ -46,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.serving import telemetry as TM
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 NULL_PAGE = 0     # physical page 0 is reserved: all-zero K/V, pos == -1
 
@@ -115,6 +117,23 @@ class PrefixCache:
         self.misses = 0
         self.hit_tokens = 0
         self.evictions = 0
+        self._tel = NULL_TELEMETRY
+
+    def bind_telemetry(self, tel) -> None:
+        """Register this pool's occupancy gauges and counters on ``tel``'s
+        registry (callback gauges — exports read live pool state) and route
+        eviction trace events through its tracer. Metric names are the
+        ``KV_*`` constants in :mod:`repro_torch.serving.telemetry` — the
+        same strings :meth:`stats` uses, defined in exactly one place."""
+        self._tel = tel
+        reg = tel.registry
+        reg.gauge(TM.KV_PAGES_IN_USE, fn=self.pages_in_use)
+        reg.gauge(TM.KV_PAGES_FREE, fn=self.pages_free)
+        reg.gauge(TM.KV_PAGES_RECLAIMABLE, fn=self.reclaimable)
+        reg.gauge(TM.KV_PREFIX_HITS, fn=lambda: self.hits)
+        reg.gauge(TM.KV_PREFIX_MISSES, fn=lambda: self.misses)
+        reg.gauge(TM.KV_PREFIX_HIT_TOKENS, fn=lambda: self.hit_tokens)
+        reg.gauge(TM.KV_EVICTIONS, fn=lambda: self.evictions)
 
     # ------------------------------------------------------------ allocator
     def pages_free(self) -> int:
@@ -178,6 +197,9 @@ class PrefixCache:
         victim.snapshot = None
         self.free([victim.page])
         self.evictions += 1
+        if self._tel.enabled:
+            self._tel.event(None, TM.EV_EVICT, page=int(victim.page),
+                            depth=victim.depth)
         return True
 
     # ---------------------------------------------------------------- radix
@@ -296,8 +318,9 @@ class PrefixCache:
     # ---------------------------------------------------------------- stats
     def stats(self) -> Dict[str, float]:
         """Pool statistics. Key names are the ``KV_*`` constants in
-        :mod:`repro_torch.serving.telemetry`, copied from the JAX
-        package's telemetry module."""
+        :mod:`repro_torch.serving.telemetry`, the single place they are
+        defined (the registry gauges from :meth:`bind_telemetry` and every
+        consumer use the same constants)."""
         total = self.hits + self.misses
         return {
             TM.KV_PREFIX_HITS: self.hits,

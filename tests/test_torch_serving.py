@@ -3,6 +3,8 @@ engine on the mistral-7b smoke config in fp32, same weights: equal greedy
 tokens for chunk sizes 1 and 4, with and without the precomputed table
 (the JAX engine pinned to ``attn_backend='reference'``); plus the port's
 own request contracts, sampler and histogram."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -142,13 +144,13 @@ def test_deadline_fails_only_the_expired_request(both):
 @pytest.mark.parametrize('option', [dict(mesh=make_serving_mesh(
                                         '2x2', devices=['cpu'] * 4)),
                                     dict(async_loop=True),
-                                    dict(pack_prefill=True),
-                                    dict(telemetry=True),
-                                    dict(fault_injector=object())])
+                                    dict(pack_prefill=True)])
 def test_unported_engine_options_raise(both, option):
     """Options not ported yet raise; a mesh is ported for the paged engine
     only (the dense engine under a mesh is not). ``prefix_cache=True`` on
-    mistral-7b's windowed layers is ported (``tests/test_torch_ring.py``)."""
+    mistral-7b's windowed layers is ported (``tests/test_torch_ring.py``),
+    and so are ``telemetry`` and ``fault_injector``
+    (``tests/test_torch_telemetry.py``, ``tests/test_torch_faults.py``)."""
     _, _, tm, tp = both
     assert tm.cfg.pattern == ('local',) and tm.cfg.window
     with pytest.raises(NotImplementedError, match='not ported'):
@@ -189,9 +191,16 @@ def test_histogram_matches_jax_telemetry():
     ['--chunk-size', '4', '--fused-gather-rope', '--attn-backend', 'cuda'],
     ['--score', '--no-precompute'],
     ['--prefix-cache', '--page-size', '8', '--shared-prefix', '16',
-     '--chunk-size', '4', '--slots', '1']])
-def test_serve_cli_runs_on_cpu(monkeypatch, capsys, argv):
+     '--chunk-size', '4', '--slots', '1'],
+    ['--arch', 'glm4-9b', '--prefix-cache', '--page-size', '8',
+     '--shared-prefix', '16', '--metrics-out', '{tmp}/m.prom',
+     '--trace-out', '{tmp}/t.json']])
+def test_serve_cli_runs_on_cpu(monkeypatch, capsys, tmp_path, argv):
+    """With ``--metrics-out`` / ``--trace-out`` (which imply
+    ``--telemetry``) the registry is written as Prometheus text and the
+    request spans as a Chrome trace with one track per request."""
     from repro_torch.launch import serve
+    argv = [a.format(tmp=tmp_path) for a in argv]
     monkeypatch.setattr('sys.argv', ['serve', '--device', 'cpu',
                                      '--requests', '2', '--new-tokens', '3',
                                      *argv])
@@ -199,3 +208,16 @@ def test_serve_cli_runs_on_cpu(monkeypatch, capsys, argv):
     out = capsys.readouterr().out
     assert ('2 requests, 6 new tokens' in out) or ('scored 2 prompts' in out)
     assert ('prefix cache: ' in out) == ('--prefix-cache' in argv)
+    assert ('fault tolerance: 0 preemptions, 0 failed, 0 cancelled, '
+            '0 deadline-exceeded, 0 stalled' in out) \
+        == ('--score' not in argv)
+    if '--metrics-out' in argv:
+        prom = (tmp_path / 'm.prom').read_text()
+        assert 'engine_step_phase_s_count{backend="reference",' \
+            'kind="prefill",phase="dispatch"}' in prom
+        assert 'request_latency_s_count 2' in prom
+        trace = json.loads((tmp_path / 't.json').read_text())
+        tracks = [e['args']['name'] for e in trace['traceEvents']
+                  if e['ph'] == 'M' and e['name'] == 'thread_name']
+        assert sorted(tracks) == ['engine', 'request 0', 'request 1']
+        assert f'metrics -> {tmp_path}/m.prom' in out
