@@ -176,18 +176,34 @@ Phases, in order; any failure raises and exits non-zero:
               reference's tokens through the copy-on-write and the
               preemptions.
 
+Every one-device engine run of phases 4-9 with the cuda backend steps
+through the engine's per-step programs: each step shape's CUDA graph is
+captured at its first step and replayed after (a mesh and the reference
+backend run eagerly). Phases 4-7 run one engine of each family first
+inside ``_eager_steps()`` (mistral-7b dense bf16 and int8, paged with
+ring pages bf16; glm4-9b paged bf16 and int8; deepseek; pythia-6.9b
+paged) and hold the replayed run's greedy tokens, ``score()`` logits and
+caches or pool bitwise against it; each run prints its programs' capture
+ms and replays and the graph pool's MiB, and each profile the device's
+span of the programs' runs (CUDA events) and the device kernels of each
+captured step shape (the nodes of a re-capture). Phase 5 also serves the
+8 requests of the waves at once on a 64-slot glm4-9b engine (1537 pages):
+every dispatch at bucket 8, tokens bitwise an 8-slot engine's.
+
 In each engine phase the launch counters are zeroed just before the run
-and read just after; every kernel of that path must have run (the int8
-runs: paged_attention_quant once per attention layer and step, the dense
-form never; the baseline run: no gather; with the table one gather a step;
+and read just after (a replay adds the launches its capture recorded);
+every kernel of that path must have run (the int8 runs:
+paged_attention_quant once per attention layer and step, the dense form
+never; the baseline run: no gather; with the table one gather a step;
 cow_page_copy once per cache and copy). Each Model.apply forward is
-counted on its own: flash_attention once a layer, rmsnorm_matmul (RMSNorm
-models) once a layer without the table and once less with it. Ends with a
-``{"kernels": [...]}`` line and, last, the device JSON line. Imports
-nothing of JAX or of the JAX package ``repro``.
+counted on its own: flash_attention once a layer, rmsnorm_matmul
+(RMSNorm models) once a layer without the table and once less with it.
+Ends with a ``{"kernels": [...]}`` line and, last, the device JSON line.
+Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -235,7 +251,8 @@ from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import telemetry as TM  # noqa: E402
 from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
-                                        ServingEngine)
+                                        ServingEngine, _eager_steps)
+from repro_torch.serving.programs import COUNTED, StepProgram  # noqa: E402
 from repro_torch.serving.faults import ScriptedFaults  # noqa: E402
 from repro_torch.serving.kvpool import partition_pages  # noqa: E402
 from repro_torch.sharding import ShardedLeaf, gather_leaf  # noqa: E402
@@ -243,9 +260,7 @@ from repro_torch.sharding import ShardedLeaf, gather_leaf  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # fp32 outside the tensor cores
-KERNELS = [embed_gather, gather_rope, paged_attention, paged_attention_mla,
-           paged_attention_quant, PM.fused_page_write, PM.cow_page_copy,
-           rmsnorm_matmul, flash_attention, sharded_paged_attention]
+KERNELS = COUNTED       # every kernel wrapper with a launch counter
 SEED = 0
 
 
@@ -2465,10 +2480,15 @@ def phase_mistral(rows) -> dict:
     for run, tab, kv_quant in (('mistral', table, False),
                                ('mistral_baseline', None, False),
                                ('mistral_int8', table, True)):
-        out[run] = serve_dense(model, params, tab, prompts, rng, kv_quant)
+        # bf16 and int8: an eager twin first, the replays held against it
+        want = None if tab is None else serve_dense(
+            model, params, tab, prompts, rng, kv_quant, eager=True)[3]
+        out[run] = serve_dense(model, params, tab, prompts, rng, kv_quant,
+                               expect=want)
+        del want
         free()
-    (base, bytes16), (tok8, bytes8) = out['mistral'][1:], \
-        out['mistral_int8'][1:]
+    (base, bytes16), (tok8, bytes8) = out['mistral'][1:3], \
+        out['mistral_int8'][1:3]
     log(f'[engine int8] KV cache bytes {bytes8} int8 against {bytes16} bf16 '
         f'({bytes8 / bytes16:.3f}); greedy tokens equal to the bf16 run\'s: '
         f'{token_share(tok8, base)} (reported, not checked)')
@@ -2495,11 +2515,17 @@ def phase_mistral_paged(model, params, table, device='cuda',
     prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
         *lengths))).astype(np.int32) for _ in range(RING_SLOTS)]
     out = {}
+    on_card = torch.device(device).type == 'cuda'
     for run, kv_quant in (('mistral_paged', False),
                           ('mistral_paged_int8', True)):
+        # bf16 on the card: an eager twin first, the replays held against it
+        want = serve_ring(model, params, table, prompts, run, kv_quant,
+                          device, eager=True)[2] \
+            if on_card and not kv_quant else None
         out[run] = serve_ring(model, params, table, prompts, run, kv_quant,
-                              device)
-        if torch.device(device).type == 'cuda':
+                              device, expect=want)
+        del want
+        if on_card:
             free()
     log(f'[mistral_paged_int8] greedy tokens equal to the bf16 run\'s: '
         f'{token_share(out["mistral_paged_int8"][1], out["mistral_paged"][1])}'
@@ -2552,16 +2578,19 @@ def calls_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def serve_ring(model, params, table, prompts, tag, kv_quant, device):
+def serve_ring(model, params, table, prompts, tag, kv_quant, device,
+               eager: bool = False, expect=None):
     """One paged engine (ring pages with snapshots) over a two-turn chat,
     16 new tokens a request. Wave 1: ``prompts`` (every ring wraps in its
     prefill; each publishes a snapshot at ((P - 1) // 16) * 16). Wave 2:
     each prompt + its 16 greedy tokens + 32 new tokens, a prefix hit at
-    that snapshot and a restore. Then a profiled batch of four more second
-    turns. Checks the launch counts (attention and fused_page_write once a
-    layer and a step, one gather a step, cow_page_copy never), the hit
-    tokens and that every request FINISHED with 16 tokens. -> (launches,
-    greedy tokens of both waves)."""
+    that snapshot and a restore. Then ``score()`` of the first prompt's
+    first 200 tokens and a profiled batch of four more second turns.
+    Checks the launch counts (attention and fused_page_write once a layer
+    and a step, one gather a step, cow_page_copy never), the hit tokens and
+    that every request FINISHED with 16 tokens. ``eager`` / ``expect`` as
+    in :func:`serve_dense` (an eager run also skips the snapshot timings).
+    -> (launches, greedy tokens of both waves, digest)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
     attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
@@ -2583,38 +2612,46 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device):
         f'{eng._pages_lin} linear pages a slot; leaves '
         f'{sorted(eng.states["layer0"])}; pool bytes '
         f'{nbytes(*[x for pool, _ in eng._pools for x in pool.values()])}')
+    if eager:
+        tag += ' eager'
     warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
-    eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
-    eng.run()
     captures, restores = [], []
-    if on_card:
-        timed_calls(eng, '_capture', captures)
-        timed_calls(eng, '_restore', restores)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    snaps0 = snapshots_held(eng)[0]
-    steps0 = eng.steps
-    zero_launches()
     first = [Request(uid=i, prompt=p, max_new_tokens=16)
              for i, p in enumerate(prompts)]
-    waves, t_all = [], time.perf_counter()
     second = []
-    for wave in range(2):
-        reqs = first if wave == 0 else second
-        t0 = time.perf_counter()
-        for r in reqs:
-            eng.submit(r)
+    with steps_mode(eager):
+        eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
         eng.run()
+        timing = on_card and not eager
+        if timing:
+            timed_calls(eng, '_capture', captures)
+            timed_calls(eng, '_restore', restores)
         if on_card:
             torch.cuda.synchronize()
-        waves.append(time.perf_counter() - t0)
-        if wave == 0:
-            assert snapshots_held(eng)[0] == snaps0 + len(first)
-            second = [Request(uid=10 + i, prompt=np.concatenate(
-                [r.prompt, np.asarray(r.generated, np.int32), rng.integers(
-                    3, cfg.vocab_size, size=32).astype(np.int32)]),
-                max_new_tokens=16) for i, r in enumerate(first)]
-    dt = time.perf_counter() - t_all
+            torch.cuda.reset_peak_memory_stats()
+        snaps0 = snapshots_held(eng)[0]
+        steps0 = eng.steps
+        zero_launches()
+        spans = program_spans() if on_card else contextlib.nullcontext([])
+        with spans as events:
+            waves, t_all = [], time.perf_counter()
+            for wave in range(2):
+                reqs = first if wave == 0 else second
+                t0 = time.perf_counter()
+                for r in reqs:
+                    eng.submit(r)
+                eng.run()
+                if on_card:
+                    torch.cuda.synchronize()
+                waves.append(time.perf_counter() - t0)
+                if wave == 0:
+                    assert snapshots_held(eng)[0] == snaps0 + len(first)
+                    second = [Request(uid=10 + i, prompt=np.concatenate(
+                        [r.prompt, np.asarray(r.generated, np.int32),
+                         rng.integers(3, cfg.vocab_size, size=32).astype(
+                             np.int32)]), max_new_tokens=16)
+                        for i, r in enumerate(first)]
+            dt = time.perf_counter() - t_all
     launches = read_launches()
     steps = eng.steps - steps0
     reqs = first + second
@@ -2648,7 +2685,8 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device):
         f'{[round(w, 3) for w in waves]}; mean TTFT on a miss (wave 1) '
         f'{np.mean(ttft[0]):.3f}s, on a hit (wave 2) {np.mean(ttft[1]):.3f}s '
         f'({np.mean(ttft[0]) / np.mean(ttft[1]):.1f}x); peak memory '
-        f'{peak:.2f} GiB')
+        f'{peak:.2f} GiB' + ('; ' + span_text(events, dt, steps)
+                             if on_card else ''))
     log(f'[{tag}] prefix hits {stats["prefix_hits"]}, misses '
         f'{stats["prefix_misses"]}, hit tokens {stats["prefix_hit_tokens"]} '
         f'(per request {[r.prefix_hit_tokens for r in reqs]}), '
@@ -2657,10 +2695,19 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device):
         f'preemptions {stats["preemptions"]}; snapshots held {n_snap} '
         f'({snap_bytes} bytes, {snap_bytes / max(n_snap, 1) / 2**30:.3f} GiB '
         'each)')
-    if on_card:
-        torch.cuda.synchronize()
+    tokens = [r.generated for r in reqs]
+    if timing:
         for name in ('_capture', '_restore'):
             delattr(eng, name)
+    with steps_mode(eager):
+        scores = eng.score([prompts[0][:200]])
+    digest = replay_digest(eng, tokens, scores)
+    if expect is not None:
+        check_replay(f'[{tag}]', eng, digest, expect)
+    if on_card:
+        log_programs(f'[{tag}]', eng)
+    if timing:
+        torch.cuda.synchronize()
         # the copies alone: a capture and a restore of free pages, repeated
         # with the allocator's blocks reused (no new device memory)
         pages = eng.kv.alloc(eng._pages_ring)
@@ -2684,12 +2731,12 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device):
         f'({attn} and fused_page_write {cfg.num_layers} a step, one gather '
         'a step, cow_page_copy 0); all requests FINISHED with 16 tokens '
         '(finite logits)')
-    if on_card:
+    if timing:
         profile_engine(eng, [Request(uid=20 + i, prompt=np.concatenate(
             [r.prompt, np.asarray(r.generated, np.int32), rng.integers(
                 3, cfg.vocab_size, size=32).astype(np.int32)]),
             max_new_tokens=16) for i, r in enumerate(first)])
-    return launches, [r.generated for r in reqs]
+    return launches, tokens, digest
 
 
 def token_share(got, base) -> str:
@@ -2708,37 +2755,47 @@ def cache_bytes(eng) -> int:
     return nbytes(*leaves)
 
 
-def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
+def serve_dense(model, params, table, prompts, rng, kv_quant: bool,
+                eager: bool = False, expect=None):
     """One engine over ``prompts`` (16 new tokens each) on dense ring
     caches, chunk 16, fused gather→RoPE, the cuda backend; int8 caches
     with ``kv_quant``; ``table`` None runs the baseline (no table, no
-    gathers). -> (launches, greedy tokens, cache bytes)."""
+    gathers). Then ``score()`` of the first prompt's first 40 tokens. With
+    ``eager``, every step inside ``_eager_steps()`` and no profile; with
+    ``expect`` (an eager run's digest), the run's tokens, score logits and
+    caches are held bitwise against it (:func:`check_replay`). ->
+    (launches, greedy tokens, cache bytes, digest)."""
     cfg = model.cfg
     tag = '[engine int8]' if kv_quant else '[engine]' if table is not None \
         else '[engine baseline]'
+    if eager:
+        tag = tag[:-1] + ' eager]'
     attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
     eng = ServingEngine(model, params, max_slots=4, max_seq=512,
                         precomputed=table, seed=SEED, dtype=torch.bfloat16,
                         chunk_size=16, fused_gather_rope=True,
                         kv_quant=kv_quant, attn_backend='cuda', device='cuda')
     assert eng.fused_gather_rope == (table is not None) \
-        and eng.attn_backend.name == 'cuda'
+        and eng.attn_backend.name == 'cuda' and eng._graphs
     reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
-    # warm-up request (cuBLAS handles, allocator) outside the measured run
-    warm = Request(uid=100, prompt=reqs[0].prompt[:20], max_new_tokens=2)
-    eng.submit(warm)
-    eng.run()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    steps0 = eng.steps
-    zero_launches()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    report = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with steps_mode(eager):
+        # warm-up request (cuBLAS handles, allocator, the step shapes'
+        # graphs) outside the measured run
+        warm = Request(uid=100, prompt=reqs[0].prompt[:20], max_new_tokens=2)
+        eng.submit(warm)
+        eng.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = eng.steps
+        zero_launches()
+        with program_spans() as events:
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            report = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
     launches = read_launches()
     for r in reqs:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
@@ -2764,15 +2821,122 @@ def serve_dense(model, params, table, prompts, rng, kv_quant: bool):
         f'({dt / steps * 1e3:.2f} ms/step); mean TTFT '
         f'{stats["mean_ttft_s"]:.3f}s (p50 {report["p50_ttft_s"]:.3f}s); '
         f'mean latency {stats["mean_latency_s"]:.3f}s; peak memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+        + span_text(events, dt, steps))
     log(f'{tag} launches {json.dumps(launches)} over {steps} steps '
         f'({attn}: {cfg.num_layers} a step'
         + (', one gather a step' if table is not None else '')
         + '); all requests FINISHED with 16 tokens (finite logits)')
-    profile_engine(eng, [Request(uid=10 + i, prompt=rng.integers(
-        3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(np.int32),
-        max_new_tokens=16) for i in range(4)])
-    return launches, [r.generated for r in reqs], cache_bytes(eng)
+    tokens = [r.generated for r in reqs]
+    with steps_mode(eager):
+        scores = eng.score([prompts[0][:40]])
+    digest = replay_digest(eng, tokens, scores)
+    if expect is not None:
+        check_replay(tag, eng, digest, expect)
+    log_programs(tag, eng)
+    if not eager:
+        profile_engine(eng, [Request(uid=10 + i, prompt=rng.integers(
+            3, cfg.vocab_size, size=int(rng.integers(64, 201))).astype(
+                np.int32), max_new_tokens=16) for i in range(4)])
+    return launches, tokens, cache_bytes(eng), digest
+
+
+@contextlib.contextmanager
+def program_spans():
+    """CUDA events around every step program's run inside the block: the
+    device's span of each run (a graph's replay, or an eager forward with
+    the host's gaps in it), without a profiler's cost per kernel. Yields
+    the list of (start, end) events."""
+    events = []
+    run = StepProgram.run
+
+    def timed(prog, graphs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(prog, graphs)
+        end.record()
+        events.append((start, end))
+        return out
+    StepProgram.run = timed
+    try:
+        yield events
+    finally:
+        StepProgram.run = run
+
+
+def span_text(events, wall_s: float, steps: int) -> str:
+    """The programs' device span a step and the idle share outside it."""
+    ms = sum(a.elapsed_time(b) for a, b in events)
+    return (f'device span of the step programs {ms / steps:.3f} ms a step, '
+            f'idle share outside them {1 - ms / (wall_s * 1e3):.3f}')
+
+
+def steps_mode(eager: bool):
+    """``_eager_steps()`` for an eager twin, else nothing: the engine's
+    programs capture and replay their CUDA graphs."""
+    return _eager_steps() if eager else contextlib.nullcontext()
+
+
+def replay_digest(eng, tokens, scores) -> dict:
+    """What a run with replayed CUDA graphs and its eager twin must share
+    bit for bit: greedy tokens, ``score()`` logits and every state leaf
+    (caches or pool; references, so take it before anything else writes
+    the state)."""
+    return dict(tokens=tokens, scores=[x.tobytes() for x in scores],
+                shapes=[x.shape for x in scores],
+                leaves=state_leaves(eng.states))
+
+
+def check_replay(tag, eng, got, want) -> None:
+    """``got`` (a run whose steps replayed CUDA graphs) against ``want``
+    (the same run under ``_eager_steps()``), bitwise; every program of the
+    run captured its graph and replays happened."""
+    progs = list(eng.programs.values())
+    assert eng._graphs and progs and all(p.graph is not None
+                                         for p in progs), tag
+    assert sum(p.replays for p in progs) > 0, tag
+    assert got['tokens'] == want['tokens'], \
+        f'{tag}: greedy tokens of the replayed run differ from the eager run'
+    assert got['shapes'] == want['shapes'] \
+        and got['scores'] == want['scores'], \
+        f'{tag}: score logits differ from the eager run'
+    assert len(got['leaves']) == len(want['leaves']), tag
+    for i, (a, b) in enumerate(zip(got['leaves'], want['leaves'])):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)
+        ), f'{tag}: state leaf {i} {tuple(a.shape)} differs from the eager run'
+    log(f'{tag} replayed CUDA graphs bitwise the eager run '
+        f'(_eager_steps): {sum(map(len, got["tokens"]))} greedy tokens, '
+        f'score logits {[tuple(x) for x in got["shapes"]]}, '
+        f'{len(got["leaves"])} state leaves '
+        f'({nbytes(*got["leaves"])} bytes)')
+
+
+def graph_pool_mib(eng) -> float:
+    """MiB of device memory in the engine's CUDA graph pool (the
+    allocator's segments of that pool); nan where the snapshot does not
+    name a segment's pool."""
+    if eng._graph_pool is None:
+        return 0.0
+    pool, total, named = tuple(eng._graph_pool), 0, True
+    for seg in torch.cuda.memory_snapshot():
+        if 'segment_pool_id' not in seg:
+            named = False
+        elif tuple(seg['segment_pool_id']) == pool:
+            total += seg['total_size']
+    return total / 2**20 if named else float('nan')
+
+
+def log_programs(tag, eng) -> None:
+    """One line on the engine's step programs: each key's capture ms and
+    replays, the graph pool's MiB."""
+    progs = sorted(eng.programs.items())
+    log(f'{tag} step programs (path, slot bucket, T, logits): '
+        + ('; '.join(f'{k} capture {p.capture_ms:.1f} ms, {p.replays} '
+                     'replays' if p.graph is not None else f'{k} eager'
+                     for k, p in progs))
+        + f'; graph pool {graph_pool_mib(eng):.1f} MiB')
 
 
 def profile_engine(eng, reqs, spans=()) -> dict:
@@ -2785,7 +2949,12 @@ def profile_engine(eng, reqs, spans=()) -> dict:
     name, the host's activity is traced too (its cost falls in the
     window's wall time), and each span's device time is the sum of the
     kernels and copies launched inside it: busy time, without the gaps in
-    which the stream waits for the host."""
+    which the stream waits for the host. CUDA events around every step
+    program's run give a second measure that needs no profiler: the
+    device's span of the runs (a graph's replay, or an eager forward with
+    the host's gaps in it), and the idle share outside those spans. The
+    nodes of each captured program (a re-capture of its forward) are the
+    device kernels of a step of that shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2800,7 +2969,7 @@ def profile_engine(eng, reqs, spans=()) -> dict:
         ([ProfilerActivity.CPU] if spans else [])
     torch.cuda.synchronize()
     steps0, ticks0 = eng.steps, eng.ticks
-    with profile(activities=acts) as prof:
+    with program_spans() as events, profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for r in reqs:
             eng.submit(r)
@@ -2809,6 +2978,20 @@ def profile_engine(eng, reqs, spans=()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     for name in spans:
         delattr(eng, name)
+    run_ms = sum(a.elapsed_time(b) for a, b in events)
+    nodes = {}
+    counts = read_launches()
+    for key, p in sorted(eng.programs.items()):
+        if p.graph is not None:
+            nodes[key] = device_kernels(
+                lambda: p._forward(eng._bucket_states(p.nb)))
+    for kern, n in zip(KERNELS, counts.values()):
+        kern.launches = n       # the re-captures launched nothing
+    log(f'[profile] step programs: device span of the runs '
+        f'{run_ms:.1f} ms over {len(events)} runs ({run_ms / len(events):.3f}'
+        f' ms a step) in {wall_ms:.1f} ms wall (idle share outside them '
+        f'{1 - run_ms / wall_ms:.3f}); device kernels a step by captured '
+        f'step shape {json.dumps({str(k): n for k, n in nodes.items()})}')
     steps, ticks = eng.steps - steps0, eng.ticks - ticks0
     avg = prof.key_averages()
     labels = {'engine.' + name for name in spans}
@@ -2899,7 +3082,7 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
 def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                 device='cuda', dtype=torch.bfloat16, rows=None,
                 apply_seq: int = 0, mesh_spec: str = '',
-                observe: bool = False) -> dict:
+                observe: bool = False, wide: bool = False) -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
     16 new tokens each; every attend goes through ``attn_kernel``. With
@@ -2910,7 +3093,10 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
     kernel launched once per kv-head shard, the maintenance kernels as
     often as unsharded. With ``observe``, after the first run the same
     waves in turns without and with telemetry and then under a fault script
-    (``observe_waves``). With ``apply_seq``, then the layer-0 comparison
+    (``observe_waves``), and with ``wide`` the waves on a 64-slot engine
+    (``check_wide_engine``). On the card each run without a mesh is held
+    against its eager twin (``serve_waves(eager=True)``, bitwise). With
+    ``apply_seq``, then the layer-0 comparison
     and Model.apply at that S on the same weights. -> launches by run
     (``tag``, ``tag + '_off'``, ``tag + '_telemetry'``, ``tag +
     '_chaos'``, ``tag + '_int8'``, ``tag + '_mesh'``, ``tag +
@@ -2944,10 +3130,20 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                  for t, k, q, _ in runs]
     out = {}
     for run_tag, kernel, kv_quant, run_mesh in runs:
+        # one device on the card: an eager twin first, the replays held
+        # against it
+        want = serve_waves(model, params, table, run_tag, kernel, kv_quant,
+                           system, warm, reqs, rng, device, dtype,
+                           eager=True)[4] \
+            if on_card and run_mesh is None else None
         out[run_tag] = serve_waves(model, params, table, run_tag, kernel,
                                    kv_quant, system, warm, reqs, rng, device,
-                                   dtype, mesh=run_mesh)
+                                   dtype, mesh=run_mesh, expect=want)
+        del want
         if on_card:
+            free()
+        if run_tag == tag and wide:
+            check_wide_engine(model, params, table, tag, warm, reqs, dtype)
             free()
         if run_tag == tag and observe:
             out.update(observe_waves(model, params, table, tag, attn_kernel,
@@ -2957,7 +3153,7 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
         if run_mesh is None:
             continue
         base_tag = run_tag.replace(tag + '_mesh', tag, 1)
-        (lb, tb, _, _), (lm, tm, _, _) = out[base_tag], out[run_tag]
+        (lb, tb, *_), (lm, tm, *_) = out[base_tag], out[run_tag]
         assert tm == tb, f'{run_tag}: greedy tokens differ from {base_tag}'
         H = run_mesh.shape[1]
         assert lm[kernel] == lm['sharded_paged_attention'] \
@@ -2970,7 +3166,8 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
             f'{lm["fused_page_write"]}, cow_page_copy {lm["cow_page_copy"]} '
             'as unsharded')
     if int8:
-        (l16, tok16, b16, _), (l8, tok8, b8, _) = out[tag], out[tag + '_int8']
+        (l16, tok16, b16, *_), (l8, tok8, b8, *_) = out[tag], \
+            out[tag + '_int8']
         log(f'[{tag}_int8] KV pool bytes {b8} int8 against {b16} bf16 '
             f'({b8 / b16:.3f}); greedy tokens equal to the bf16 run\'s: '
             f'{token_share(tok8, tok16)} (reported, not checked)')
@@ -2989,7 +3186,8 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
 
 def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
                 warm, reqs, rng, device, dtype, mesh=None, telemetry=False,
-                chaos=None, profile=True, inspect=None):
+                chaos=None, profile=True, inspect=None, eager=False,
+                expect=None):
     """One paged engine over the two waves of ``reqs`` (fresh Request
     objects with their prompts); under ``mesh``, with a pool the mesh's
     pool axis divides, the state at rest checked and the device time of
@@ -2998,8 +3196,12 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
     armed after the warm-up) it injects faults, and the waves' outcomes are
     left to the caller; ``inspect(eng, reqs, steps, seconds)`` sees the
     engine after the waves (then, with ``profile``, a profiled third
-    batch). -> (launches, greedy tokens, pool bytes at rest, the
-    profile)."""
+    batch). With ``eager`` (every step inside ``_eager_steps()``, no
+    profile) or ``expect``, the waves are followed by ``score()`` of the
+    first request's first 100 tokens, and with ``expect`` (an eager run's
+    digest) tokens, score logits and pool are held bitwise against it
+    (:func:`check_replay`). -> (launches, greedy tokens, pool bytes at
+    rest, the profile, the digest or None)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
     num_pages = None
@@ -3019,33 +3221,40 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
            f'{type(eng.attn_backend).__name__}'))
     reqs = [Request(uid=r.uid, prompt=r.prompt,
                     max_new_tokens=r.max_new_tokens) for r in reqs]
-    # warm-up (cuBLAS handles, allocator) with tokens no request shares
-    eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
-    eng.run()
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    if chaos is not None:
-        chaos.arm(eng)
-    steps0, drops0, cow0 = eng.steps, eng.moe_token_drops, eng.cow_copies
-    eager = count_calls(A, 'kv_values')
-    zero_launches()
-    waves = []
-    t_all = time.perf_counter()
-    for wave in (reqs[:4], reqs[4:]):
-        t0 = time.perf_counter()
-        for r in wave:
-            eng.submit(r)
+    if eager:
+        tag += ' eager'
+    with steps_mode(eager):
+        # warm-up (cuBLAS handles, allocator, graphs) with tokens no
+        # request shares
+        eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
         eng.run()
         if on_card:
             torch.cuda.synchronize()
-        waves.append(time.perf_counter() - t0)
-    dt = time.perf_counter() - t_all
+            torch.cuda.reset_peak_memory_stats()
+        if chaos is not None:
+            chaos.arm(eng)
+        steps0, drops0, cow0 = eng.steps, eng.moe_token_drops, eng.cow_copies
+        quantizer = count_calls(A, 'kv_values')
+        zero_launches()
+        spans = program_spans() if on_card else contextlib.nullcontext([])
+        with spans as events:
+            waves = []
+            t_all = time.perf_counter()
+            for wave in (reqs[:4], reqs[4:]):
+                t0 = time.perf_counter()
+                for r in wave:
+                    eng.submit(r)
+                eng.run()
+                if on_card:
+                    torch.cuda.synchronize()
+                waves.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t_all
     launches = read_launches()
-    eager.undo()
+    quantizer.undo()
     # the paged write quantizes inside fused_page_write: no eager
     # quantizer, one write launch a layer and a step
-    assert eager.calls == 0, f'{tag}: the eager quantizer ran {eager.calls}x'
+    assert quantizer.calls == 0, \
+        f'{tag}: the eager quantizer ran {quantizer.calls}x'
     assert not on_card or launches['fused_page_write'] == \
         (eng.steps - steps0) * cfg.num_layers, launches
     for r in reqs:
@@ -3087,7 +3296,8 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
         f'{[round(w, 3) for w in waves]}; mean TTFT without a hit (wave 1) '
         f'{np.mean(ttft[0]):.3f}s, with a hit (wave 2) {np.mean(ttft[1]):.3f}s'
-        f'; peak memory {peak:.2f} GiB')
+        f'; peak memory {peak:.2f} GiB'
+        + ('; ' + span_text(events, dt, steps) if on_card else ''))
     log(f'[{tag}] prefix hits {stats["prefix_hits"]}, misses '
         f'{stats["prefix_misses"]}, hit tokens {stats["prefix_hit_tokens"]} '
         f'(per request {[r.prefix_hit_tokens for r in reqs]}), copy-on-write '
@@ -3096,6 +3306,15 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
         f'{eng.moe_token_drops - drops0}')
     if inspect is not None:
         inspect(eng, reqs, steps, dt)
+    digest = None
+    if eager or expect is not None:
+        with steps_mode(eager):
+            scores = eng.score([reqs[0].prompt[:100]])
+        digest = replay_digest(eng, [r.generated for r in reqs], scores)
+        if expect is not None:
+            check_replay(f'[{tag}]', eng, digest, expect)
+    if on_card:
+        log_programs(f'[{tag}]', eng)
     log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
         f'({attn_kernel}: {shards * cfg.num_layers} a step, one gather a '
         f'step, cow_page_copy {launches["cow_page_copy"]} for '
@@ -3112,8 +3331,9 @@ def serve_waves(model, params, table, tag, attn_kernel, kv_quant, system,
                                             tails=(50, 17, 90, 33)),
                           spans=() if mesh is None else ('_rep_in',
                                                          '_shard_out')) \
-        if on_card and profile else {}
-    return launches, [r.generated for r in reqs], nbytes(*leaves), prof
+        if on_card and profile and not eager else {}
+    return launches, [r.generated for r in reqs], nbytes(*leaves), prof, \
+        digest
 
 
 # Phase 5's fault script, in ticks and steps after the warm-up: a steal at
@@ -3189,6 +3409,64 @@ def check_pool_whole(eng, tag) -> None:
         f'{kv.num_pages - 1} usable pages of {kv.num_pages}')
 
 
+# the wide engine's pool: phase 5's default for 4 slots, held by the 8-slot
+# engine it is compared with too
+WIDE_SLOTS, WIDE_PAGES = 64, 1537
+
+
+def check_wide_engine(model, params, table, tag, warm, reqs, dtype) -> None:
+    """The 8 requests of the waves submitted at once to an 8-slot engine
+    and to a ``WIDE_SLOTS``-slot one, both on a pool of ``WIDE_PAGES``
+    pages: no slot above 7 is ever active, so every dispatch of the wide
+    engine runs at bucket 8 (its programs' keys), and its greedy tokens
+    and lane counts equal the 8-slot engine's, bitwise."""
+    cfg = model.cfg
+    out = {}
+    for slots in (8, WIDE_SLOTS):
+        eng = ServingEngine(model, params, max_slots=slots, max_seq=GLM_SEQ,
+                            precomputed=table, seed=SEED, dtype=dtype,
+                            chunk_size=16, fused_gather_rope=True,
+                            prefix_cache=True, page_size=GLM_PS,
+                            num_pages=WIDE_PAGES, attn_backend='cuda',
+                            device='cuda')
+        eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
+        eng.run()
+        run = [Request(uid=r.uid, prompt=r.prompt,
+                       max_new_tokens=r.max_new_tokens) for r in reqs]
+        torch.cuda.synchronize()
+        steps0 = eng.steps
+        zero_launches()
+        t0 = time.perf_counter()
+        for r in run:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        steps = eng.steps - steps0
+        assert all(r.status is RequestStatus.FINISHED for r in run), \
+            [(r.uid, r.status, r.error) for r in run]
+        assert {k[1] for k in eng.programs} == {8}, sorted(eng.programs)
+        assert launches['paged_attention'] == cfg.num_layers * steps \
+            == launches['fused_page_write'], (launches, steps)
+        stats = eng.stats(run)
+        out[slots] = ([r.generated for r in run], stats['lanes_dispatched'],
+                      stats['lane_tokens'])
+        log(f'[{tag}_wide] {slots} slots, {WIDE_PAGES} pages, the 8 requests '
+            f'at once: {stats["tokens"]} new tokens in {dt:.3f}s -> '
+            f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
+            f'({dt / steps * 1e3:.2f} ms/step); programs '
+            f'{sorted(eng.programs)}; lanes dispatched '
+            f'{stats["lanes_dispatched"]} for {stats["lane_tokens"]} tokens')
+        del eng
+        free()
+    assert out[WIDE_SLOTS] == out[8], \
+        f'{tag}_wide: the {WIDE_SLOTS}-slot engine differs from the 8-slot one'
+    log(f'[{tag}_wide] {WIDE_SLOTS} slots: every dispatch at bucket 8; '
+        f'greedy tokens ({sum(map(len, out[8][0]))}) and lane counts bitwise '
+        'the 8-slot engine\'s')
+
+
 def observe_waves(model, params, table, tag, attn_kernel, system, warm,
                   reqs, rng, device, dtype, base) -> dict:
     """The waves of ``tag``'s run again on the same weights, five times.
@@ -3239,10 +3517,12 @@ def observe_waves(model, params, table, tag, attn_kernel, system, warm,
         f'with telemetry {np.mean(ms[True]):.2f}, without '
         f'{np.mean(ms[False]):.2f}')
     for kind, row in sorted(phases.items()):
+        share = row['dispatch'][1] / sum(v[1] for v in row.values())
         log(f'[{t_tag}] {kind:7s} host ms mean / p50 / p99 (steps): '
             + '; '.join(f'{ph} {m:.3f} / {p50:.3f} / {p99:.3f}'
                         for ph, (_, m, p50, p99) in row.items())
-            + f' ({next(iter(row.values()))[0]})')
+            + f' ({next(iter(row.values()))[0]}); dispatch {share:.3f} of '
+            'the mean step')
     log(f'[{t_tag}] phases json {json.dumps(phases)}')
 
     c_tag = tag + '_chaos'
@@ -3380,9 +3660,13 @@ def phase_pythia(rows) -> dict:
     system = rng.integers(3, cfg.vocab_size, size=256).astype(np.int32)
     reqs = glm_requests(cfg, rng, system, 0)
     warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
-    launches, _, pool_bytes, _ = serve_waves(
+    want = serve_waves(model, params, table, 'pythia_paged',
+                       'paged_attention', False, system, warm, reqs, rng,
+                       'cuda', torch.bfloat16, eager=True)[4]
+    launches, _, pool_bytes, *_ = serve_waves(
         model, params, table, 'pythia_paged', 'paged_attention', False,
-        system, warm, reqs, rng, 'cuda', torch.bfloat16)
+        system, warm, reqs, rng, 'cuda', torch.bfloat16, expect=want)
+    del want
     assert launches['rmsnorm_matmul'] == 0, launches
     log(f'[pythia_paged] KV pool {pool_bytes / 2**30:.2f} GiB at rest beside '
         f'{tree_bytes(params) / 2**30:.2f} GiB of weights and a '
@@ -3700,7 +3984,8 @@ def main() -> None:
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
                               'paged_attention', int8=True, rows=rows,
-                              apply_seq=4096, mesh_spec='2x2', observe=True))
+                              apply_seq=4096, mesh_spec='2x2', observe=True,
+                              wide=True))
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
                               'paged_attention_mla'))

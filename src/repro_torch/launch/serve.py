@@ -18,6 +18,8 @@ paged KV pool with the prefix cache).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch glm4-9b --prefix-cache --metrics-out m.prom \
         --trace-out trace.json                      # telemetry exports
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+        --prefix-cache --max-slots 256 --requests 3  # a wide engine
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -50,6 +52,13 @@ def main() -> None:
                     help='torch device to serve on ("cuda" or "cpu")')
     ap.add_argument('--requests', type=int, default=8)
     ap.add_argument('--slots', type=int, default=4)
+    ap.add_argument('--max-slots', type=int, default=0,
+                    help='override the engine slot count (0 = --slots). '
+                         'Large values are cheap to hold: dispatches are '
+                         'sliced to the smallest power-of-two bucket '
+                         'covering the active slots, so a 256-slot engine '
+                         'serving 3 requests runs an 8-wide step (one CUDA '
+                         'graph per step shape on the card)')
     ap.add_argument('--new-tokens', type=int, default=24)
     ap.add_argument('--max-seq', type=int, default=256)
     ap.add_argument('--temperature', type=float, default=0.0)
@@ -130,7 +139,8 @@ def main() -> None:
         print(f'precomputed table: {tuple(table.table.shape)} '
               f'({table.table.numel() * table.table.element_size() / 2**20:.1f}'
               f' MiB) built in {time.time() - t0:.2f}s')
-    eng = ServingEngine(model, params, max_slots=args.slots,
+    eng = ServingEngine(model, params,
+                        max_slots=args.max_slots or args.slots,
                         max_seq=args.max_seq, precomputed=table,
                         seed=args.seed, chunk_size=args.chunk_size,
                         fused_gather_rope=args.fused_gather_rope,
@@ -200,6 +210,9 @@ def main() -> None:
           f'{stats["failed"]} failed, {stats["cancelled"]} cancelled, '
           f'{stats["deadline_exceeded"]} deadline-exceeded, '
           f'{report["stalled"]} stalled')
+    print(f'{eng.max_slots} slots; step programs (path, slot bucket, T, '
+          f'logits): {sorted(eng.programs)}'
+          + (' as CUDA graphs' if eng._graphs else ''))
     if eng.paged:
         print(f'prefix cache: {stats["prefix_hits"]} hits / '
               f'{stats["prefix_misses"]} misses '

@@ -104,28 +104,31 @@ dispatching tick is split into five host-side phases, observed into the
   building and preemption, with the radix time subtracted;
 - ``radix_lookup``: time inside ``PrefixCache.match`` during this tick's
   admissions (a tick that admits but dispatches nothing drops it);
-- ``pack_layout``: temperatures, positions and tokens staged to the
-  device, the page tables and job lists (``_paged_host``,
-  ``_page_tables``);
-- ``dispatch``: the ``_forward`` call. Under a mesh it also holds the
-  tick's gather (``_rep_in``) before the body and split (``_shard_out``)
-  after it, which the JAX engine runs inside its jitted step (a scoring
-  run gathers once for all its ticks: that gather is charged to no
-  phase);
+- ``pack_layout``: the bucket's temperatures, positions, tokens, page
+  tables and job lists (``_step_arrays``, ``_paged_host``) staged into the
+  step program's static input buffer (one host-to-device copy);
+- ``dispatch``: the program's run: a CUDA graph's replay, or on a key's
+  first step its eager run and its capture (as JAX's first call of a shape
+  compiles inside its dispatch), or the eager forward. Under a mesh it
+  also holds the tick's gather (``_rep_in``) before the body and split
+  (``_shard_out``) after it, which the JAX engine runs inside its jitted
+  step (a scoring run gathers once for all its ticks: that gather is
+  charged to no phase);
 - ``sample_commit``: ``_commit``, whose ``.cpu()`` of the sampled tokens
   is where the host waits for the device.
 
 Telemetry adds no device synchronisation: no ``.cpu()``, ``.item()`` or
 ``torch.cuda.synchronize()``, only host clock reads. PyTorch launches
 kernels asynchronously, so on a CUDA device ``dispatch`` is the host's
-cost of enqueueing the forward's kernels, not their device time, and the
-device's time lands in ``sample_commit``. Enabled engines also register
-``engine.queue.depth`` (a callback gauge), ``request.latency_s`` /
-``request.ttft_s`` (observed at termination), the ``cow_copies`` counter
-and the pool's gauges (``PrefixCache.bind_telemetry``), and record per-uid
-spans (SUBMIT, ADMIT / RESUME with ``prefix_hit_tokens``, PREFILL_CHUNK per
-dispatch, FIRST_TOKEN, DECODE_STEP, PREEMPT, COW, FINISH / FAIL / CANCEL)
-and engine-global events (EVICT, the ``FAULT_*`` injections) at the JAX
+cost of enqueueing the forward's kernels (or its graph), not their device
+time, and the device's time lands in ``sample_commit``. Enabled engines
+also register ``engine.queue.depth`` (a callback gauge),
+``request.latency_s`` / ``request.ttft_s`` (observed at termination), the
+``cow_copies`` counter and the pool's gauges
+(``PrefixCache.bind_telemetry``), and record per-uid spans (SUBMIT, ADMIT
+/ RESUME with ``prefix_hit_tokens``, PREFILL_CHUNK per dispatch,
+FIRST_TOKEN, DECODE_STEP, PREEMPT, COW, FINISH / FAIL / CANCEL) and
+engine-global events (EVICT, the ``FAULT_*`` injections) at the JAX
 engine's sites. Disabled telemetry costs nothing: every site is guarded by
 the one ``enabled`` bool of the shared ``NULL_TELEMETRY``, with no clock
 read and no allocation per step. Tokens are bitwise the same either way.
@@ -154,31 +157,54 @@ stays on: it runs on the gathered pool on the primary device. The engine's
 there. Each tick copies the whole pool twice, and each layer's kv-head
 slices once more: a faithful port of the layout, not a fast one.
 
+**Slot buckets and per-step programs** (JAX's ``_bucket``,
+``_slice_states`` and ``_build_programs``): each dispatch runs at the
+smallest power-of-two bucket of slots, floor 8, that covers the highest
+active slot, capped at ``max_slots`` (an engine of at most 8 slots always
+runs full width). Tokens, positions, ``n_valid`` / ``lane_valid``,
+temperatures and the page tables are cut to the bucket, and so are the
+per-slot state leaves, as views (``_bucket_states``; pool leaves pass
+whole), so a 256-slot engine serving 3 requests runs 8-wide steps and
+``lanes_dispatched`` counts the bucket's lanes. Each step shape ``(path,
+nb, T, want_logits)`` has a ``serving.programs.StepProgram`` (in
+``self.programs``) with static input and output buffers. On a CUDA device
+with the ``cuda`` backend and no mesh it captures its forward into a CUDA
+graph on the shape's first step and replays it after; all programs of an
+engine share one graph memory pool. Under a mesh (its gathered leaves are
+new every tick) and with the ``reference`` backend on a card (its paged
+write indexes by a boolean mask: a shape that depends on the data) every
+step runs eagerly, as on the CPU; so does every step inside
+``_eager_steps()``, the counterpart of ``jax.disable_jit()`` for tests and
+``chip_smoke.py``. A failed capture or replay raises. The deferred clears
+ride into a step as a fixed-width array of ``_pending_cap`` (64) page ids,
+zero-padded (page 0 is the null page, whose clear is a no-op); a tick that
+queues more flushes them eagerly, as JAX does.
+
 Not ported yet, and rejected with ``NotImplementedError``: the dense
 engine under a mesh, the async host loop and segment-packed prefill.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import functools
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.launch.mesh import make_serving_mesh, resolve_device
-from repro_torch.models.attention import PageTables, cache_len
+from repro_torch.models.attention import cache_len
 from repro_torch.models.attn_backend import CudaBackend, get_backend
 from repro_torch.models.blocks import ATTN_KINDS, kind_window
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
-                                            lm_logits)
+from repro_torch.models.transformer import fused_rope_eligible, layer_plan
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvpool import PrefixCache
-from repro_torch.serving.sampler import sample_tokens
+from repro_torch.serving.programs import CHUNK, STEP, StepProgram
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.telemetry import Histogram, latency_summary
 from repro_torch.sharding import (gather_leaf, leaf_axes, shard_leaf,
@@ -294,19 +320,22 @@ def _on_full_states(method):
     return run
 
 
-def _stage(arrays: Sequence[np.ndarray], device: torch.device
-           ) -> List[torch.Tensor]:
-    """Copy int32 host arrays to ``device`` in one transfer; returns views
-    of the copy with each array's shape."""
-    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                           for a in arrays])
-    buf = torch.from_numpy(flat).to(device)
-    out, off = [], 0
-    for a in arrays:
-        n = int(np.prod(a.shape))
-        out.append(buf[off:off + n].view(a.shape))
-        off += n
-    return out
+# > 0 inside _eager_steps(): every step runs eagerly
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def _eager_steps():
+    """Run every engine step inside the block eagerly: programs neither
+    capture nor replay a CUDA graph (the counterpart of
+    ``jax.disable_jit()``; tests and ``chip_smoke.py`` hold replays against
+    it)."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
 
 
 class ServingEngine:
@@ -477,6 +506,9 @@ class ServingEngine:
         # PageTables.pending, where every layer's fused write clears them
         self._fused_maint = self.paged and self.attn_backend.fused_maintenance
         self._pending_clear: List[int] = []
+        # the width of the pending array a step takes (a fixed shape);
+        # past it _alloc_pages clears eagerly
+        self._pending_cap = 64
         if self.paged:
             self._pt = np.zeros((max_slots, self._pages_lin), np.int32)
             self._rt = np.zeros((max_slots, max(self._pages_ring, 1)),
@@ -486,6 +518,15 @@ class ServingEngine:
             self.slot_priv: List[List[int]] = [[] for _ in range(max_slots)]
             self.slot_ring: List[List[int]] = [[] for _ in range(max_slots)]
             self.slot_insert_at = np.full(max_slots, -1, np.int64)
+
+        # ------------------------------------------------ per-step programs
+        # one StepProgram per (path, nb, T, want_logits); CUDA graphs on a
+        # CUDA device with the cuda backend and no mesh, in one shared pool
+        self.programs: Dict[tuple, StepProgram] = {}
+        self._graphs = self.device.type == 'cuda' and self.mesh is None \
+            and self.attn_backend.name == 'cuda'
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._graphs \
+            else None
 
     # ------------------------------------------------------ state layout
     def _layers(self, states):
@@ -536,6 +577,34 @@ class ServingEngine:
                       for layer, lmask, stacked in self._layers({part: st})]
             out[part] = layers if isinstance(st, list) else layers[0]
         return out
+
+    # -------------------------------------------------------- slot buckets
+    def _bucket(self, active: List[int]) -> int:
+        """Power-of-two slot-count bucket covering the highest active slot
+        (floor 8, capped at max_slots), as JAX's. Engines with max_slots
+        <= 8 always run the full width."""
+        S = self.max_slots
+        if S <= 8 or not active:
+            return S
+        nb = 8
+        hi = max(active) + 1
+        while nb < hi:
+            nb *= 2
+        return min(nb, S)
+
+    def _bucket_states(self, nb: int):
+        """The states a step of bucket ``nb`` runs on (JAX's
+        ``_slice_states``): every per-slot leaf cut to its first ``nb``
+        slots (``leaf[:, :nb]`` for the ``body`` leaves stacked over
+        layers; each layer's ``leaf[r, :nb]`` is contiguous), pool leaves
+        whole. Views: the forward writes the caches in place, so its writes
+        land in the full leaves and JAX's ``_merge_states`` has no
+        counterpart."""
+        if nb == self.max_slots:
+            return self.states
+        return self._map_states(
+            self.states, lambda leaf, _nm, stacked, pooled:
+            leaf if pooled else leaf[:, :nb] if stacked else leaf[:nb])
 
     def _rep_in(self, states):
         """Gather every leaf at rest (``sharding.ShardedLeaf``) into the
@@ -708,10 +777,20 @@ class ServingEngine:
 
     def _flush_pending(self) -> None:
         """Clear the deferred pages eagerly: needed before a snapshot
-        capture reads raw page contents."""
+        capture reads raw page contents, and when the list outgrows the
+        fixed-width array a step takes."""
         if self._pending_clear:
             self._clear_pages(self._pending_clear)
             self._pending_clear = []
+
+    def _pending_array(self) -> np.ndarray:
+        """The deferred clears as the (``_pending_cap``,) int32 array a
+        step takes, zero-padded: page 0 is the null page, so a padding
+        entry is the no-op clear of ``build_jobs``."""
+        arr = np.zeros(self._pending_cap, np.int32)
+        ids = self._pending_clear[:self._pending_cap]
+        arr[:len(ids)] = ids
+        return arr
 
     def _capture(self, slot: int) -> List[torch.Tensor]:
         """Snapshot of what a shared-page attach cannot restore: every pool
@@ -745,6 +824,8 @@ class ServingEngine:
             # dispatch as PageTables.pending, where every layer's fused
             # write folds the clear into first-write masking (or a clear job)
             self._pending_clear.extend(pages)
+            if len(self._pending_clear) > self._pending_cap:
+                self._flush_pending()       # past the fixed width: eagerly
         else:
             self._clear_pages(pages)
         return pages
@@ -1081,95 +1162,56 @@ class ServingEngine:
         if rec is not None:
             self._commit(*rec)
 
-    def _stage_inputs(self, tokens: np.ndarray,
-                      n_valid: Optional[np.ndarray]) -> dict:
-        """The step's inputs on the device, in one host-to-device copy:
-        tokens, positions and lane validity (the one-token path) or
-        ``n_valid`` and, paged, the page tables and job lists."""
-        dev = self.device
-        pos_np = self.slot_pos.astype(np.int32)
+    def _step_arrays(self, tokens: np.ndarray, n_valid: Optional[np.ndarray],
+                     temps: np.ndarray) -> Dict[str, np.ndarray]:
+        """The step's inputs on the host, at the bucket's width (the rows of
+        ``tokens``): tokens, positions, lane validity (the one-token path)
+        or ``n_valid`` and, paged, the page tables and job lists, and the
+        temperatures."""
+        nb = tokens.shape[0]
+        pos = self.slot_pos[:nb].astype(np.int32)
         if n_valid is None:
-            live = np.array([r is not None for r in self.slot_req], np.int32)
-            tok, pos, lane_valid = _stage([tokens, pos_np, live], dev)
-            return dict(tokens=tok, pos=pos, lane_valid=lane_valid.bool())
-        host = [tokens, pos_np, n_valid]
+            live = np.array([r is not None for r in self.slot_req[:nb]],
+                            np.int32)
+            return dict(tokens=tokens, pos=pos, lane_valid=live, temps=temps)
+        out = dict(tokens=tokens, pos=pos, n_valid=n_valid, temps=temps)
         if self.paged:
-            host += self._paged_host(pos_np, n_valid, tokens.shape[1])
-        staged = _stage(host, dev)
-        out = dict(tokens=staged[0], pos=staged[1], n_valid=staged[2])
-        if self.paged:
-            out['paged'] = self._page_tables(staged[3:])
+            out.update(self._paged_host(pos, n_valid, tokens.shape[1]))
         return out
-
-    @torch.no_grad()
-    def _forward(self, inputs: dict, temps: torch.Tensor, want_logits: bool):
-        """Run one step on the device from ``_stage_inputs``'s tensors ->
-        (sampled tokens (B,), per-lane finiteness (B,), all-lane logits
-        (B, T, V) or None, MoE dropped token slots (device scalar))."""
-        dev, cfg = self.device, self.model.cfg
-        kw = dict(precomputed=self.precomputed, return_stats=True,
-                  attn_backend=self.attn_backend)
-        if 'lane_valid' in inputs:
-            logits, _, st = self.model.decode_step(
-                self.params, inputs['tokens'], self.states, inputs['pos'],
-                lane_valid=inputs['lane_valid'], **kw)            # (B,1,V)
-            all_logits = logits if want_logits else None
-        else:
-            nv = inputs['n_valid']
-            if self.paged:
-                kw['paged'] = inputs['paged']
-            h, _, st = self.model.decode_step(
-                self.params, inputs['tokens'], self.states, inputs['pos'],
-                n_valid=nv, return_hidden=True,
-                fused_gather_rope=self.fused_gather_rope, **kw)
-            # head only on each slot's last valid lane, not all T lanes
-            last = (nv.long() - 1).clamp(min=0)
-            h_last = h[torch.arange(h.shape[0], device=dev), last][:, None]
-            logits = lm_logits(self.params, h_last, cfg)          # (B,1,V)
-            all_logits = lm_logits(self.params, h, cfg) if want_logits \
-                else None
-        nxt = sample_tokens(logits[:, 0], self.generator, temps)
-        finite = torch.isfinite(logits).all(dim=2).all(dim=1)
-        return nxt, finite, all_logits, st['moe_drops']
 
     def _paged_host(self, pos: np.ndarray, n_valid: np.ndarray,
-                    T: int) -> List[np.ndarray]:
-        """The step's page-table inputs on the host: the linear and ring
-        tables and, with fused maintenance, the pending clears, the chunk
-        positions and a job list for each table that a layer writes through
-        (built once here and shared by the layers of that table). Each list
-        carries the whole pending list: every layer clears the pending
-        pages of its own pool."""
-        tables = [self._pt, self._rt]
+                    T: int) -> Dict[str, np.ndarray]:
+        """The step's page-table inputs on the host: the bucket's rows of
+        the linear and ring tables and, with fused maintenance, the pending
+        array (``_pending_array``), the chunk positions and a job list for
+        each table that a layer writes through (built once here and shared
+        by the layers of that table). Each list carries the whole pending
+        array: every layer clears the pending pages of its own pool."""
+        nb = len(pos)
+        pt, rt = self._pt[:nb], self._rt[:nb]
+        out = dict(pt=pt, rt=rt)
         if not self._fused_maint:
-            return tables
-        pending = np.asarray(self._pending_clear, np.int32)
-        pos_t = PM.chunk_positions(torch.from_numpy(pos), T)
-        out = tables + [pending, pos_t.numpy()]
-        for used, table, Sc in ((self._lin_layers, self._pt, self.max_seq),
-                                (self._ring_layers, self._rt, self._sc_ring)):
+            return out
+        pending = self._pending_array()
+        out.update(pending=pending, pos_t=PM.chunk_positions(
+            torch.from_numpy(pos), T).numpy())
+        for name, used, table, Sc in (
+                ('jobs', self._lin_layers, pt, self.max_seq),
+                ('ring_jobs', self._ring_layers, rt, self._sc_ring)):
             if used:
-                out.append(PM.build_jobs(
+                out[name] = PM.build_jobs(
                     torch.from_numpy(pos), torch.from_numpy(n_valid),
                     torch.from_numpy(table), Sc, self.page_size, T,
-                    torch.from_numpy(pending)).numpy())
+                    torch.from_numpy(pending)).numpy()
         return out
 
-    def _page_tables(self, staged: List[torch.Tensor]) -> PageTables:
-        pt, rt = staged[:2]
-        if not self._fused_maint:
-            return PageTables(pt, rt, self._sc_ring)
-        pending, pos_t, *lists = staged[2:]
-        jobs = [(lists.pop(0), pos_t) if used else None
-                for used in (self._lin_layers, self._ring_layers)]
-        return PageTables(pt, rt, self._sc_ring, pending, *jobs)
-
     def _dispatch(self, t0: float, obs: bool):
-        """Build this tick's lanes, stage them and run the forward; advance
-        the slots' positions. -> the commit record (sampled tokens,
-        finiteness, logits, MoE drops, lanes, step index, and with ``obs``
-        the step kind and its first four phase seconds), or None when
-        nothing was dispatched."""
+        """Build this tick's lanes, cut them to the slot bucket, stage them
+        into the step shape's program and run it; advance the slots'
+        positions. -> the commit record (sampled tokens, finiteness, logits
+        and MoE drops, bucket-wide; lanes, step index, and with ``obs`` the
+        step kind and its first four phase seconds), or None when nothing
+        was dispatched."""
         tel = self.telemetry
         active = [s for s in range(self.max_slots)
                   if self.slot_req[s] is not None]
@@ -1221,12 +1263,8 @@ class ServingEngine:
                 if not self.paged:
                     n_valid = None
                 tokens = tokens[:, :1]
-            if n_valid is not None:
-                self.lanes_dispatched += int(tokens.size)
-                self.lane_tokens += int(n_valid.sum())
-                consumed = n_valid
-            else:
-                consumed = np.ones(self.max_slots, np.int32)
+            consumed = n_valid if n_valid is not None \
+                else np.ones(self.max_slots, np.int32)
         else:
             tokens = self.slot_next_tok[:, None].copy()
             n_valid = None
@@ -1249,13 +1287,26 @@ class ServingEngine:
             self.slot_req[s].return_logits
             and int(self.slot_pos[s]) < len(self.slot_stream[s])
             for s in active)
-        temps = torch.tensor(
-            [(r.temperature if r is not None else 0.0) for r in self.slot_req],
-            dtype=torch.float32, device=self.device)
-        inputs = self._stage_inputs(tokens, n_valid)
+        # the slot bucket: every lane at or past nb is empty
+        nb = self._bucket(active)
+        tokens = tokens[:nb]
+        if n_valid is not None:
+            n_valid = n_valid[:nb]
+            self.lanes_dispatched += int(tokens.size)
+            self.lane_tokens += int(n_valid.sum())
+        temps = np.array([(r.temperature if r is not None else 0.0)
+                          for r in self.slot_req[:nb]], np.float32)
+        arrays = self._step_arrays(tokens, n_valid, temps)
+        key = (STEP if n_valid is None else CHUNK, nb, tokens.shape[1],
+               want_logits)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = StepProgram(self, key, arrays)
+        prog.stage(arrays)
         if obs:
             t2 = tel.now()
-        nxt, finite, logits, drops = self._forward(inputs, temps, want_logits)
+        nxt, finite, logits, drops = prog.run(self._graphs
+                                              and not _eager_depth)
         times = None
         if obs:
             t3 = tel.now()

@@ -1,12 +1,15 @@
 """Engine scenarios of the port shared by its CPU tests and their
 ``cuda``-marked twins; imports nothing of JAX, so the twins run on a card
 where only the port is installed."""
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.serving.engine import Request, RequestStatus, ServingEngine
+from repro_torch.serving.engine import (Request, RequestStatus, ServingEngine,
+                                        _eager_steps)
 
 
 def paged_gqa_config() -> ModelConfig:
@@ -67,6 +70,45 @@ def cow_retaken_run(device, backend, kv_quant):
         return ok
     eng._admit_paged = spy
     return _serve(eng, prompts), _serve(engine(), prompts), seen
+
+
+def replay_vs_eager_run(device):
+    """A 16-slot paged engine (``paged-gqa``, fp32, page 4, chunk 4, the
+    ``cuda`` backend) twice: as it runs, and inside ``_eager_steps()``. Two
+    waves of 3 requests (the second holds a prefix hit and a prompt that
+    stops inside a cached page: a copy-on-write), then ``score()`` of one
+    prompt; every dispatch is at bucket 8. On a card the first engine's
+    programs capture CUDA graphs and replay them. -> (outcome, the eager
+    engine's outcome, {'buckets', 'graphs', 'replays'} of the first
+    engine's programs); an outcome is the greedy tokens, the score logits'
+    bytes and every pool leaf's bytes, so ``==`` compares them bitwise."""
+    model = Model(paged_gqa_config())
+    params = model.init(0, device=device, dtype=torch.float32)
+    rng = np.random.default_rng(13)
+    a, b, c = (rng.integers(3, 200, n).astype(np.int32) for n in (13, 9, 6))
+    waves = [[a, b, c], [np.concatenate([a, [5, 6]]).astype(np.int32),
+                         a[:10].copy(), b]]
+    scored = rng.integers(3, 200, 7).astype(np.int32)
+
+    def run(eager):
+        eng = ServingEngine(model, params, max_slots=16, max_seq=32,
+                            chunk_size=4, prefix_cache=True, page_size=4,
+                            attn_backend='cuda', dtype=torch.float32,
+                            device=device)
+        with _eager_steps() if eager else contextlib.nullcontext():
+            tokens = [_serve(eng, w) for w in waves]
+            logits = [x.tobytes() for x in eng.score([scored])]
+        assert eng.cow_copies > 0 and eng.kv.hits > 0
+        pools = [leaf.cpu().numpy().tobytes()
+                 for pool, _ in eng._pools for leaf in pool.values()]
+        return (tokens, logits, pools), eng
+
+    got, eng = run(False)
+    want, _ = run(True)
+    progs = eng.programs.values()
+    return got, want, {'buckets': {k[1] for k in eng.programs},
+                       'graphs': sum(p.graph is not None for p in progs),
+                       'replays': sum(p.replays for p in progs)}
 
 
 def oov_prompts(vocab: int, seed: int = 0):

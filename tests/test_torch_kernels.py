@@ -52,7 +52,8 @@ from repro_torch.kernels.rmsnorm_qkv import (rmsnorm_matmul,
 from repro_torch.models.attn_backend import KERNEL_TOL
 
 from _torch_scenarios import (clean_after_failed, cow_retaken_run,
-                              oov_prompts, quant_write_case, serve_outcomes)
+                              oov_prompts, quant_write_case,
+                              replay_vs_eager_run, serve_outcomes)
 
 
 @pytest.fixture(scope='module')
@@ -1116,3 +1117,15 @@ def test_cow_page_freed_and_retaken_in_one_pass_on_card(cuda, kv_quant):
     assert seen['cow'] and seen['page'] not in seen['after']
     assert seen['before'].count(seen['page']) == 1
     assert got == dense
+
+
+@pytest.mark.cuda
+def test_programs_replay_matches_eager_on_card(cuda):
+    """The twin of ``tests/test_torch_programs.py``'s scenario test: on the
+    card the 16-slot engine captures each step shape's CUDA graph and
+    replays it; greedy tokens, score logits and pools are bitwise those of
+    the engine that runs every step eagerly."""
+    got, want, info = replay_vs_eager_run('cuda')
+    assert info['buckets'] == {8}
+    assert info['graphs'] > 0 and info['replays'] > 0, info
+    assert got == want

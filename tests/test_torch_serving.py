@@ -194,7 +194,8 @@ def test_histogram_matches_jax_telemetry():
      '--chunk-size', '4', '--slots', '1'],
     ['--arch', 'glm4-9b', '--prefix-cache', '--page-size', '8',
      '--shared-prefix', '16', '--metrics-out', '{tmp}/m.prom',
-     '--trace-out', '{tmp}/t.json']])
+     '--trace-out', '{tmp}/t.json'],
+    ['--prefix-cache', '--page-size', '8', '--max-slots', '16']])
 def test_serve_cli_runs_on_cpu(monkeypatch, capsys, tmp_path, argv):
     """With ``--metrics-out`` / ``--trace-out`` (which imply
     ``--telemetry``) the registry is written as Prometheus text and the
@@ -211,6 +212,9 @@ def test_serve_cli_runs_on_cpu(monkeypatch, capsys, tmp_path, argv):
     assert ('fault tolerance: 0 preemptions, 0 failed, 0 cancelled, '
             '0 deadline-exceeded, 0 stalled' in out) \
         == ('--score' not in argv)
+    if '--max-slots' in argv:       # 16 slots, 2 requests: bucket 8
+        assert "16 slots; step programs (path, slot bucket, T, logits): " \
+            "[('chunk', 8, 1, False), ('chunk', 8, 16, False)]" in out
     if '--metrics-out' in argv:
         prom = (tmp_path / 'm.prom').read_text()
         assert 'engine_step_phase_s_count{backend="reference",' \
