@@ -103,7 +103,10 @@ Phases, in order; any failure raises and exits non-zero:
               ones (a prefix hit at its snapshot and a restore), 16 new
               tokens each; bf16, then an int8 pool: TTFT on a miss and on
               a hit, snapshot count and bytes, the device ms of a capture
-              and of a restore, cow_page_copy never launched.
+              and of a restore, cow_page_copy never launched; after the
+              bf16 run the chat again with the async double-buffered loop
+              (async_loop=True): the bf16 run's greedy tokens, and the
+              flushes at snapshot boundaries counted.
 5. glm4     — serves glm4-9b at full width through the paged KV pool and
               the radix prefix cache (bf16, seeded random weights,
               precomputed table, page 16, max_seq 2048, chunk 16, fused
@@ -135,11 +138,23 @@ Phases, in order; any failure raises and exits non-zero:
               step beside bf16's; on every paged run no call of the eager
               quantizer and fused_page_write once a layer and a step; then
               the layer-0 comparison (N 1, 4, 64, 4096) and Model.apply at
-              B 1, S 4096 as in phase 4.
+              B 1, S 4096 as in phase 4. Between the first run and the
+              telemetry turns, the two waves on fresh engines with
+              segment-packed prefill, the async loop and both, in turns
+              (sync, packed, async, both, async, sync) and once more async
+              with telemetry: greedy tokens equal to the synchronous
+              unpacked run's, score() logits bitwise or their largest
+              difference; ms/step, the programs' device span and idle
+              share, prefill_lane_utilization and lanes dispatched,
+              captures and replays, launches a step, and the overlap
+              fraction (overlap_s over the host's schedule, radix and
+              staging seconds).
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
               depth as phase 5 serves glm4-9b: paged pool, prefix cache,
               the MLA kernel on every attend; also logs the MoE drop
-              count.
+              count; then the waves unpacked and with segment-packed
+              prefill on fresh engines: greedy tokens and MoE drops
+              equal.
 7. pythia  — serves pythia-6.9b (the paper's parallel block: LayerNorm,
               MHA, a GELU MLP; the table's rows [s, q, k, v] carry layer
               0's FFN and skip too) at full width and depth on seeded random
@@ -174,6 +189,9 @@ Phases, in order; any failure raises and exits non-zero:
               caches ignore it); glm4-9b under 2x2 and 1x2 meshes and
               deepseek under 2x2 (MLA attends unsharded) give the dense
               reference's tokens through the copy-on-write and the
+              preemptions; with fp32 caches the paged cuda engines with
+              segment-packed prefill and the async loop give them too,
+              on 16 pages also under a page steal and on 12 through the
               preemptions.
 
 Every one-device engine run of phases 4-9 with the cuda backend steps
@@ -2527,6 +2545,18 @@ def phase_mistral_paged(model, params, table, device='cuda',
         del want
         if on_card:
             free()
+        if not kv_quant:
+            # the async loop through the snapshot hits: the synchronous
+            # run's tokens
+            run = 'mistral_paged_async'
+            out[run] = serve_ring(model, params, table, prompts, run, False,
+                                  device, async_loop=True)
+            assert out[run][1] == out['mistral_paged'][1], \
+                f'{run}: greedy tokens differ from [mistral_paged]'
+            log(f'[{run}] greedy tokens ({sum(map(len, out[run][1]))}) '
+                'equal to [mistral_paged]\'s')
+            if on_card:
+                free()
     log(f'[mistral_paged_int8] greedy tokens equal to the bf16 run\'s: '
         f'{token_share(out["mistral_paged_int8"][1], out["mistral_paged"][1])}'
         f' (reported, not checked); phase seconds (both runs) '
@@ -2579,7 +2609,7 @@ def calls_ms(fn, reps: int = 5) -> float:
 
 
 def serve_ring(model, params, table, prompts, tag, kv_quant, device,
-               eager: bool = False, expect=None):
+               eager: bool = False, expect=None, async_loop: bool = False):
     """One paged engine (ring pages with snapshots) over a two-turn chat,
     16 new tokens a request. Wave 1: ``prompts`` (every ring wraps in its
     prefill; each publishes a snapshot at ((P - 1) // 16) * 16). Wave 2:
@@ -2590,7 +2620,11 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
     and a step, one gather a step, cow_page_copy never), the hit tokens and
     that every request FINISHED with 16 tokens. ``eager`` / ``expect`` as
     in :func:`serve_dense` (an eager run also skips the snapshot timings).
-    -> (launches, greedy tokens of both waves, digest)."""
+    ``async_loop``: the engine runs the async double-buffered loop (no
+    timings, no profile) and the flushes at snapshot boundaries (a pending
+    lane's commit captures the ring before the slot's next chunk) are
+    counted and printed. -> (launches, greedy tokens of both waves,
+    digest)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
     attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
@@ -2600,9 +2634,19 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
                         dtype=next(iter(params['embed'].values())).dtype,
                         chunk_size=16, fused_gather_rope=True,
                         prefix_cache=True, page_size=RING_PS,
-                        kv_quant=kv_quant, attn_backend='cuda', device=device)
+                        kv_quant=kv_quant, attn_backend='cuda',
+                        async_loop=async_loop, device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint \
         and eng._needs_snapshot and not eng._lin_layers
+    flushes = []
+    if async_loop:
+        flush = eng._flush_async
+
+        def counted():
+            flushes.append(eng._pending is not None
+                           and eng._pending.needs_sync)
+            flush()
+        eng._flush_async = counted
     if cfg.window == get_config('mistral_7b').window:
         assert (eng._sc_ring, eng._pages_ring, eng.num_pages) == \
             ring_geometry(), (eng._sc_ring, eng._pages_ring, eng.num_pages)
@@ -2616,13 +2660,15 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
         tag += ' eager'
     warm = rng.integers(3, cfg.vocab_size, size=40).astype(np.int32)
     captures, restores = [], []
+    flushes0 = 0
     first = [Request(uid=i, prompt=p, max_new_tokens=16)
              for i, p in enumerate(prompts)]
     second = []
     with steps_mode(eager):
         eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
         eng.run()
-        timing = on_card and not eager
+        timing = on_card and not eager and not async_loop
+        flushes0 = sum(flushes)
         if timing:
             timed_calls(eng, '_capture', captures)
             timed_calls(eng, '_restore', restores)
@@ -2695,6 +2741,14 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
         f'preemptions {stats["preemptions"]}; snapshots held {n_snap} '
         f'({snap_bytes} bytes, {snap_bytes / max(n_snap, 1) / 2**30:.3f} GiB '
         'each)')
+    if async_loop:
+        n_flush = sum(flushes) - flushes0
+        assert n_flush > 0, 'no pending lane landed on a snapshot boundary'
+        log(f'[{tag}] async loop: {n_flush} flushes at snapshot boundaries '
+            f'in the waves (a pending lane\'s commit before the slot\'s next '
+            f'chunk); second turns hitting a snapshot '
+            f'{sum(r.prefix_hit_tokens > 0 for r in second)} of '
+            f'{len(second)}')
     tokens = [r.generated for r in reqs]
     if timing:
         for name in ('_capture', '_restore'):
@@ -3082,7 +3136,8 @@ def glm_requests(cfg, rng, system, uid0, tails=GLM_TAILS, new_tokens=16):
 def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
                 device='cuda', dtype=torch.bfloat16, rows=None,
                 apply_seq: int = 0, mesh_spec: str = '',
-                observe: bool = False, wide: bool = False) -> dict:
+                observe: bool = False, wide: bool = False,
+                modes=()) -> dict:
     """Serve ``cfg`` through the paged pool and the prefix cache: two waves
     of 4 requests sharing a 256-token system prompt (one copies on write),
     16 new tokens each; every attend goes through ``attn_kernel``. With
@@ -3094,7 +3149,9 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
     often as unsharded. With ``observe``, after the first run the same
     waves in turns without and with telemetry and then under a fault script
     (``observe_waves``), and with ``wide`` the waves on a 64-slot engine
-    (``check_wide_engine``). On the card each run without a mesh is held
+    (``check_wide_engine``). With ``modes``, the waves again on fresh
+    engines with segment-packed prefill and the async loop
+    (:func:`serve_modes`). On the card each run without a mesh is held
     against its eager twin (``serve_waves(eager=True)``, bitwise). With
     ``apply_seq``, then the layer-0 comparison
     and Model.apply at that S on the same weights. -> launches by run
@@ -3145,6 +3202,9 @@ def phase_paged(cfg, tag: str, attn_kernel: str, int8: bool = False,
         if run_tag == tag and wide:
             check_wide_engine(model, params, table, tag, warm, reqs, dtype)
             free()
+        if run_tag == tag and modes:
+            out.update(serve_modes(model, params, table, tag, warm, reqs,
+                                   dtype, modes, device))
         if run_tag == tag and observe:
             out.update(observe_waves(model, params, table, tag, attn_kernel,
                                      system, warm, reqs, rng, device, dtype,
@@ -3576,6 +3636,189 @@ def observe_waves(model, params, table, tag, attn_kernel, system, warm,
     return out
 
 
+# the engine options of each mode of serve_modes
+MODES = {'sync': {}, 'packed': dict(pack_prefill=True),
+         'async': dict(async_loop=True),
+         'both': dict(pack_prefill=True, async_loop=True)}
+# phase 5's modes, in turns (the synchronous unpacked run first and last),
+# then the async loop once more with telemetry (the overlap fraction)
+GLM_MODES = (('sync', False), ('packed', False), ('async', False),
+             ('both', False), ('async', False), ('sync', False),
+             ('async', True))
+
+
+@contextlib.contextmanager
+def program_runs(known):
+    """Like :func:`program_spans`, and each run also says whether it was
+    the first of its program (not in ``known``, the programs that ran
+    before: an eager forward and, on the card, the capture) and how many
+    host seconds it took. Yields the list of (start, end, first, host
+    seconds)."""
+    runs, seen = [], set(known)
+    run = StepProgram.run
+
+    def timed(prog, graphs):
+        first = prog not in seen
+        seen.add(prog)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = run(prog, graphs)
+        end.record()
+        runs.append((start, end, first, time.perf_counter() - t0))
+        return out
+    StepProgram.run = timed
+    try:
+        yield runs
+    finally:
+        StepProgram.run = run
+
+
+def phase_sums(eng) -> dict:
+    """(observations, seconds) of each step phase and of the async loop's
+    overlap, summed over step kinds."""
+    reg = eng.telemetry.registry
+    out = {}
+    for name, key in ((TM.STEP_PHASE, 'phase'), (TM.STEP_OVERLAP, None)):
+        for labels, h in reg.find(name).items():
+            ph = dict(labels)[key] if key else 'overlap'
+            n, t = out.get(ph, (0, 0.0))
+            out[ph] = (n + h.count, t + h.total)
+    return out
+
+
+def serve_modes(model, params, table, tag, warm, reqs, dtype, modes,
+                device='cuda') -> dict:
+    """The waves of ``tag``'s run on a fresh engine for each ``(mode,
+    telemetry)`` of ``modes`` (a key of :data:`MODES`): segment-packed
+    prefill, the async double-buffered loop, or both. The first is the
+    synchronous unpacked run the others are held against: greedy tokens
+    equal, MoE drops equal, and ``score()`` of the first request's first
+    100 tokens bitwise or its largest difference printed (a packed grid's
+    matmuls have other row counts, so cuBLAS may take other algorithms).
+    Each prints ms/step, the device span of the step programs a step and
+    the idle share outside them; ms/step and the span without the steps
+    that ran a program for the first time (its eager forward and capture:
+    their host seconds taken out of the wall time; in the async loop that
+    also takes out some of the previous step's device time, which a
+    capture waits for), ``prefill_lane_utilization`` and
+    ``lanes_dispatched`` over the waves, its programs' captures and
+    replays, launches per layer and step, and with telemetry the async
+    loop's overlap fraction: ``overlap_s`` over the host_schedule,
+    radix_lookup and pack_layout seconds of the waves. -> (launches,
+    greedy tokens) by run."""
+    cfg = model.cfg
+    attn = 'paged_attention_mla' if cfg.mla else 'paged_attention'
+    out, base, seen = {}, None, {}
+    for mode, telemetry in modes:
+        seen[mode] = seen.get(mode, 0) + 1
+        run_tag = f'{tag}_{mode}' + ('_telemetry' if telemetry else
+                                     f'_{seen[mode]}' if seen[mode] > 1
+                                     else '')
+        eng = ServingEngine(model, params, max_slots=GLM_SLOTS,
+                            max_seq=GLM_SEQ, precomputed=table, seed=SEED,
+                            dtype=dtype, chunk_size=16,
+                            fused_gather_rope=True, prefix_cache=True,
+                            page_size=GLM_PS, attn_backend='cuda',
+                            telemetry=telemetry, device=device,
+                            **MODES[mode])
+        assert eng._graphs == (device == 'cuda')
+        assert eng.pack_prefill == ('pack_prefill' in MODES[mode])
+        eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
+        eng.run()
+        run = [Request(uid=r.uid, prompt=r.prompt,
+                       max_new_tokens=r.max_new_tokens) for r in reqs]
+        torch.cuda.synchronize()
+        steps0, drops0 = eng.steps, eng.moe_token_drops
+        lanes0, tokens0 = eng.lanes_dispatched, eng.lane_tokens
+        sums0 = phase_sums(eng) if telemetry else {}
+        zero_launches()
+        with program_runs(eng.programs.values()) as runs:
+            t0 = time.perf_counter()
+            for wave in (run[:4], run[4:]):
+                for r in wave:
+                    eng.submit(r)
+                eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = read_launches()
+        events = [(a, b) for a, b, _, _ in runs]
+        later = [(a, b) for a, b, first, _ in runs if not first]
+        first_s = sum(h for _, _, first, h in runs if first)
+        later_ms = sum(a.elapsed_time(b) for a, b in later)
+        steady = (f'; without the {len(runs) - len(later)} first runs '
+                  f'({first_s * 1e3:.1f} host ms): '
+                  f'{(dt - first_s) / len(later) * 1e3:.2f} ms/step, device '
+                  f'span {later_ms / len(later):.3f} ms a step')
+        steps = eng.steps - steps0
+        assert eng._pending is None
+        for r in run:
+            assert r.status is RequestStatus.FINISHED, \
+                (run_tag, r.uid, r.status, r.error)
+            assert len(r.generated) == 16, (r.uid, len(r.generated))
+        lanes = eng.lanes_dispatched - lanes0
+        util = (eng.lane_tokens - tokens0) / lanes
+        drops = eng.moe_token_drops - drops0
+        overlap = ''
+        if telemetry:
+            sums = phase_sums(eng)
+            d = {k: (sums[k][0] - sums0.get(k, (0, 0.0))[0],
+                     sums[k][1] - sums0.get(k, (0, 0.0))[1]) for k in sums}
+            host = sum(d[ph][1] for ph in ('host_schedule', 'radix_lookup',
+                                           'pack_layout'))
+            if 'overlap' in d:
+                overlap = (f'; overlap fraction {d["overlap"][1] / host:.3f}'
+                           f' ({d["overlap"][0]} observations, '
+                           f'{d["overlap"][1] * 1e3:.1f} of '
+                           f'{host * 1e3:.1f} host ms of schedule, radix '
+                           f'and staging); host ms a step by phase '
+                           + json.dumps({ph: round(d[ph][1] / d[ph][0] * 1e3,
+                                                   3) for ph in TM.PHASES}))
+        scores = eng.score([run[0].prompt[:100]])[0]
+        tokens = [r.generated for r in run]
+        progs = list(eng.programs.values())
+        per_step = {name: round(launches[name] / steps, 3)
+                    for name in (attn, 'fused_page_write', 'gather_rope',
+                                 'embed_gather', 'cow_page_copy')}
+        assert device != 'cuda' or launches[attn] \
+            == launches['fused_page_write'] == cfg.num_layers * steps \
+            and launches['gather_rope'] + launches['embed_gather'] == steps, \
+            (launches, steps)
+        if base is None:
+            base = (tokens, scores, drops)
+            same = 'the reference run'
+        else:
+            assert tokens == base[0], \
+                f'{run_tag}: greedy tokens differ from [{tag}_sync]'
+            assert drops == base[2], (run_tag, drops, base[2])
+            bitwise = np.array_equal(scores.view(np.uint32),
+                                     base[1].view(np.uint32))
+            diff = float(np.abs(scores - base[1]).max())
+            same = (f'greedy tokens ({sum(map(len, tokens))}) equal to '
+                    f'[{tag}_sync]\'s, MoE drops equal ({drops}); score '
+                    f'logits {scores.shape} '
+                    + ('bitwise' if bitwise else
+                       f'not bitwise, largest difference {diff:.3e}'))
+        captures = [p.capture_ms for p in progs if p.graph is not None]
+        log(f'[{run_tag}] {mode}: {sum(map(len, tokens)) / dt:.1f} tok/s; '
+            f'{steps} steps ({dt / steps * 1e3:.2f} ms/step); '
+            + span_text(events, dt, steps) + steady
+            + f'; prefill_lane_utilization {util:.3f} ({lanes} lanes '
+            f'dispatched); {len(progs)} programs, {len(captures)} captures '
+            f'({sum(captures):.1f} ms), {sum(p.replays for p in progs)} '
+            f'replays; launches a step {json.dumps(per_step)}, a layer and '
+            f'a step {attn} {launches[attn] / steps / cfg.num_layers:.3f}, '
+            f'fused_page_write '
+            f'{launches["fused_page_write"] / steps / cfg.num_layers:.3f}'
+            + overlap + f'; {same}')
+        log_programs(f'[{run_tag}]', eng)
+        out[run_tag] = (launches, tokens)
+        del eng
+        free()
+    return out
+
+
 def state_leaves(states) -> list:
     return [leaf for st in states.values()
             for layer in (st if isinstance(st, list) else [st])
@@ -3875,14 +4118,14 @@ def consistency(kv_quant: bool, device) -> list:
             prompts = pressure_prompts(cfg, SEED + 3)
             prompts.append(prompts[0][:44].copy())  # stops inside a page
 
-        def serve(backend, num_pages, mesh=None):
+        def serve(backend, num_pages, mesh=None, **opts):
             kw = dict(prefix_cache=True, page_size=16, num_pages=num_pages) \
                 if num_pages else {}
             eng = ServingEngine(model, params, max_slots=3, max_seq=128,
                                 precomputed=table, seed=SEED, chunk_size=8,
                                 fused_gather_rope=True, attn_backend=backend,
                                 kv_quant=kv_quant, dtype=torch.float32,
-                                mesh=mesh, device=device, **kw)
+                                mesh=mesh, device=device, **kw, **opts)
             reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
                     for i, p in enumerate(prompts)]
             for r in reqs:
@@ -3902,6 +4145,20 @@ def consistency(kv_quant: bool, device) -> list:
                     'paged reference': serve('reference', num_pages),
                     'paged reference+kernel writes':
                         serve(ReferenceAttendKernelWrites(), num_pages)}
+            if not kv_quant:
+                # packed prefill and the async loop; on 16 pages also under
+                # a page steal (JAX's seeded schedule: 10 pages at tick 3,
+                # back at tick 9), on 12 through the preemptions
+                fast = dict(pack_prefill=True, async_loop=True)
+                runs['paged cuda async+packed'] = serve('cuda', num_pages,
+                                                        **fast)
+                if num_pages == 16:
+                    steal = ScriptedFaults(steal_pages={3: 10},
+                                           restore_pages_at=(9,))
+                    runs['paged cuda async+packed, steal'] = serve(
+                        'cuda', num_pages, fault_injector=steal, **fast)
+                    steal.release_stolen(runs[
+                        'paged cuda async+packed, steal'][1])
             for label, (tok, _) in runs.items():
                 assert tok == tokens, f'{label} ({num_pages} pages): tokens ' \
                     'differ from dense reference'
@@ -3911,6 +4168,17 @@ def consistency(kv_quant: bool, device) -> list:
                                             else eng.cow_copies > 0)
             else:
                 assert eng.preemptions > 0
+            fast = {label: (e.preemptions, e.kv.hits, sorted(
+                k for k in e.programs if k[0] == 'packed'))
+                for label, (_, e) in runs.items() if 'async' in label}
+            if fast:
+                assert num_pages == 16 or all(
+                    p > 0 for p, _, _ in fast.values()), fast
+                log(f'{tag} {cfg.name} fp32 paged, {num_pages} pages: '
+                    + '; '.join(f'{label}: greedy tokens of the dense '
+                                f'reference, {p} preemptions, {h} prefix '
+                                f'hits, packed programs {keys}'
+                                for label, (p, h, keys) in fast.items()))
             plain = runs['paged reference'][1]._pools
             for label, every_leaf in (('paged reference+kernel writes', True),
                                       ('paged cuda', False)):
@@ -3985,10 +4253,11 @@ def main() -> None:
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
                               'paged_attention', int8=True, rows=rows,
                               apply_seq=4096, mesh_spec='2x2', observe=True,
-                              wide=True))
+                              wide=True, modes=GLM_MODES))
     free()
     phases.update(phase_paged(get_config(DS), 'deepseek',
-                              'paged_attention_mla'))
+                              'paged_attention_mla',
+                              modes=(('sync', False), ('packed', False))))
     free()
     phases.update(phase_pythia(rows))
     free()

@@ -20,6 +20,8 @@ paged KV pool with the prefix cache).
         --trace-out trace.json                      # telemetry exports
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --prefix-cache --max-slots 256 --requests 3  # a wide engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --prefix-cache --async-loop                 # the async host loop
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
@@ -118,6 +120,10 @@ def main() -> None:
     ap.add_argument('--trace-out', default='',
                     help='write request spans as Chrome trace-event JSON '
                          '(chrome://tracing / Perfetto)')
+    ap.add_argument('--async-loop', action='store_true',
+                    help='async double-buffered host loop: schedule step '
+                         'N+1 while step N runs (one-step sampling lag; '
+                         'greedy tokens identical; not with --mesh)')
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
     want_telemetry = bool(args.telemetry or args.metrics_out
@@ -149,12 +155,15 @@ def main() -> None:
                         num_pages=args.num_pages or None,
                         attn_backend=args.attn_backend, mesh=mesh,
                         telemetry=want_telemetry,
+                        async_loop=args.async_loop,
                         dtype=getattr(torch, cfg.dtype), device=args.device)
     if eng.mesh is not None:
         p, h = eng.mesh.shape
         devs = [str(d) for row in eng.mesh.devices for d in row]
         print(f'serving mesh: {p}x{h} (pool x heads) over {len(devs)} '
               f'devices ({", ".join(devs)})')
+    if eng.async_loop:
+        print('async double-buffered host loop (one-step sampling lag)')
     if eng.chunk_size > 1:
         print(f'chunked prefill: {eng.chunk_size} tokens/dispatch'
               + (' + fused gather→RoPE' if eng.fused_gather_rope else ''))

@@ -1,7 +1,7 @@
 """Grouped-query attention with RoPE: the full-sequence cores of the forward
 pass and the attend against dense (ring) KV caches and the paged KV pool —
-the full-sequence, dense-cache and paged parts of
-``repro/models/attention.py`` (without packed prefill).
+the full-sequence, dense-cache, paged and packed-prefill parts of
+``repro/models/attention.py``.
 
 The full-sequence core (:func:`attention_core`) takes the naive O(S^2)
 path below ``BLOCKED_THRESHOLD`` tokens and the blocked one
@@ -348,6 +348,57 @@ class PageTables:
             self, pending=pending,
             jobs=jobs(self.pt, self.pt.shape[1] * page_size),
             ring_jobs=jobs(self.rt, self.sc_ring) if self.sc_ring else None)
+
+
+# ============================================================ packed prefill
+@dataclasses.dataclass
+class PackedLayout:
+    """Segment-packed chunk layout (prepacking, arXiv 2404.09529): the
+    serving engine bin-packs every active slot's chunk segment (its
+    ``n_valid`` tokens) into a smaller ``(R, T)`` grid, ``R <= S``. Slot
+    ``s``'s segment occupies row ``seg_row[s]``, columns ``seg_off[s] ..
+    seg_off[s] + n_valid[s] - 1``. Token-wise compute (the gather, norms,
+    FFN, residuals, the head) runs on the packed grid; each mixer runs on
+    the slot-major ``(S, T)`` layout reached by :meth:`to_slots` and goes
+    back by :meth:`to_lanes`. Both are exact index gathers, so every cache
+    write and page scatter keeps its unpacked shapes and bits, and a slot's
+    queries only ever meet its own cache.
+
+    ``seg_row`` / ``seg_off``: (S,) int32, (0, 0) for inactive slots.
+    ``lane_slot`` / ``lane_local``: (R, T) int32, the owning slot and the
+    offset in its segment (0 on empty lanes). ``lane_pos``: (R, T) int32
+    absolute position (0 on empty lanes). ``lane_valid``: (R, T) bool.
+    The two flat gather indices are made once, when the layout is built.
+    """
+    seg_row: torch.Tensor
+    seg_off: torch.Tensor
+    lane_slot: torch.Tensor
+    lane_local: torch.Tensor
+    lane_pos: torch.Tensor
+    lane_valid: torch.Tensor
+
+    def __post_init__(self):
+        R, T = self.lane_slot.shape
+        t = torch.arange(T, device=self.seg_row.device)[None]
+        cols = torch.clamp(self.seg_off.long()[:, None] + t, max=T - 1)
+        self._slot_idx = self.seg_row.long()[:, None] * T + cols    # (S, T)
+        self._lane_idx = self.lane_slot.long() * T \
+            + self.lane_local.long()                                # (R, T)
+
+    def to_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """Packed ``(R, T, ...)`` -> slot-major ``(S, T, ...)``: slot ``s``'s
+        lane ``t`` reads packed lane ``(seg_row[s], seg_off[s] + t)``; lanes
+        past a segment read clipped in-row garbage, as inert as the unpacked
+        path's padding lanes."""
+        R, T = self.lane_slot.shape
+        return x.reshape((R * T,) + x.shape[2:])[self._slot_idx]
+
+    def to_lanes(self, y: torch.Tensor) -> torch.Tensor:
+        """Slot-major ``(S, T, ...)`` -> the packed grid: lane ``(r, t)``
+        reads ``y[lane_slot[r, t], lane_local[r, t]]`` (garbage on empty
+        lanes)."""
+        S, T = y.shape[:2]
+        return y.reshape((S * T,) + y.shape[2:])[self._lane_idx]
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,

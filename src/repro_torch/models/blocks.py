@@ -181,8 +181,8 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
                  use_moe: bool, *, pre: Optional[Dict] = None,
                  n_valid: Optional[torch.Tensor] = None,
                  rope_applied: bool = False, paged=None,
-                 lane_valid: Optional[torch.Tensor] = None, backend=None
-                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+                 lane_valid: Optional[torch.Tensor] = None, backend=None,
+                 packed=None) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Decode step. h (B, T, d); pos (B,) start positions. ``n_valid is
     None`` is the one-token step (T == 1); ``n_valid`` (B,) runs the
     chunked-prefill path. ``paged`` (an ``attention.PageTables``; chunked
@@ -190,16 +190,34 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
     bool marks live slots of the one-token step, so MoE routing leaves
     free slots out; the chunked path masks lanes ``t >= n_valid``. The
     cache in ``state`` is updated in place. -> (h_out, state,
-    moe_dropped_token_slots)."""
+    moe_dropped_token_slots).
+
+    ``packed`` (an ``attention.PackedLayout``; chunked path only): ``h``
+    and ``pre`` lie on the bin-packed (R, T) grid while ``pos``,
+    ``n_valid`` and ``state`` stay slot-major. Norms, FFN / MoE and
+    residuals run packed; the mixer's inputs go to the slot-major layout
+    (``packed.to_slots``), it runs the unpacked code against the unpacked
+    caches, and its output comes back (``packed.to_lanes``). MoE takes the
+    slot-major capacity and ties broken by the canonical lane index, so
+    routing and drops do not depend on the packing."""
     _supported(cfg, kind)
     chunked = n_valid is not None
     assert paged is None or chunked, 'paged decode runs the chunked path'
+    assert packed is None or chunked, 'packed decode runs the chunked path'
+    if packed is not None:
+        ts, tl = packed.to_slots, packed.to_lanes
+    else:
+        def ts(x):
+            return x
+        tl = ts
 
     theta = kind_theta(cfg, kind)
     window = kind_window(cfg, kind)
-    xn = None if pre is not None else L.norm_apply(params['ln1'], h, cfg.norm)
+    xn = None if pre is not None else ts(L.norm_apply(params['ln1'], h,
+                                                      cfg.norm))
     if cfg.mla:
-        lat = None if pre is None else (pre['q'], pre['ckv'], pre['kpe'])
+        lat = None if pre is None else (ts(pre['q']), ts(pre['ckv']),
+                                        ts(pre['kpe']))
         if chunked:
             attn_out, state = M.mla_decode_chunk(
                 params['attn'], xn, state, pos, n_valid, cfg,
@@ -210,7 +228,8 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
                 params['attn'], xn, state, pos, cfg, rope_theta=theta,
                 latents=lat, backend=backend)
     else:
-        qkv = None if pre is None else (pre['q'], pre['k'], pre['v'])
+        qkv = None if pre is None else (ts(pre['q']), ts(pre['k']),
+                                        ts(pre['v']))
         if chunked:
             attn_out, state = A.decode_chunk(
                 params['attn'], xn, state, pos, n_valid, cfg,
@@ -220,6 +239,7 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
             attn_out, state = A.decode_step(
                 params['attn'], xn, state, pos, cfg, rope_theta=theta,
                 window=window, qkv=qkv, backend=backend)
+    attn_out = tl(attn_out)
     if cfg.block_type == 'parallel':      # a dense FFN (``_supported``)
         drops = torch.zeros((), dtype=torch.int32, device=h.device)
         if pre is not None:
@@ -232,13 +252,18 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
     if not use_moe:
         drops = torch.zeros((), dtype=torch.int32, device=h.device)
         return h + ffn_apply(params['ffn'], xn2, act=cfg.act), state, drops
-    if chunked:
-        T = h.shape[1]
+    T = h.shape[1]
+    moe_kw = {}
+    if packed is not None:
+        lane_mask = packed.lane_valid
+        moe_kw = dict(capacity_tokens=pos.shape[0] * T,
+                      lane_order=packed.lane_slot * T + packed.lane_local)
+    elif chunked:
         lane_mask = torch.arange(T, device=h.device)[None] \
             < n_valid.long()[:, None]
     else:
         lane_mask = None if lane_valid is None else lane_valid[:, None]
     f, drops = moe_apply(params['moe'], xn2, cfg,
                          router_mode='softmax_topk' if cfg.moe.num_shared
-                         else 'topk_softmax', lane_mask=lane_mask)
+                         else 'topk_softmax', lane_mask=lane_mask, **moe_kw)
     return h + f, state, drops

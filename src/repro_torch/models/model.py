@@ -52,7 +52,7 @@ class Model:
                     return_hidden: bool = False,
                     fused_gather_rope: bool = False, paged=None,
                     lane_valid=None, return_stats: bool = False,
-                    attn_backend='auto'):
+                    attn_backend='auto', packed=None):
         """tokens (B, T), pos (B,) -> (logits (B, T, V), states). T == 1
         with ``n_valid=None`` is the one-token step; ``n_valid`` (B,) runs
         the chunked-prefill path. ``lane_valid`` (B,) bool masks free slots
@@ -63,7 +63,9 @@ class Model:
         (``PageTables.with_jobs``) and raises without it. Caches update in
         place.
         ``attn_backend`` ('auto' | 'reference' | 'cuda' | an AttnBackend)
-        picks the attend."""
+        picks the attend. ``packed`` (an ``attention.PackedLayout``; with
+        ``n_valid``) runs the segment-packed grid
+        (``transformer.lm_decode_step``)."""
         from repro_torch.models.attn_backend import get_backend
         backend = get_backend(attn_backend, tokens.device)
         return T.lm_decode_step(params, tokens, states, pos, self.cfg,
@@ -72,7 +74,7 @@ class Model:
                                 fused_gather_rope=fused_gather_rope,
                                 paged=paged, lane_valid=lane_valid,
                                 return_stats=return_stats,
-                                attn_backend=backend)
+                                attn_backend=backend, packed=packed)
 
     def make_states(self, batch: int, seq_len: int,
                     dtype: torch.dtype = torch.bfloat16, chunk: int = 1,

@@ -1,7 +1,7 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch (port of
-``repro/models/moe.py`` for serving: routing, capacity, lane masks and the
-drop count; the training-only load-balance loss and the packed-prefill
-``lane_order`` are not ported).
+``repro/models/moe.py`` for serving: routing, capacity, lane masks, the
+packed-prefill ``lane_order`` and the drop count; the training-only
+load-balance loss is not ported).
 
 Tokens are routed to their top-k experts, the (token, k) slots are
 stable-sorted by expert, each slot's position within its expert comes from
@@ -71,7 +71,8 @@ def router_probs(logits: torch.Tensor, m: MoEConfig, mode: str
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
               router_mode: str = 'topk_softmax',
               lane_mask: Optional[torch.Tensor] = None,
-              capacity_tokens: Optional[int] = None
+              capacity_tokens: Optional[int] = None,
+              lane_order: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), dropped_token_slots (int32 scalar
     tensor, on x's device)).
@@ -80,7 +81,14 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     padding, free slots) route to the null expert ``E``, which sorts last
     and never takes capacity, so they cannot displace a real token; their
     output rows are the shared experts' alone. ``capacity_tokens``
-    overrides the token count the capacity is derived from.
+    overrides the token count the capacity is derived from: segment-packed
+    prefill passes the slot-major count, so its denser (R, T) grid gets the
+    capacity of the unpacked (S, T) grid. ``lane_order`` (B, S) int32 gives
+    each lane a canonical token index (serving passes ``slot * T +
+    local``): the dispatch sort then orders ties within an expert by it
+    instead of by grid position, so packed and unpacked grids route and drop
+    real tokens in the same order. ``None`` keeps the stable sort by grid
+    position, the same order whenever the grid is slot-major.
     ``dropped_token_slots`` counts the (token, k) slots of real tokens that
     overflowed their expert's capacity.
     """
@@ -98,7 +106,16 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         ef = torch.where(live, ef, torch.full_like(ef, E))
 
     C = capacity(N if capacity_tokens is None else capacity_tokens, m)
-    order = torch.argsort(ef, stable=True)
+    if lane_order is None:
+        order = torch.argsort(ef, stable=True)
+    else:
+        # composite key (expert, canonical slot index): slotc < M, so the
+        # sort is by expert first, canonical order within an expert
+        canon = lane_order.reshape(N).long()
+        slotc = (canon[:, None] * k
+                 + torch.arange(k, device=dev)[None]).reshape(N * k)
+        M = (N if capacity_tokens is None else capacity_tokens) * k
+        order = torch.argsort(ef.long() * M + slotc, stable=True)
     e_s = ef[order]
     t_s = torch.div(order, k, rounding_mode='floor')            # token/slot
     # per-expert slot counts (the null expert's dropped); not bincount,

@@ -172,18 +172,19 @@ def backbone_decode(params: Dict, h: torch.Tensor, states: Dict,
                     n_valid: Optional[torch.Tensor] = None,
                     rope_applied: bool = False, paged=None,
                     lane_valid: Optional[torch.Tensor] = None,
-                    attn_backend=None
+                    attn_backend=None, packed=None
                     ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """``n_valid is None``: one-token step (h is (B, 1, d)); with
     ``n_valid`` (B,): chunked step over h (B, T, d). ``paged`` (an
     ``attention.PageTables``) addresses the caches as pool pages;
     ``lane_valid`` (B,) masks free slots out of MoE routing in the
-    one-token step. Caches in ``states`` are updated in place; returns (h,
-    states, MoE dropped token slots summed over layers, an int32 tensor on
-    h's device)."""
+    one-token step; ``packed`` (an ``attention.PackedLayout``) puts h on
+    the bin-packed grid (``blocks.block_decode``). Caches in ``states`` are
+    updated in place; returns (h, states, MoE dropped token slots summed
+    over layers, an int32 tensor on h's device)."""
     plan = layer_plan(cfg)
     kw = dict(n_valid=n_valid, paged=paged, lane_valid=lane_valid,
-              backend=attn_backend)
+              backend=attn_backend, packed=packed)
     h, _, drops = block_decode(params['layer0'], h, states['layer0'], pos,
                                cfg, plan.kinds[0], plan.use_moe[0], pre=pre0,
                                rope_applied=rope_applied, **kw)
@@ -206,7 +207,8 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
                    return_hidden: bool = False,
                    fused_gather_rope: bool = False, paged=None,
                    lane_valid: Optional[torch.Tensor] = None,
-                   return_stats: bool = False, attn_backend=None):
+                   return_stats: bool = False, attn_backend=None,
+                   packed=None):
     """tokens (B, T), pos (B,) -> (logits (B, T, V), states).
 
     ``n_valid is None`` is the one-token step (T == 1); with ``n_valid``
@@ -220,13 +222,26 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     pages. ``lane_valid`` (B,) bool masks free slots out of MoE routing in
     the one-token step. ``return_hidden`` skips the final norm and head;
     ``return_stats`` appends ``{'moe_drops': int32 tensor}``.
+
+    ``packed`` (an ``attention.PackedLayout``; chunked path) runs the
+    segment-packed layout: ``tokens`` is the bin-packed (R, T) grid, each
+    lane's position is ``packed.lane_pos``, and the hidden / logit grid
+    returned is packed (a slot's rows sit at ``packed.seg_row`` /
+    ``packed.seg_off``); ``pos``, ``n_valid`` and ``states`` stay
+    slot-major.
     """
+    assert packed is None or n_valid is not None, \
+        'packed prefill runs the chunked path'
     rope_applied = False
     if precomputed is not None:
         if n_valid is not None and fused_gather_rope \
                 and fused_rope_eligible(precomputed, cfg):
-            T = tokens.shape[1]
-            pos_t = pos[:, None].long() + torch.arange(T, device=pos.device)
+            if packed is not None:
+                pos_t = packed.lane_pos
+            else:
+                T = tokens.shape[1]
+                pos_t = pos[:, None].long() + torch.arange(T,
+                                                           device=pos.device)
             pre0 = _fused_gather_rope_pre0(precomputed, tokens, pos_t, cfg)
             rope_applied = True
         else:
@@ -238,7 +253,7 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     h, states, drops = backbone_decode(
         params['backbone'], h, states, pos, cfg, pre0=pre0, n_valid=n_valid,
         rope_applied=rope_applied, paged=paged, lane_valid=lane_valid,
-        attn_backend=attn_backend)
+        attn_backend=attn_backend, packed=packed)
     out = h if return_hidden else lm_logits(params, h, cfg)
     if return_stats:
         return out, states, {'moe_drops': drops}

@@ -1,6 +1,6 @@
 """Batched serving engine: continuous batching with chunked prefill over
 dense per-slot KV caches or a paged KV pool with a radix prefix cache —
-the synchronous path of ``repro/serving/engine.py``'s ``ServingEngine``.
+the port of ``repro/serving/engine.py``'s ``ServingEngine``.
 
 The engine schedules **mixed steps** over a fixed set of slots. Decoding
 slots consume one sampled token per step; prefilling slots consume up to
@@ -115,7 +115,12 @@ dispatching tick is split into five host-side phases, observed into the
   step (a scoring run gathers once for all its ticks: that gather is
   charged to no phase);
 - ``sample_commit``: ``_commit``, whose ``.cpu()`` of the sampled tokens
-  is where the host waits for the device.
+  is where the host waits for the device (in the async loop, the event of
+  the step's output copies; observed one tick later).
+
+The async loop also observes ``engine.step.overlap_s``: the host seconds
+of a tick's first three phases spent while the previous dispatch was
+still uncommitted.
 
 Telemetry adds no device synchronisation: no ``.cpu()``, ``.item()`` or
 ``torch.cuda.synchronize()``, only host clock reads. PyTorch launches
@@ -180,8 +185,38 @@ ride into a step as a fixed-width array of ``_pending_cap`` (64) page ids,
 zero-padded (page 0 is the null page, whose clear is a no-op); a tick that
 queues more flushes them eagerly, as JAX does.
 
+**Segment-packed prefill** (``pack_prefill=True``, chunk size above 1;
+JAX's prepacking): a chunk step bin-packs each active slot's segment of
+``n_valid`` lanes, first-fit decreasing and never split, into a compact
+``(R, T)`` grid (``_pack_layout``: R a power of two, at most the
+bucket's width), staged with its ``attention.PackedLayout`` arrays into a
+``(PACKED, nb, R, T, want_logits)`` program. Token-wise work runs on the
+packed grid and each attention layer on the slot-major layout, so tokens
+and ``score()`` logits are bitwise the unpacked engine's on the CPU
+(``blocks.block_decode``); ``lanes_dispatched`` counts the packed grid.
+Decode-only steps are not packed (their grid is already one lane a slot).
+
+**Async double-buffered loop** (``async_loop=True``; not under a mesh,
+ROADMAP A.3): ``step_once`` dispatches tick N's step and then commits tick
+N-1's (``_PendingStep``), so the host's scheduling, admission and staging
+of step N overlap the device's step N-1. Nothing on the dispatch path
+reads the device: the program splices each decoding slot's previous
+sampled token in on the device from ``_prev_nxt`` (``use_prev``), and on a
+card copies its outputs into pinned memory behind an event at dispatch
+(a replay's outputs are overwritten by the next run of the program).
+Host-visible request state trails the device by one dispatch; ``run()``
+and ``score()`` drain the pipeline. A slot whose pending lane ends its
+request by ``max_new_tokens`` or ``max_seq`` is not scheduled; an EOS or a
+non-finite lane runs one speculative lane, discarded at its commit by the
+(request, ``admit_seq``) guard, as are lanes of slots cancelled, expired,
+preempted or refilled in flight. A pending lane that lands on a ring
+snapshot boundary is committed (the snapshot captured) before the slot's
+next chunk is dispatched. Greedy tokens are bitwise the synchronous
+loop's; sampled ones (temperature above 0) are not compared across loops,
+as in JAX.
+
 Not ported yet, and rejected with ``NotImplementedError``: the dense
-engine under a mesh, the async host loop and segment-packed prefill.
+engine under a mesh, and a mesh with the async loop.
 """
 from __future__ import annotations
 
@@ -204,7 +239,7 @@ from repro_torch.models.model import Model
 from repro_torch.models.transformer import fused_rope_eligible, layer_plan
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvpool import PrefixCache
-from repro_torch.serving.programs import CHUNK, STEP, StepProgram
+from repro_torch.serving.programs import CHUNK, PACKED, STEP, StepProgram
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.telemetry import Histogram, latency_summary
 from repro_torch.sharding import (gather_leaf, leaf_axes, shard_leaf,
@@ -280,12 +315,42 @@ class Request:
 
 @dataclasses.dataclass
 class _Lane:
-    """Commit record of one dispatched lane."""
+    """Commit record of one dispatched lane: everything the commit needs,
+    taken at dispatch time, so that later host changes (a preemption, a
+    re-admission while the step is in flight) cannot skew it. The request
+    and ``admit_seq`` guard against the slot having been vacated and
+    refilled, even by the same request, before the commit: such a lane is
+    discarded."""
     slot: int
     req: Request
+    admit_seq: int
     consumed: int
     p_before: int           # stream position before this dispatch
     p_after: int            # ... and after
+    pos_after: int          # the slot's position after this dispatch
+    gen: bool               # the commit appends a sampled token
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """One dispatched step awaiting its commit. ``nxt`` / ``finite`` /
+    ``drops`` / ``logits`` are the program's outputs (bucket-wide; packed
+    scoring logits are (R, T, V)), or, in the async loop on a CUDA device,
+    pinned host copies of them that ``event`` marks done: the only device
+    wait of the commit."""
+    nxt: torch.Tensor
+    finite: torch.Tensor
+    drops: torch.Tensor
+    logits: Optional[torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    lanes: List[_Lane]
+    pk_row: Optional[np.ndarray]    # packed grid: each slot's logit row
+    pk_off: Optional[np.ndarray]    # ... and column
+    step_idx: int
+    kind: Optional[str]             # telemetry step kind (None: off)
+    times: Optional[list]           # the four dispatch-side phase seconds
+    needs_sync: bool                # a lane lands on a snapshot boundary:
+                                    # commit before the slot's next chunk
 
 
 def _on_full_states(method):
@@ -349,11 +414,6 @@ class ServingEngine:
                  admit_retry_steps: int = 8, pack_prefill: bool = False,
                  telemetry=False, mesh=None, async_loop: bool = False,
                  device: torch.device | str = 'cuda'):
-        unported = {'async_loop': async_loop, 'pack_prefill': pack_prefill}
-        for name, val in unported.items():
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f'ServingEngine({name}=...) is not ported yet')
         cfg = model.cfg
         self.model, self.params = model, params
         self.device = torch.device(device)
@@ -376,10 +436,20 @@ class ServingEngine:
                     f'the engine\'s device ({self.device}) must be the '
                     f'mesh\'s primary device ({self.mesh.primary}): weights, '
                     'compute and the gathered state live there')
+            if async_loop:
+                raise NotImplementedError(
+                    'ServingEngine(mesh=..., async_loop=True) is not ported '
+                    'yet (ROADMAP A.3): a mesh engine runs the synchronous '
+                    'loop')
             if self.attn_backend.name == 'cuda':
                 # the attend runs one kernel launch per kv-head shard
                 self.attn_backend = CudaBackend(self.mesh)
         self._gathered = False
+        # the async double-buffered loop: the dispatch awaiting its commit
+        self.async_loop = bool(async_loop)
+        self._pending: Optional[_PendingStep] = None
+        # segment-packed prefill needs a chunk grid to pack into
+        self.pack_prefill = bool(pack_prefill) and chunk_size > 1
         # ------------------------------------------------------ telemetry
         # False/None -> the shared no-op singleton (every site is guarded
         # by `if tel.enabled`), True -> a fresh recorder, or a Telemetry
@@ -399,14 +469,19 @@ class ServingEngine:
                     kind=kind) for ph in TM.PHASES}
                 for kind in TM.STEP_KINDS}
             tel.registry.gauge(TM.QUEUE_DEPTH, fn=lambda: len(self.queue))
+            self._overlap_h = tel.registry.histogram(
+                TM.STEP_OVERLAP, backend=self.attn_backend.name) \
+                if self.async_loop else None
         else:
             self._lat_hist = Histogram()
             self._ttft_hist = Histogram()
             self._cow_counter = None
             self._phase_h = None
+            self._overlap_h = None
         self._t_radix = 0.0     # radix-lookup seconds within this tick
         self._t_mesh = 0.0      # the tick's gather + split seconds (mesh)
-        self._step_obs = None   # (kind, phase seconds) of this tick's step
+        # (kind, five phase seconds) of each step this tick committed
+        self._step_obs: List[tuple] = []
         self.fault_injector = fault_injector
         self.page_size = page_size
         # the one-token path never fuses (paged mode has none: its T == 1
@@ -527,6 +602,11 @@ class ServingEngine:
             and self.attn_backend.name == 'cuda'
         self._graph_pool = torch.cuda.graph_pool_handle() if self._graphs \
             else None
+        # the async loop's previous sampled tokens at a fixed address: every
+        # program writes its nxt here and the next one splices it in
+        self._prev_nxt = torch.zeros(max_slots, dtype=torch.int32,
+                                     device=self.device) \
+            if self.async_loop else None
 
     # ------------------------------------------------------ state layout
     def _layers(self, states):
@@ -1131,20 +1211,20 @@ class ServingEngine:
 
     # ----------------------------------------------------------------- run
     def step_once(self) -> None:
-        """One engine tick: fault hooks, deadlines, admission, one dispatch,
-        commit. With telemetry, the tick's phase seconds are observed once
-        it is over: under a mesh after the split back into blocks, which is
-        charged, with the gather, to the tick's ``dispatch``."""
+        """One engine tick: fault hooks, deadlines, admission, one dispatch
+        and a commit: of this tick's dispatch (the synchronous loop), or of
+        the previous tick's (``async_loop``). With telemetry, each
+        committed step's phase seconds are observed once the tick is over:
+        under a mesh after the split back into blocks, which is charged,
+        with the gather, to the tick's ``dispatch``."""
         outer = self.mesh is not None and not self._gathered
         self._tick()
-        obs, self._step_obs = self._step_obs, None
-        if obs is None:
-            return
-        kind, times = obs
-        if outer:
-            times[3] += self._t_mesh
-        for ph, t in zip(TM.PHASES, times):
-            self._phase_h[kind][ph].observe(t)
+        obs, self._step_obs = self._step_obs, []
+        for kind, times in obs:
+            if outer:
+                times[3] += self._t_mesh
+            for ph, t in zip(TM.PHASES, times):
+                self._phase_h[kind][ph].observe(t)
 
     @_on_full_states
     def _tick(self) -> None:
@@ -1157,26 +1237,50 @@ class ServingEngine:
         if self.fault_injector is not None:
             self.fault_injector.before_step(self)
         self._check_deadlines()
+        if self._pending is not None and self._pending.needs_sync:
+            # a pending lane landed on a snapshot boundary: its commit
+            # captures the ring, so it lands before the slot's next chunk
+            self._flush_async()
         self._admit()
         rec = self._dispatch(t0, obs)
+        if self.async_loop:
+            prev, self._pending = self._pending, rec
+            if prev is not None:
+                self._commit(prev)
+        elif rec is not None:
+            self._commit(rec)
+
+    def _flush_async(self) -> None:
+        """Commit the dispatch in flight, if any (the pending record is
+        cleared first)."""
+        rec, self._pending = self._pending, None
         if rec is not None:
-            self._commit(*rec)
+            self._commit(rec)
 
     def _step_arrays(self, tokens: np.ndarray, n_valid: Optional[np.ndarray],
-                     temps: np.ndarray) -> Dict[str, np.ndarray]:
-        """The step's inputs on the host, at the bucket's width (the rows of
-        ``tokens``): tokens, positions, lane validity (the one-token path)
-        or ``n_valid`` and, paged, the page tables and job lists, and the
-        temperatures."""
-        nb = tokens.shape[0]
+                     temps: np.ndarray, live: np.ndarray,
+                     packed: Optional[Dict[str, np.ndarray]] = None,
+                     use_prev: Optional[np.ndarray] = None
+                     ) -> Dict[str, np.ndarray]:
+        """The step's inputs on the host, at the bucket's width (``temps``):
+        tokens (the bucket's rows, or the packed grid), positions, lane
+        validity (``live``, the one-token path) or ``n_valid``, the
+        temperatures and, packed, the six layout arrays of
+        ``_pack_layout``; paged, the page tables and job lists; in the async
+        loop, ``use_prev``."""
+        nb = len(temps)
         pos = self.slot_pos[:nb].astype(np.int32)
         if n_valid is None:
-            live = np.array([r is not None for r in self.slot_req[:nb]],
-                            np.int32)
-            return dict(tokens=tokens, pos=pos, lane_valid=live, temps=temps)
-        out = dict(tokens=tokens, pos=pos, n_valid=n_valid, temps=temps)
-        if self.paged:
-            out.update(self._paged_host(pos, n_valid, tokens.shape[1]))
+            out = dict(tokens=tokens, pos=pos, lane_valid=live, temps=temps)
+        else:
+            out = dict(tokens=tokens, pos=pos, n_valid=n_valid, temps=temps)
+            if packed is not None:
+                out.update(packed)
+            if self.paged:
+                out.update(self._paged_host(pos, n_valid, tokens.shape[1]))
+        if self.async_loop:
+            out['use_prev'] = np.zeros(nb, np.int32) if use_prev is None \
+                else use_prev[:nb].astype(np.int32)
         return out
 
     def _paged_host(self, pos: np.ndarray, n_valid: np.ndarray,
@@ -1205,16 +1309,85 @@ class ServingEngine:
                     torch.from_numpy(pending)).numpy()
         return out
 
-    def _dispatch(self, t0: float, obs: bool):
-        """Build this tick's lanes, cut them to the slot bucket, stage them
-        into the step shape's program and run it; advance the slots'
-        positions. -> the commit record (sampled tokens, finiteness, logits
-        and MoE drops, bucket-wide; lanes, step index, and with ``obs`` the
-        step kind and its first four phase seconds), or None when nothing
-        was dispatched."""
+    def _pack_layout(self, tokens: np.ndarray, n_valid: np.ndarray):
+        """Bin-pack this step's per-slot segments into a compact (R, T)
+        grid, as JAX's: first-fit decreasing over the active slots (each
+        contributes one contiguous segment of ``n_valid[s]`` lanes, never
+        split across rows, longest first, ties by slot), R rounded up to a
+        power of two (at most log2(nb) + 1 packed shapes) and capped at the
+        bucket's width. -> (packed tokens (R, T), the six layout arrays of
+        ``attention.PackedLayout`` as int32 numpy arrays, ``seg_row``,
+        ``seg_off``): slot ``s``'s lanes sit at ``(seg_row[s], seg_off[s]
+        .. seg_off[s] + n_valid[s] - 1)``."""
+        S, T = tokens.shape
+        order = sorted((s for s in range(S) if n_valid[s] > 0),
+                       key=lambda s: (-int(n_valid[s]), s))
+        seg_row = np.zeros(S, np.int32)
+        seg_off = np.zeros(S, np.int32)
+        space: List[int] = []              # free lanes per packed row
+        for s in order:
+            ln = int(n_valid[s])
+            for r, room in enumerate(space):
+                if room >= ln:
+                    seg_row[s], seg_off[s] = r, T - room
+                    space[r] = room - ln
+                    break
+            else:
+                seg_row[s], seg_off[s] = len(space), 0
+                space.append(T - ln)
+        R = 1
+        while R < max(1, len(space)):
+            R *= 2
+        R = min(R, S)
+        ptoks = np.zeros((R, T), np.int32)
+        lanes = {nm: np.zeros((R, T), np.int32)
+                 for nm in ('lane_slot', 'lane_local', 'lane_pos',
+                            'lane_valid')}
+        for s in order:
+            ln = int(n_valid[s])
+            r, o = int(seg_row[s]), int(seg_off[s])
+            ptoks[r, o:o + ln] = tokens[s, :ln]
+            lanes['lane_slot'][r, o:o + ln] = s
+            lanes['lane_local'][r, o:o + ln] = np.arange(ln)
+            lanes['lane_pos'][r, o:o + ln] = int(self.slot_pos[s]) \
+                + np.arange(ln)
+            lanes['lane_valid'][r, o:o + ln] = 1
+        layout = dict(seg_row=seg_row, seg_off=seg_off, **lanes)
+        return ptoks, layout, seg_row, seg_off
+
+    def _dispatch(self, t0: float, obs: bool) -> Optional[_PendingStep]:
+        """Build this tick's lanes, cut them to the slot bucket (packed
+        into a compact grid with ``pack_prefill``), stage them into the
+        step shape's program and run it; advance the slots' positions. Reads
+        nothing back from the device. -> the commit record, or None when
+        nothing was dispatched.
+
+        In the async loop one dispatch is in flight: each decoding slot
+        whose pending lane samples a token gets that token spliced in on
+        the device (``use_prev``); a slot whose pending lane ends its
+        request by ``max_new_tokens`` or ``max_seq`` is not scheduled; an
+        EOS or a non-finite lane runs one speculative lane, discarded at
+        its commit."""
         tel = self.telemetry
         active = [s for s in range(self.max_slots)
                   if self.slot_req[s] is not None]
+        pend = self._pending
+        use_prev = None
+        if pend is not None:
+            use_prev = np.zeros(self.max_slots, bool)
+            skip = set()
+            for ln in pend.lanes:
+                s = ln.slot
+                if self.slot_req[s] is not ln.req \
+                        or int(self.slot_admit_seq[s]) != ln.admit_seq \
+                        or not ln.gen:
+                    continue
+                use_prev[s] = True
+                if len(ln.req.generated) + 1 >= ln.req.max_new_tokens \
+                        or int(self.slot_pos[s]) + 1 >= self.max_seq:
+                    skip.add(s)
+                    use_prev[s] = False
+            active = [s for s in active if s not in skip]
         if not active:
             return None
         step_idx = self.steps
@@ -1252,6 +1425,11 @@ class ServingEngine:
                 if self.slot_req[s] is None and n_valid[s]:
                     tokens[s] = 0
                     n_valid[s] = 0
+            if use_prev is not None:
+                # ... or a slot with a pending token
+                for s in range(self.max_slots):
+                    if self.slot_req[s] is None:
+                        use_prev[s] = False
             active = [s for s in active
                       if self.slot_req[s] is not None and n_valid[s] > 0]
             if not active:
@@ -1260,6 +1438,7 @@ class ServingEngine:
             if prefilling and max(int(n_valid[s]) for s in active) <= 1:
                 # the prefilling slots were all preempted: narrow back to
                 # the T == 1 grid (the chunk path's T == 1 case)
+                prefilling = False
                 if not self.paged:
                     n_valid = None
                 tokens = tokens[:, :1]
@@ -1267,6 +1446,12 @@ class ServingEngine:
                 else np.ones(self.max_slots, np.int32)
         else:
             tokens = self.slot_next_tok[:, None].copy()
+            for s in active:
+                # a prefilling slot's token from its stream: in the async
+                # loop slot_next_tok is set one commit late
+                p = int(self.slot_pos[s])
+                if p < len(self.slot_stream[s]):
+                    tokens[s, 0] = self.slot_stream[s][p]
             n_valid = None
             lane_n = consumed = np.ones(self.max_slots, np.int32)
         kind = None
@@ -1290,62 +1475,97 @@ class ServingEngine:
         # the slot bucket: every lane at or past nb is empty
         nb = self._bucket(active)
         tokens = tokens[:nb]
+        layout = pk_row = pk_off = None
         if n_valid is not None:
             n_valid = n_valid[:nb]
+            if self.pack_prefill and prefilling:
+                tokens, layout, pk_row, pk_off = \
+                    self._pack_layout(tokens, n_valid)
             self.lanes_dispatched += int(tokens.size)
             self.lane_tokens += int(n_valid.sum())
         temps = np.array([(r.temperature if r is not None else 0.0)
                           for r in self.slot_req[:nb]], np.float32)
-        arrays = self._step_arrays(tokens, n_valid, temps)
-        key = (STEP if n_valid is None else CHUNK, nb, tokens.shape[1],
-               want_logits)
+        live = np.zeros(nb, np.int32)
+        live[active] = 1
+        arrays = self._step_arrays(tokens, n_valid, temps, live, layout,
+                                   use_prev)
+        if layout is not None:
+            key = (PACKED, nb, tokens.shape[0], tokens.shape[1], want_logits)
+        else:
+            key = (STEP if n_valid is None else CHUNK, nb, tokens.shape[1],
+                   want_logits)
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = StepProgram(self, key, arrays)
         prog.stage(arrays)
         if obs:
             t2 = tel.now()
-        nxt, finite, logits, drops = prog.run(self._graphs
-                                              and not _eager_depth)
+        out = prog.run(self._graphs and not _eager_depth)
+        event = None
+        if self.async_loop and self.device.type == 'cuda':
+            # the commit comes after the next dispatch, which may rerun
+            # this program over its static outputs: copy them out now
+            out, event = prog.copy_out(out)
+        nxt, finite, logits, drops = out
         times = None
         if obs:
             t3 = tel.now()
             times = [max(0.0, t1 - t0 - self._t_radix), self._t_radix,
                      t2 - t1, t3 - t2]
+            if self._overlap_h is not None and pend is not None:
+                # host scheduling done while the previous dispatch was
+                # still uncommitted: the double buffering's gain
+                self._overlap_h.observe(max(0.0, t2 - t0))
         self._pending_clear = []
         lanes = []
+        needs_sync = False
         for s in active:
             c = int(consumed[s])
             p_before = int(self.slot_pos[s])
             self.slot_pos[s] += c
-            lanes.append(_Lane(slot=s, req=self.slot_req[s], consumed=c,
-                               p_before=p_before,
-                               p_after=int(self.slot_pos[s])))
+            p_after = int(self.slot_pos[s])
+            lanes.append(_Lane(slot=s, req=self.slot_req[s],
+                               admit_seq=int(self.slot_admit_seq[s]),
+                               consumed=c, p_before=p_before,
+                               p_after=p_after, pos_after=p_after,
+                               gen=p_after >= len(self.slot_stream[s])))
+            if self.paged and self._needs_snapshot \
+                    and p_after == int(self.slot_insert_at[s]):
+                needs_sync = True
         self.steps += 1
-        return nxt, finite, logits, drops, lanes, step_idx, kind, times
+        return _PendingStep(nxt=nxt, finite=finite, drops=drops,
+                            logits=logits, event=event, lanes=lanes,
+                            pk_row=pk_row, pk_off=pk_off, step_idx=step_idx,
+                            kind=kind, times=times, needs_sync=needs_sync)
 
-    def _commit(self, nxt: torch.Tensor, finite: torch.Tensor,
-                logits: Optional[torch.Tensor], drops: torch.Tensor,
-                lanes: List[_Lane], step_idx: int, kind: Optional[str],
-                times: Optional[list]) -> None:
-        """Bring the step's tokens to the host (the device wait) and commit
-        them: prompt logits, radix publishes, first/next tokens,
-        terminations, the MoE drop count. Lanes the fault injector poisons
-        for ``step_idx`` count as non-finite. With telemetry, leaves the
-        step's kind and five phase seconds in ``_step_obs``."""
+    def _commit(self, rec: _PendingStep) -> None:
+        """Bring the step's tokens to the host (the device wait: the
+        ``.cpu()`` of the outputs, or in the async loop on a card the event
+        of their copies) and commit them: prompt logits, radix publishes,
+        first/next tokens, terminations, the MoE drop count. Lanes whose
+        slot was vacated or refilled since the dispatch are discarded.
+        Lanes the fault injector poisons for ``rec.step_idx`` count as
+        non-finite. With telemetry, appends the step's kind and five phase
+        seconds to ``_step_obs``."""
         tel = self.telemetry
-        obs = kind is not None
+        obs = rec.kind is not None
         t3 = tel.now() if obs else 0.0
-        nxt = nxt.cpu().numpy()
-        self.moe_token_drops += int(drops)
-        bad = ~finite.cpu().numpy()
+        if rec.event is not None:
+            rec.event.synchronize()
+        nxt = rec.nxt.cpu().numpy()
+        self.moe_token_drops += int(rec.drops)
+        bad = ~rec.finite.cpu().numpy()
         if self.fault_injector is not None:
-            for s in self.fault_injector.poison_lanes(self, step_idx):
+            for s in self.fault_injector.poison_lanes(self, rec.step_idx):
                 if 0 <= s < len(bad):
                     bad[s] = True
-        logits = None if logits is None else logits.float().cpu().numpy()
-        for ln in lanes:
+        logits = None if rec.logits is None \
+            else rec.logits.float().cpu().numpy()
+        for ln in rec.lanes:
             s, req = ln.slot, ln.req
+            if self.slot_req[s] is not req \
+                    or int(self.slot_admit_seq[s]) != ln.admit_seq:
+                continue                # stale speculative lane: discard
             if bad[s]:
                 self._vacate(s)
                 self._terminate(req, RequestStatus.FAILED, 'nonfinite_logits')
@@ -1354,8 +1574,15 @@ class ServingEngine:
             if self.paged:
                 self._maybe_insert(s, ln.p_before, ln.p_after)
             if req.return_logits and ln.p_before < len(stream):
-                # lanes 0..consumed-1 hold logits for stream[p_before:p_after]
-                req._logit_chunks.append(logits[s, :ln.consumed].copy())
+                # the slot's lanes 0..consumed-1 hold logits for
+                # stream[p_before:p_after]: row s, or on the packed grid
+                # row pk_row[s] from column pk_off[s]
+                if rec.pk_row is not None:
+                    row, off = int(rec.pk_row[s]), int(rec.pk_off[s])
+                    req._logit_chunks.append(
+                        logits[row, off:off + ln.consumed].copy())
+                else:
+                    req._logit_chunks.append(logits[s, :ln.consumed].copy())
                 if ln.p_after >= len(stream):
                     req.prompt_logits = np.concatenate(req._logit_chunks, 0)
                     req._logit_chunks = []
@@ -1368,20 +1595,21 @@ class ServingEngine:
                 req.first_token_t = time.monotonic()
                 if obs:
                     tel.event(req.uid, TM.EV_FIRST_TOKEN,
-                              t=req.first_token_t, step=step_idx, token=tok)
+                              t=req.first_token_t, step=rec.step_idx,
+                              token=tok)
             elif obs:
-                tel.event(req.uid, TM.EV_DECODE_STEP, step=step_idx,
+                tel.event(req.uid, TM.EV_DECODE_STEP, step=rec.step_idx,
                           token=tok)
             req.generated.append(tok)
             self.slot_next_tok[s] = tok
             hit_eos = req.eos_id is not None and tok == req.eos_id
             if hit_eos or len(req.generated) >= req.max_new_tokens \
-                    or ln.p_after + 1 >= self.max_seq:
+                    or ln.pos_after + 1 >= self.max_seq:
                 self._vacate(s)
                 self._terminate(req, RequestStatus.FINISHED)
         if obs:
-            times.append(tel.now() - t3)
-            self._step_obs = (kind, times)
+            self._step_obs.append((rec.kind,
+                                   rec.times + [tel.now() - t3]))
 
     def run(self, max_iters: int = 100_000) -> Dict[str, float]:
         """Drive the engine until all submitted work is terminal or
@@ -1389,8 +1617,8 @@ class ServingEngine:
         ``FAILED('stalled')``. Returns a report with latency percentiles
         (keys omitted until a request finished)."""
         it = 0
-        while (self.queue or any(r is not None for r in self.slot_req)) \
-                and it < max_iters:
+        while (self.queue or any(r is not None for r in self.slot_req)
+               or self._pending is not None) and it < max_iters:
             self.step_once()
             it += 1
         stalled = 0

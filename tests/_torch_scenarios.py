@@ -111,6 +111,43 @@ def replay_vs_eager_run(device):
                        'replays': sum(p.replays for p in progs)}
 
 
+def async_packed_vs_eager_run(device):
+    """The waves and scoring of :func:`replay_vs_eager_run` on a 16-slot
+    paged engine (``paged-gqa``, fp32, page 4, chunk 4, the ``cuda``
+    backend) with ``pack_prefill=True, async_loop=True``, against the same
+    engine without either inside ``_eager_steps()``. On a card the first
+    engine replays CUDA graphs one step ahead of the host. -> (tokens, the
+    eager run's tokens, score logits, the eager run's, {'packed' (packed
+    program keys), 'graphs', 'replays'})."""
+    model = Model(paged_gqa_config())
+    params = model.init(0, device=device, dtype=torch.float32)
+    rng = np.random.default_rng(13)
+    a, b, c = (rng.integers(3, 200, n).astype(np.int32) for n in (13, 9, 6))
+    waves = [[a, b, c], [np.concatenate([a, [5, 6]]).astype(np.int32),
+                         a[:10].copy(), b]]
+    scored = rng.integers(3, 200, 7).astype(np.int32)
+
+    def run(fast):
+        eng = ServingEngine(model, params, max_slots=16, max_seq=32,
+                            chunk_size=4, prefix_cache=True, page_size=4,
+                            attn_backend='cuda', dtype=torch.float32,
+                            pack_prefill=fast, async_loop=fast,
+                            device=device)
+        with contextlib.nullcontext() if fast else _eager_steps():
+            tokens = [_serve(eng, w) for w in waves]
+            logits = eng.score([scored])
+        assert eng._pending is None and eng.kv.hits > 0
+        return tokens, logits, eng
+
+    got, got_logits, eng = run(True)
+    want, want_logits, _ = run(False)
+    progs = eng.programs.values()
+    return got, want, got_logits, want_logits, {
+        'packed': sorted(k for k in eng.programs if k[0] == 'packed'),
+        'graphs': sum(p.graph is not None for p in progs),
+        'replays': sum(p.replays for p in progs)}
+
+
 def oov_prompts(vocab: int, seed: int = 0):
     """The out-of-vocabulary case of ROADMAP C1: a 7-token prompt with the
     id ``vocab + 5`` at index 3 (508 for V 503), its clean twin, the twin

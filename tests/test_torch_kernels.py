@@ -51,8 +51,8 @@ from repro_torch.kernels.rmsnorm_qkv import (rmsnorm_matmul,
                                              rmsnorm_qkv, rmsnorm_qkv_plain)
 from repro_torch.models.attn_backend import KERNEL_TOL
 
-from _torch_scenarios import (clean_after_failed, cow_retaken_run,
-                              oov_prompts, quant_write_case,
+from _torch_scenarios import (async_packed_vs_eager_run, clean_after_failed,
+                              cow_retaken_run, oov_prompts, quant_write_case,
                               replay_vs_eager_run, serve_outcomes)
 
 
@@ -1129,3 +1129,19 @@ def test_programs_replay_matches_eager_on_card(cuda):
     assert info['buckets'] == {8}
     assert info['graphs'] > 0 and info['replays'] > 0, info
     assert got == want
+
+
+@pytest.mark.cuda
+def test_async_packed_replays_match_eager_on_card(cuda):
+    """The twin of ``tests/test_torch_async.py``'s scenario test: on the
+    card the 16-slot engine with packing and the async loop replays its
+    CUDA graphs one step ahead of the host; greedy tokens are those of the
+    synchronous unpacked engine that runs every step eagerly, and score
+    logits agree within fp32 rounding (the packed grid's matmuls have
+    other row counts, so cuBLAS may take other algorithms)."""
+    got, want, got_logits, want_logits, info = \
+        async_packed_vs_eager_run('cuda')
+    assert info['packed'] and info['graphs'] > 0 and info['replays'] > 0
+    assert got == want
+    for a, b in zip(got_logits, want_logits):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)

@@ -143,17 +143,27 @@ def test_deadline_fails_only_the_expired_request(both):
 
 @pytest.mark.parametrize('option', [dict(mesh=make_serving_mesh(
                                         '2x2', devices=['cpu'] * 4)),
-                                    dict(async_loop=True),
-                                    dict(pack_prefill=True)])
+                                    dict(mesh=make_serving_mesh(
+                                        '2x2', devices=['cpu'] * 4),
+                                        prefix_cache=True, page_size=8,
+                                        async_loop=True),
+                                    dict(mesh=make_serving_mesh(
+                                        '2x2', devices=['cpu'] * 4),
+                                        prefix_cache=True, page_size=8,
+                                        async_loop=True, pack_prefill=True)])
 def test_unported_engine_options_raise(both, option):
-    """Options not ported yet raise; a mesh is ported for the paged engine
-    only (the dense engine under a mesh is not). ``prefix_cache=True`` on
+    """Options not ported yet raise: the dense engine under a mesh (a mesh
+    is ported for the paged engine only), and a mesh with the async loop
+    (ROADMAP A.3), with or without packing. ``prefix_cache=True`` on
     mistral-7b's windowed layers is ported (``tests/test_torch_ring.py``),
     and so are ``telemetry`` and ``fault_injector``
-    (``tests/test_torch_telemetry.py``, ``tests/test_torch_faults.py``)."""
+    (``tests/test_torch_telemetry.py``, ``tests/test_torch_faults.py``),
+    ``pack_prefill`` (``tests/test_torch_packed.py``) and ``async_loop``
+    on one device (``tests/test_torch_async.py``)."""
     _, _, tm, tp = both
     assert tm.cfg.pattern == ('local',) and tm.cfg.window
-    with pytest.raises(NotImplementedError, match='not ported'):
+    match = 'A.3' if option.get('async_loop') else 'not ported'
+    with pytest.raises(NotImplementedError, match=match):
         _port_engine(tm, tp, **option)
 
 
