@@ -77,7 +77,20 @@ Phases, in order; any failure raises and exits non-zero:
               table, fused_page_write (bf16 and quantizing) with ring job
               lists at T 1, T 16 and T 16 with all 4 x 257 ring pages
               pending, each with its bound, plain version, library call and
-              the launch floor.
+              the launch floor. gemma3: the split paged_attention
+              at gemma3-1b's d 256 (KV 1, G 4: four warps share a tile of
+              query rows), dense and int8 forms, T 1 and 16, a local
+              layer's ring (Sc 527, window 512) and a global layer's
+              linear pages through a scattered table (bf16 within 2e-2
+              and the row-scaled limit, int8 within KERNEL_TOL + one bf16
+              step, T 16 rows bitwise one-token calls), with sdpa (bf16)
+              and the bound; flash_attention at d 256 (S 4096, H 4, KV 1,
+              window 512 and causal, bf16 and fp32); gather_rope at both
+              gemma3 row widths (256-wide heads for gemma3-1b, layer 0's
+              theta 10k) and embed_gather at them; the quantizing
+              fused_page_write at KV 1, d 256 (linear and ring job lists,
+              edge rows) and cow_page_copy over gemma3-1b's 25 stacked
+              layers, bitwise.
 4. mistral  — serves mistral-7b at full width (random bf16 weights from a
               seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
@@ -193,8 +206,32 @@ Phases, in order; any failure raises and exits non-zero:
               segment-packed prefill and the async loop give them too,
               on 16 pages also under a page steal and on 12 through the
               preemptions.
+10. gemma3  — serves gemma3-27b (62 layers: layer 0, 10 x the 5:1
+              local/global pattern, a tail of 1; window 1024; KV 16 x
+              128) and then gemma3-1b (26 layers, window 512, KV 1 x 256)
+              at full width and depth on seeded random bf16 weights: the
+              table (qk_norm and the sqrt(d) embedding scale folded in),
+              fused gather-RoPE at layer 0's theta (10k), the cuda
+              backend, 4 slots, chunk 16, page 16, max_seq 2048; a paged
+              pool with ring pages for the local layers and linear pages
+              for the global ones, the radix cache and snapshots
+              (gemma3-27b's pool cut to 768 pages, printed). Traffic:
+              two waves of 4 requests on a 256-token system prompt (wave
+              1 puts a snapshot at its end, each request of wave 2 hits
+              it; a hit under snapshots ends on a page boundary, so no
+              copy-on-write), then a two-turn chat of 4 prompts of
+              1100-1300 tokens whose second turns hit the snapshots. bf16
+              first inside _eager_steps(), then replayed and held bitwise
+              against it, then int8 (and, for gemma3-27b, the async loop:
+              the bf16 run's tokens); every attend on the split kernel
+              and the template kernel never; then qk_norm's device ms a
+              layer and a step at the step shapes, the layer-0 comparison (the embedding rows x sqrt(d),
+              rmsnorm_matmul and qk_norm against embed_gather of table
+              rows, N 1, 4, 64, 4096) and Model.apply at B 1, S 4096,
+              baseline and with the table (gemma3-1b: flash_attention at
+              d 256 once a layer).
 
-Every one-device engine run of phases 4-9 with the cuda backend steps
+Every one-device engine run of phases 4-10 with the cuda backend steps
 through the engine's per-step programs: each step shape's CUDA graph is
 captured at its first step and replayed after (a mesh and the reference
 backend run eagerly). Phases 4-7 run one engine of each family first
@@ -252,7 +289,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     dense_as_pages, dense_identity_table, dense_page_split, mla_split_form,
     page_validity, paged_attention, paged_attention_mla, paged_attention_plain,
     paged_attention_quant, quant_split_form, sharded_paged_attention,
-    sharded_paged_attention_plain)
+    sharded_paged_attention_plain, split_form)
 from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
                                      parse_mesh_spec)
 from repro_torch.kernels.rmsnorm_qkv import (  # noqa: E402
@@ -375,14 +412,18 @@ def phase_build() -> None:
 # tokens, decode steps of 4), the glm4-9b smoke config of the pressure phase
 # (3 slots, chunk 8, fp32) and the smoke configs of the consistency phase;
 # for embed_gather also N 1 and 4096 (2048 for pythia-6.9b), the decode and
-# prefill sizes of the layer-0 comparison.
+# prefill sizes of the layer-0 comparison; gemma3-1b (2688-wide rows, 4 q
+# heads and 1 k head of 256) and gemma3-27b (13568-wide rows, 48 rotated
+# heads of 128) as their engines and layer-0 comparisons read them.
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 512, 4096)),
                ('glm4_9b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 4096)),
                ('glm4_9b', True, (torch.float32,), (3, 24)),
                ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)),
-               ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 2048)))
+               ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 2048)),
+               ('gemma3_1b', False, (torch.bfloat16,), (1, 4, 64, 4096)),
+               ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 4096)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (1, 4, 64, 512)),
               ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -392,7 +433,10 @@ ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
               ('mistral_7b', True, (torch.float32,), (3, 12)),
               ('glm4_9b', True, (torch.float32,), (3, 24)),
               ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)),
-              ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 512)))
+              ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 512)),
+              ('gemma3_1b', False, (torch.bfloat16, torch.float32),
+               (1, 4, 64, 512)),
+              ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 512)))
 ROPE_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 
 
@@ -537,7 +581,9 @@ def check_gather_rope(gen) -> dict:
         rotated = torch.zeros(W, dtype=torch.bool, device='cuda')
         for off, heads, hd in segs:
             rotated[off:off + heads * hd] = True
-        kw = dict(segs=segs, theta=cfg.rope_theta)
+        # layer 0's theta: 10k for gemma3's local layer 0
+        kw = dict(segs=segs, theta=cfg.layer_rope_theta(
+            layer_plan(cfg).kinds[0]))
         for dtype in dtypes:
             tol = ROPE_TOL[dtype]
             table = torch.randn((V, W), generator=gen,
@@ -1717,8 +1763,9 @@ def check_quant_page_writes(gen) -> dict:
     return row
 
 
-def check_quantizing_write(gen, leaves, written) -> dict:
-    """The quantizing form of fused_page_write on glm4-9b's five int8
+def check_quantizing_write(gen, leaves, written, arch='glm4_9b',
+                           edge_rings=(GLM_SEQ, 27)) -> dict:
+    """The quantizing form of fused_page_write on ``arch``'s five int8
     leaves (``leaves``, the engine's pool) through the job lists of
     ``written`` ((label, Sc, T, pos0, jobs) of the int8-leaf writes), bf16
     and fp32 K/V values: bitwise its plain version
@@ -1726,13 +1773,14 @@ def check_quantizing_write(gen, leaves, written) -> dict:
     launch. Then the edge rows of ``tests/_torch_scenarios.py`` (NaN,
     zeros, .5 ties, bf16's largest values, an amax at which division and
     reciprocal differ) at page sizes 1 and 16, T 1 and 16, a linear table
-    and a ring. bf16 at T 1 and 16 timed beside the launch floor, the
+    and a ring (``edge_rings``: their Sc). bf16 at T 1 and 16 timed beside
+    the launch floor, the
     eager quantizer on K and V alone, and the eager quantizer followed by
     the write of the five quantized leaves (the path before the
     quantizing form). -> times for the kernels line."""
     sys.path.insert(0, os.path.join(ROOT, 'tests'))
     from _torch_scenarios import quant_write_case
-    cfg = get_config('glm4_9b')
+    cfg = get_config(arch)
     KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
     fills = [PM.leaf_fill(nm) for nm in QUANT_LEAVES]
     row = {}
@@ -1752,8 +1800,9 @@ def check_quantizing_write(gen, leaves, written) -> dict:
             assert PM.fused_page_write.launches == n0 + 1
             same_leaves(f'quantizing write {label} {dtype}', leaves, want)
             msg = (f'[kernel] fused_page_write quantizing {str(dtype)[6:]} '
-                   f'K/V -> int8 leaves {label}, {jobs.shape[0]} jobs: '
-                   'bitwise the quantizer + plain write, one launch')
+                   f'{cfg.name} K/V (KV {KV}, d {d}) -> int8 leaves {label}, '
+                   f'{jobs.shape[0]} jobs: bitwise the quantizer + plain '
+                   'write, one launch')
             if dtype is torch.bfloat16 and label.startswith('linear'):
                 n_w, n_f = write_counts(jobs, Sc, ps)
                 rb = [y[0, 0].numel() * y.element_size() for y in leaves]
@@ -1789,7 +1838,7 @@ def check_quantizing_write(gen, leaves, written) -> dict:
             log(msg)
     n_cases = 0
     for ps_, Sc, T, dtype in itertools.product(
-            (1, 16), (GLM_SEQ, 27), (1, 16), (torch.bfloat16, torch.float32)):
+            (1, 16), edge_rings, (1, 16), (torch.bfloat16, torch.float32)):
         pool, k, v, pos0, nv, table, pending = quant_write_case(
             ps_ + Sc + T, ps=ps_, Sc=Sc, T=T, KV=KV, hd=d)
         pools = [torch.from_numpy(pool[nm]).cuda() for nm in QUANT_LEAVES]
@@ -1811,8 +1860,9 @@ def check_quantizing_write(gen, leaves, written) -> dict:
         n_cases += 1
     log(f'[kernel] fused_page_write quantizing, edge rows (NaN, zeros, .5 '
         f'ties, bf16 max, division vs reciprocal) at KV {KV} d {d}, page '
-        f'sizes 1 and 16, Sc {GLM_SEQ} and 27, T 1 and 16, bf16 and fp32: '
-        f'{n_cases} cases bitwise the quantizer + plain write')
+        f'sizes 1 and 16, Sc {" and ".join(map(str, edge_rings))}, T 1 and '
+        f'16, bf16 and fp32: {n_cases} cases bitwise the quantizer + plain '
+        'write')
     return row
 
 
@@ -2058,13 +2108,151 @@ def same_leaves(label, got, want) -> None:
         assert torch.equal(g.view(bits), w.view(bits)), f'{label}: {nm}'
 
 
+# ----------------------- phase 3: gemma3-1b (head width 256) and its pool
+# the gemma3 engines' geometry: 4 slots, page 16, chunk 16, max_seq 2048;
+# the attend checks' slots hold GEMMA_LENGTHS tokens (a local layer's ring
+# wraps in slots 0 and 3; slot 2 is empty)
+GEMMA_SEQ = 2048
+GEMMA_LENGTHS = (1300, 700, 0, 1100)
+
+
+def gemma_attend_cases(gen, quant):
+    """gemma3-1b's attend (KV 1, G 4, d 256) on its engine's pool, through
+    a scattered table: a local layer's ring of cache_len(512, 2048, 16) =
+    527 positions a slot (33 ring pages; position p at ring index p % 527)
+    and a global layer's linear pages; bf16 pages, or int8 with bf16
+    scales (``quant``); bf16 queries at T 1 and 16. Yields (label, the
+    arguments of paged_attention or paged_attention_quant, kwargs, the
+    dense view of the slots' k / v / positions)."""
+    cfg = get_config('gemma3_1b')
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, RING_PS, RING_SLOTS
+    G = cfg.num_heads // KV
+    for kind in ('local', 'global'):
+        window = cfg.layer_window(kind)
+        Sc = A.cache_len(window, GEMMA_SEQ, 16)
+        P = -(-Sc // ps)
+        NP = 1 + B * P
+        if quant:
+            pages = int8_leaves(gen, (NP, ps), KV, d)
+            k, v = pages[:2]
+        else:
+            k, v, _ = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
+            pages = (k, v)
+        table = scattered_table(gen, B, P, NP,
+                                [min(n, Sc) for n in GEMMA_LENGTHS], ps)
+        cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
+        for b, n in enumerate(GEMMA_LENGTHS):
+            p = torch.arange(max(0, n - Sc), n, device='cuda')
+            idx = p % Sc
+            cpos[table[b, idx // ps].long(), idx % ps] = p.to(torch.int32)
+        view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, Sc)
+        for T in (1, 16):
+            pos0 = torch.tensor([max(n - T, 0) for n in GEMMA_LENGTHS],
+                                dtype=torch.int32, device='cuda')
+            q = torch.randn((B, T, KV, G, d), generator=gen,
+                            device='cuda').to(torch.bfloat16)
+            yield (f'gemma3-1b {kind} Sc={Sc} T={T}',
+                   (q, *pages, cpos, table, pos0),
+                   dict(scale=d ** -0.5, window=window), view)
+        del pages, k, v, cpos, table, view
+
+
+def check_gemma_kernels(gen) -> dict:
+    """The kernels at gemma3-1b's shapes. The split paged_attention at d
+    256 (four warps share a tile of query rows), its dense form held
+    within 2e-2 and by ``check_paged_bf16`` (the row-scaled limit; T 16
+    rows bitwise one-token calls), its int8 form by ``check_quant_case``,
+    both over ``gemma_attend_cases``, timed with the plain version, sdpa
+    (bf16) and the bound; the quantizing fused_page_write at KV 1, d 256
+    (:func:`check_quantizing_write_gemma`); cow_page_copy over its 25
+    stacked layers' pages, bf16 and int8 leaves. -> rows by kernel, keyed
+    '<kind> T<T>' for the attends."""
+    out = {'paged_attention': {}, 'paged_attention_quant': {}}
+    for label, args, kw, view in gemma_attend_cases(gen, quant=False):
+        q, pos0 = args[0], args[-1]
+        assert split_form(q, args[1], args[2]), label
+        got = paged_attention(*args, **kw)
+        want = paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert not got[2].any(), 'empty slot must attend to zeros'
+        held = check_paged_bf16(label, got, want, args, kw)
+        del got, want
+        ms = time_ms(lambda: paged_attention(*args, **kw))
+        plain = time_ms(lambda: paged_attention_plain(*args, **kw))
+        lib = library_attention_ms(q, view['k'], view['v'], view['pos'],
+                                   pos0, kw['window'])
+        b_ms, by = attention_bound(q, view['k'], view['pos'], pos0,
+                                   kw['window'], torch.bfloat16)
+        log(f'[kernel] paged_attention bf16 {label} B={q.shape[0]} KV=1 G=4 '
+            f'd=256 scattered table: split kernel; max |err| {err:.3g} (tol '
+            f'2e-2; {held}), empty slot zeros; kernel {ms:.4f} ms, plain '
+            f'{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+        key = label.split(' ', 1)[1]
+        out['paged_attention'][key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=by, library_ms=lib)
+    for label, args, kw, view in gemma_attend_cases(gen, quant=True):
+        assert quant_split_form(args[0], args[1]), label
+        out['paged_attention_quant'][label.split(' ', 1)[1]] = \
+            check_quant_case(label, args, kw, view['pos'])
+    out['fused_page_write'] = check_quantizing_write_gemma(gen)
+    out['cow_page_copy'] = check_cow_pages(gen, 'gemma3_1b', ('bf16', 'int8'),
+                                           PYTHIA_COW_NP)
+    free()
+    return out
+
+
+def check_quantizing_write_gemma(gen) -> dict:
+    """:func:`check_quantizing_write` at gemma3-1b's pool rows (KV 1, d
+    256: one head's values over the 32 lanes of a warp) on the five int8
+    leaves of its engine's default pool: linear job lists at T 1 and 16
+    and a local layer's ring (Sc 527) at T 16, then the edge rows over a
+    linear table and that ring. -> its times."""
+    cfg = get_config('gemma3_1b')
+    KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, RING_PS, RING_SLOTS
+    Sc_ring = A.cache_len(cfg.window, GEMMA_SEQ, 16)
+    lin, ring = GEMMA_SEQ // ps, -(-Sc_ring // ps)
+    NP = 1 + B * (lin + ring) + 8 * lin
+    k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
+    pos = torch.randint(0, 4096, (NP, ps), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    leaves = [k, v, ks, vs, pos]
+    for x, nm in zip(leaves, QUANT_LEAVES):
+        x[0] = PM.leaf_fill(nm)                   # the null page
+    cases = [(f'linear T={T}', GEMMA_SEQ, T, [1300, 700, 0, 1100],
+              [T, T, 0, 1], scattered_table(gen, B, lin, NP,
+                                            [1300 + T, 700 + T, 0, 1101], ps))
+             for T in (1, 16)]
+    cases.append((f'ring Sc={Sc_ring} T=16', Sc_ring, 16, [1300, 520, 0, 1100],
+                  [16, 9, 0, 16],
+                  scattered_table(gen, B, ring, NP, [Sc_ring] * B, ps)))
+    written = []
+    for label, Sc, T, pos0, nv, table in cases:
+        pos0, nv = (torch.tensor(x, dtype=torch.int32, device='cuda')
+                    for x in (pos0, nv))
+        start = torch.div(pos0 % Sc, ps, rounding_mode='floor').long()
+        pending = torch.stack([table[1, start[1]], table.new_tensor(NP - 1),
+                               table.new_tensor(0)]).to(torch.int32)
+        written.append((label, Sc, T, pos0,
+                        PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)))
+    row = check_quantizing_write(gen, leaves, written, 'gemma3_1b',
+                                 (GEMMA_SEQ, Sc_ring))
+    del leaves, k, v, ks, vs, pos
+    return row
+
+
 # --------------------------------- phase 3: full-sequence flash attention
 # (config, S, window): the shapes Model.apply gives the flash kernel
 # (mistral-7b S 8192 with its 4096 window, glm4-9b S 4096 causal,
-# pythia-6.9b S 2048 over 32 kv heads) and a ragged S (not a multiple of
-# any tile)
+# pythia-6.9b S 2048 over 32 kv heads, gemma3-1b S 4096 at d 256 over one
+# kv head, a local layer's 512 window and a global layer) and a ragged S
+# (not a multiple of any tile)
 FLASH_CASES = (('mistral_7b', 8192, 4096), ('glm4_9b', 4096, 0),
-               ('glm4_9b', 4097, 0), ('pythia_6_9b', 2048, 0))
+               ('glm4_9b', 4097, 0), ('pythia_6_9b', 2048, 0),
+               ('gemma3_1b', 4096, 512), ('gemma3_1b', 4096, 0))
 # tests/test_kernels.py's tolerances (2e-5 fp32, 3e-2 bf16); and in bf16 a
 # limit scaled by the output, |err| <= 0.02 rms(row) + 0.016 |want|: the
 # kernel rounds its probabilities to bf16 (2^-9 relative), an error that
@@ -2167,6 +2355,10 @@ def check_flash_attention(gen) -> dict:
             if (name, S, dtype) == ('mistral_7b', 8192, torch.bfloat16):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=by, library_ms=lib)
+            if name.startswith('gemma') and dtype is torch.bfloat16:
+                row.setdefault(name, {})[f'window {window}'] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=by, library_ms=lib)
             del q, k, v
             free()
     return row
@@ -2237,12 +2429,32 @@ def check_layer0(model, params, table, counts, rows) -> None:
     (``library_hilo``) and the bound. Launches rotate over COLD_COPIES
     weight copies and 16 id sets, so each replay reads its weights and
     rows from device memory, as a decode step that ran other layers
-    between two layer-0 reads would. The kernels line's row is mistral-7b
-    N 8192's; its ``at_n`` holds every config's and N's."""
+    between two layer-0 reads would. gemma3: the rows read are scaled by
+    sqrt(d) in bf16 and both baselines end with the per-head qk_norm, as
+    layer 0 runs them (the table holds both folded in). The kernels line's
+    row is mistral-7b N 8192's; its ``at_n`` holds every config's and
+    N's."""
     cfg = model.cfg
     lay0 = params['backbone']['layer0']
     scale = lay0['ln1']['scale']
-    ws = [lay0['attn'][nm]['w'] for nm in ('wq', 'wk', 'wv')]
+    att = lay0['attn']
+    ws = [att[nm]['w'] for nm in ('wq', 'wk', 'wv')]
+    q_w, k_w = ws[0].shape[1], ws[1].shape[1]
+    emb_scale = torch.tensor(cfg.d_model ** 0.5, dtype=ws[0].dtype,
+                             device='cuda') if cfg.embed_scale else None
+
+    def rows_of(t):
+        """The embedding rows layer 0 reads (scaled by sqrt(d) in gemma3)."""
+        x = params['embed']['table'][t.long()]
+        return x if emb_scale is None else x * emb_scale
+
+    def qk(q, k, v):
+        """qk_norm after the projections (gemma3); nothing elsewhere."""
+        return (*A.qk_normalize(att, q, k, cfg), v)
+
+    def qk_cat(y):
+        return qk(y[..., :q_w], y[..., q_w:q_w + k_w], y[..., q_w + k_w:]) \
+            if cfg.qk_norm else y
     sets = [ws] + [[w.clone() for w in ws] for _ in range(COLD_COPIES - 1)]
     cats = [torch.cat(s, dim=1) for s in sets]
     cat2 = torch.cat([cats[0], cats[0]], dim=0)
@@ -2255,7 +2467,7 @@ def check_layer0(model, params, table, counts, rows) -> None:
         ids = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device='cuda', dtype=torch.int32)
                for _ in range(16)]
-        x = embed[ids[0].long()]
+        x = rows_of(ids[0])
         form = rmsnorm_matmul_form(x, ws)
         n0 = rmsnorm_matmul.launches
         got = rmsnorm_qkv(x, scale, *ws)
@@ -2288,12 +2500,12 @@ def check_layer0(model, params, table, counts, rows) -> None:
 
         def baseline():
             i, t = pick()
-            return rmsnorm_qkv(embed[t.long()], scale, *sets[i])
+            return qk(*rmsnorm_qkv(rows_of(t), scale, *sets[i]))
 
         def baseline_lib():
             i, t = pick()
-            return torch.matmul(F.rms_norm(embed[t.long()], (d,), scale, EPS),
-                                cats[i])
+            return qk_cat(torch.matmul(F.rms_norm(rows_of(t), (d,), scale,
+                                                  EPS), cats[i]))
 
         def precomputed():
             return embed_gather(rows_tab, pick()[1])
@@ -2319,9 +2531,12 @@ def check_layer0(model, params, table, counts, rows) -> None:
                                (baseline, baseline_lib, precomputed))
         base_bytes = n * d * es + d * es + d * W * es
         pre_bytes = n * rows_tab.shape[1] * es
-        log(f'[layer0] {cfg.name} N={n}: baseline (embedding rows + '
+        extra = (' x sqrt(d)' if cfg.embed_scale else '') + (
+            ' + qk_norm' if cfg.qk_norm else '')
+        log(f'[layer0] {cfg.name} N={n}: baseline (embedding rows{extra} + '
             f'rmsnorm_matmul) {base:.4f} ms, {base_bytes} bytes read; library '
-            f'baseline (rows + F.rms_norm + torch.matmul) {base_lib:.4f} ms; '
+            f'baseline (rows + F.rms_norm + torch.matmul{extra}) '
+            f'{base_lib:.4f} ms; '
             f'precomputed (embed_gather of {rows_tab.shape[1]}-wide rows) '
             f'{pre:.4f} ms, {pre_bytes} bytes read; baseline / precomputed '
             f'{base / pre:.1f}x, library baseline / precomputed '
@@ -2609,9 +2824,16 @@ def calls_ms(fn, reps: int = 5) -> float:
 
 
 def serve_ring(model, params, table, prompts, tag, kv_quant, device,
-               eager: bool = False, expect=None, async_loop: bool = False):
-    """One paged engine (ring pages with snapshots) over a two-turn chat,
-    16 new tokens a request. Wave 1: ``prompts`` (every ring wraps in its
+               eager: bool = False, expect=None, async_loop: bool = False,
+               max_seq: int = RING_SEQ, num_pages=None, pre_waves=()):
+    """One paged engine (ring pages with snapshots; with global layers in
+    the pattern also linear pages) over a two-turn chat, 16 new tokens a
+    request. With ``pre_waves`` (two lists of requests on one system prompt
+    of ``GEMMA_SYSTEM`` tokens, the first of whose wave publishes its
+    snapshot at the system prompt's end: :func:`gemma_traffic`), those
+    waves first: the first misses, every request of the second hits the
+    whole system prompt, and each FINISHED with its tokens. Wave 1:
+    ``prompts`` (every ring wraps in its
     prefill; each publishes a snapshot at ((P - 1) // 16) * 16). Wave 2:
     each prompt + its 16 greedy tokens + 32 new tokens, a prefix hit at
     that snapshot and a restore. Then ``score()`` of the first prompt's
@@ -2623,21 +2845,23 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
     ``async_loop``: the engine runs the async double-buffered loop (no
     timings, no profile) and the flushes at snapshot boundaries (a pending
     lane's commit captures the ring before the slot's next chunk) are
-    counted and printed. -> (launches, greedy tokens of both waves,
-    digest)."""
+    counted and printed. ``max_seq`` and ``num_pages`` (None: the
+    engine's default pool) size the engine. -> (launches, greedy tokens of
+    the pre-waves and both chat waves, digest)."""
     cfg = model.cfg
     on_card = torch.device(device).type == 'cuda'
     attn = 'paged_attention_quant' if kv_quant else 'paged_attention'
     rng = np.random.default_rng(SEED + 5)
-    eng = ServingEngine(model, params, max_slots=RING_SLOTS, max_seq=RING_SEQ,
-                        precomputed=table, seed=SEED,
+    eng = ServingEngine(model, params, max_slots=RING_SLOTS, max_seq=max_seq,
+                        num_pages=num_pages, precomputed=table, seed=SEED,
                         dtype=next(iter(params['embed'].values())).dtype,
                         chunk_size=16, fused_gather_rope=True,
                         prefix_cache=True, page_size=RING_PS,
                         kv_quant=kv_quant, attn_backend='cuda',
                         async_loop=async_loop, device=device)
     assert eng.paged and eng.fused_gather_rope and eng._fused_maint \
-        and eng._needs_snapshot and not eng._lin_layers
+        and eng._needs_snapshot \
+        and bool(eng._lin_layers) == ('global' in cfg.pattern)
     flushes = []
     if async_loop:
         flush = eng._flush_async
@@ -2664,6 +2888,9 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
     first = [Request(uid=i, prompt=p, max_new_tokens=16)
              for i, p in enumerate(prompts)]
     second = []
+    pre = [[Request(uid=r.uid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in w]
+           for w in pre_waves]
     with steps_mode(eager):
         eng.submit(Request(uid=100, prompt=warm, max_new_tokens=2))
         eng.run()
@@ -2675,12 +2902,20 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        snaps0 = snapshots_held(eng)[0]
         steps0 = eng.steps
         zero_launches()
         spans = program_spans() if on_card else contextlib.nullcontext([])
         with spans as events:
             waves, t_all = [], time.perf_counter()
+            for reqs in pre:
+                t0 = time.perf_counter()
+                for r in reqs:
+                    eng.submit(r)
+                eng.run()
+                if on_card:
+                    torch.cuda.synchronize()
+                waves.append(time.perf_counter() - t0)
+            snaps0 = snapshots_held(eng)[0]
             for wave in range(2):
                 reqs = first if wave == 0 else second
                 t0 = time.perf_counter()
@@ -2700,35 +2935,46 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
             dt = time.perf_counter() - t_all
     launches = read_launches()
     steps = eng.steps - steps0
-    reqs = first + second
-    for r in reqs:
+    pre = [r for w in pre for r in w]
+    for r in pre + first + second:
         assert r.status is RequestStatus.FINISHED, (r.uid, r.status, r.error)
-        assert len(r.generated) == 16, (r.uid, len(r.generated))
+        assert len(r.generated) == r.max_new_tokens, (r.uid,
+                                                      len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    reqs = pre + first + second
     hits = [((len(p) - 1) // RING_PS) * RING_PS for p in prompts]
+    pre_hits = [r.prefix_hit_tokens for r in pre]
+    if pre_waves:
+        assert pre_hits == [0] * len(pre_waves[0]) + [GEMMA_SYSTEM] * len(
+            pre_waves[1]), pre_hits
     assert [r.prefix_hit_tokens for r in first] == [0] * len(first)
     assert [r.prefix_hit_tokens for r in second] == hits, \
         ([r.prefix_hit_tokens for r in second], hits)
     stats = eng.stats(reqs)
     assert stats['cow_copies'] == 0 and launches['cow_page_copy'] == 0, \
         launches
-    for name in (attn, 'fused_page_write'):
-        assert launches[name] == cfg.num_layers * steps, \
+    for name in (attn, 'fused_page_write'):     # wrappers count on the card
+        assert not on_card or launches[name] == cfg.num_layers * steps, \
             (name, launches[name], steps)
-    assert launches['gather_rope'] + launches['embed_gather'] == steps \
-        and launches['gather_rope'] > 0, (launches, steps)
+    assert not on_card or launches['gather_rope'] \
+        + launches['embed_gather'] == steps and launches['gather_rope'] > 0, \
+        (launches, steps)
     if kv_quant:
         assert launches['paged_attention'] == 0, launches
     ttft = [[r.first_token_t - r.submit_t for r in w]
             for w in (first, second)]
     n_snap, snap_bytes = snapshots_held(eng)
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
-    log(f'[{tag}] 8 requests (wave 1 prompts {[len(p) for p in prompts]}, '
-        f'wave 2 second turns {[len(r.prompt) for r in second]}), '
+    pre_text = '' if not pre else (
+        f'pre-waves {[len(w) for w in pre_waves]} requests (prompts '
+        f'{[len(r.prompt) for r in pre]}, prefix hits {pre_hits}), then ')
+    log(f'[{tag}] {len(reqs)} requests ({pre_text}chat wave 1 prompts '
+        f'{[len(p) for p in prompts]}, wave 2 second turns '
+        f'{[len(r.prompt) for r in second]}), '
         f'{stats["tokens"]} new tokens in {dt:.3f}s -> '
         f'{stats["tokens"] / dt:.1f} tok/s; {steps} steps '
         f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
-        f'{[round(w, 3) for w in waves]}; mean TTFT on a miss (wave 1) '
+        f'{[round(w, 3) for w in waves]}; mean TTFT on a miss (chat wave 1) '
         f'{np.mean(ttft[0]):.3f}s, on a hit (wave 2) {np.mean(ttft[1]):.3f}s '
         f'({np.mean(ttft[0]) / np.mean(ttft[1]):.1f}x); peak memory '
         f'{peak:.2f} GiB' + ('; ' + span_text(events, dt, steps)
@@ -2783,7 +3029,7 @@ def serve_ring(model, params, table, prompts, tag, kv_quant, device,
                 f'{alone[what]:.4f} device ms; bound {b_ms:.4f} ms ({by})')
     log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
         f'({attn} and fused_page_write {cfg.num_layers} a step, one gather '
-        'a step, cow_page_copy 0); all requests FINISHED with 16 tokens '
+        'a step, cow_page_copy 0); all requests FINISHED with their tokens '
         '(finite logits)')
     if timing:
         profile_engine(eng, [Request(uid=20 + i, prompt=np.concatenate(
@@ -2957,6 +3203,7 @@ def check_replay(tag, eng, got, want) -> None:
         f'{tag}: score logits differ from the eager run'
     assert len(got['leaves']) == len(want['leaves']), tag
     for i, (a, b) in enumerate(zip(got['leaves'], want['leaves'])):
+        b = b.to(a.device)           # an eager digest may be held on the host
         assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(
             a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)
         ), f'{tag}: state leaf {i} {tuple(a.shape)} differs from the eager run'
@@ -4224,6 +4471,164 @@ def consistency(kv_quant: bool, device) -> list:
     return ds_tokens
 
 
+# ---------------------------------------------------------------- phase 10
+# gemma3-27b's pool, cut from the engine's default of 1797 pages (4 slots x
+# (128 linear + 65 ring pages) + 8 x 128): a page holds 16 tokens of all 62
+# layers, 8.1 MB in bf16, and 50.3 GiB of weights, the 6.6 GiB table and
+# the chat's snapshots (0.40 GiB each) leave no room for 14.6 GB of pool;
+# 768 pages still hold the four slots' rings and the chat's linear pages
+GEMMA27_PAGES = 768
+
+
+GEMMA_SYSTEM = 256
+GEMMA_TAILS = ((9, 120, 77, 40), (23, 64, 100, 31))
+
+
+def gemma_traffic(cfg):
+    """Two waves of 4 requests on a 256-token system prompt, each with a
+    tail of its own (``GEMMA_TAILS``) and 16 new tokens, and a chat's first
+    turns: 4 prompts of 1100-1300 tokens, past both gemma3 windows (512,
+    1024). Under snapshots a prompt publishes at the last page boundary
+    before its final token, so wave 1's 9-token tail puts a snapshot at the
+    system prompt's end (256) and each request of wave 2 hits there. Such a
+    hit always ends on a page boundary: no request copies on write."""
+    rng = np.random.default_rng(SEED + 9)
+    system = rng.integers(3, cfg.vocab_size, size=GEMMA_SYSTEM).astype(
+        np.int32)
+    uid = itertools.count(200)
+    waves = tuple([Request(uid=next(uid), prompt=np.concatenate(
+        [system, rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)]),
+        max_new_tokens=16) for n in tails] for tails in GEMMA_TAILS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        1100, 1301))).astype(np.int32) for _ in range(RING_SLOTS)]
+    return waves, prompts
+
+
+def split_calls(fn):
+    """``fn()`` with the C entry points of paged_attention.cu counted:
+    template and split kernels of the dense and int8 forms (a graph
+    replay calls none; a capture or an eager step calls each form it
+    runs). -> (fn's result, calls by entry point)."""
+    lib = build.load('paged_attention')
+    names = ('paged_attention', 'paged_attention_quant',
+             'paged_attention_split', 'paged_attention_quant_split')
+    counters = [count_calls(lib, nm) for nm in names]
+    try:
+        out = fn()
+    finally:
+        for c in counters:
+            c.undo()
+    return out, {c.name: c.calls for c in counters}
+
+
+def qk_norm_ms(cfg, params, tag) -> None:
+    """Device ms that ``qk_norm`` (per-head RMSNorm of q and k, plain
+    PyTorch) takes a layer at the engine's step shapes (4 slots, T 1 and
+    16), and a step: every layer but layer 0, whose q and k come from the
+    table; the kernels a layer are a CUDA graph's nodes."""
+    p = params['backbone']['layer0']['attn']
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    parts = []
+    for T in (1, 16):
+        q, k = (torch.randn(RING_SLOTS, T, n, device='cuda', generator=gen,
+                            dtype=torch.bfloat16)
+                for n in (cfg.q_size, cfg.kv_size))
+
+        def fn():
+            return A.qk_normalize(p, q, k, cfg)
+        ms = time_ms(fn)
+        parts.append(f'T {T}: {device_kernels(fn)} kernels, {ms:.4f} ms a '
+                     f'layer, {ms * (cfg.num_layers - 1):.3f} ms a step')
+    log(f'[{tag}] qk_norm (plain PyTorch, q and k of {cfg.num_layers - 1} '
+        f'layers a step; layer 0 from the table), {RING_SLOTS} slots: '
+        + '; '.join(parts))
+
+
+def phase_gemma(arch, tag, rows, num_pages=None, runs=('int8',)) -> dict:
+    """``arch`` (gemma3-27b or gemma3-1b) at full width and depth on seeded
+    random bf16 weights: the table (qk_norm and the sqrt(d) embedding scale
+    folded in), the fused gather-RoPE at layer 0's theta (10k: layer 0 is
+    local), the cuda backend, 4 slots, chunk 16, page 16, max_seq 2048; the
+    paged pool holds ring pages for the local layers and linear pages for
+    the global ones, with the radix cache and snapshots. Each run serves
+    ``gemma_traffic`` through :func:`serve_ring` (two waves on a system
+    prompt, the second hitting its snapshot, then the two-turn chat whose
+    second turns hit the snapshots): bf16 first inside ``_eager_steps()``,
+    then replayed and held bitwise against it, then the extra ``runs``
+    ('int8'; 'async': the async loop, the bf16 run's tokens). Every attend
+    takes the split kernel (dense or int8 form) and the template never
+    (``split_calls``). Then the cost of ``qk_norm`` a step
+    (:func:`qk_norm_ms`), the layer-0 comparison and Model.apply at S 4096.
+    -> launches by run."""
+    cfg = get_config(arch)
+    model = Model(cfg)
+    plan = layer_plan(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
+    table = model.build_table(params)
+    torch.cuda.synchronize()
+    log(f'[{tag}] {cfg.name}: {cfg.num_layers} layers (layer 0 '
+        f'{plan.kinds[0]}, {plan.reps} x {plan.slots}, tail {plan.n_tail}), '
+        f'd {cfg.d_model}, {cfg.num_heads}H/{cfg.num_kv_heads}KV x '
+        f'{cfg.head_dim}, window {cfg.window}, RoPE theta local '
+        f'{cfg.layer_rope_theta("local"):g} / global '
+        f'{cfg.layer_rope_theta("global"):g}, qk_norm, sqrt(d) embedding '
+        f'scale, {cfg.act} MLP {cfg.d_ff}, tied head, vocab '
+        f'{cfg.vocab_size}; weights {tree_bytes(params) / 2**30:.2f} GiB + '
+        f'table {tuple(table.table.shape)} {str(table.table.dtype)[6:]} '
+        f'({nbytes(table.table) / 2**30:.2f} GiB, layout {table.layout}) '
+        f'made on the card in {time.perf_counter() - t0:.1f}s')
+    waves, prompts = gemma_traffic(cfg)
+    if num_pages is not None:
+        lin = GEMMA_SEQ // RING_PS
+        ring = -(-A.cache_len(cfg.window, GEMMA_SEQ, 16) // RING_PS)
+        log(f'[{tag}] pool cut to {num_pages} pages from the engine\'s '
+            f'default {1 + RING_SLOTS * (lin + ring) + 8 * lin} (widths '
+            'unchanged)')
+
+    def serve(run, kv_quant, **kw):
+        (launches, tokens, digest), calls = split_calls(lambda: serve_ring(
+            model, params, table, prompts, run, kv_quant, 'cuda',
+            max_seq=GEMMA_SEQ, num_pages=num_pages, pre_waves=waves, **kw))
+        split = 'paged_attention_quant_split' if kv_quant \
+            else 'paged_attention_split'
+        assert calls[split] > 0 and calls['paged_attention'] == 0 \
+            and calls['paged_attention_quant'] == 0, (run, calls)
+        log(f'[{run}] attends by form (host calls: captures and eager '
+            f'steps): {json.dumps(calls)}; the template kernel never')
+        if digest is not None:      # a digest holds the engine's state
+            digest['leaves'] = [x.cpu() for x in digest['leaves']]
+        return launches, tokens, digest
+    out = {}
+    base = f'{tag}_paged'
+    want = serve(base, False, eager=True)[2]
+    free()
+    out[base] = serve(base, False, expect=want)
+    del want
+    free()
+    if 'int8' in runs:
+        out[base + '_int8'] = serve(base + '_int8', True)
+        free()
+        log(f'[{base}_int8] greedy tokens equal to the bf16 run\'s: '
+            f'{token_share(out[base + "_int8"][1], out[base][1])} (reported, '
+            'not checked)')
+    if 'async' in runs:
+        out[base + '_async'] = serve(base + '_async', False, async_loop=True)
+        assert out[base + '_async'][1] == out[base][1], \
+            f'{base}_async: greedy tokens differ from [{base}]'
+        log(f'[{base}_async] greedy tokens '
+            f'({sum(map(len, out[base][1]))}) equal to [{base}]\'s')
+        free()
+    phases = {run: v[0] for run, v in out.items()}
+    qk_norm_ms(cfg, params, tag)
+    check_layer0(model, params, table, LAYER0_COUNTS, rows)
+    phases.update(phase_apply(model, params, table, 4096, tag))
+    del params, table, model
+    free()
+    return phases
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -4248,6 +4653,8 @@ def main() -> None:
         rows[name]['mistral_ring'] = ring
     rows['flash_attention'] = check_flash_attention(gen)
     free()
+    for name, row in check_gemma_kernels(gen).items():
+        rows[name]['gemma3_1b'] = row
     phases = phase_mistral(rows)
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
@@ -4263,6 +4670,11 @@ def main() -> None:
     free()
     phases['pressure'] = phase_pressure()
     phase_consistency()
+    free()
+    phases.update(phase_gemma('gemma3_27b', 'gemma27', rows,
+                              num_pages=GEMMA27_PAGES,
+                              runs=('int8', 'async')))
+    phases.update(phase_gemma('gemma3_1b', 'gemma1', rows))
     # each kernel's launches on the engine path its row was measured for
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',

@@ -14,9 +14,11 @@ from repro_torch.config import ModelConfig
 # the paper's serial example (sliding window), an all-global GQA model for
 # the paged KV pool, an MLA + MoE model (latent caches, expert FFN) and the
 # paper's parallel example (LayerNorm, MHA; the FFN and the skip fold into
-# the table); other families join as their modules are ported
+# the table), and gemma3 (5:1 local/global, two RoPE thetas, qk_norm folded
+# into the table, head width 256 in the 1b); other families join as their
+# modules are ported
 ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
-                      'pythia_6_9b']
+                      'pythia_6_9b', 'gemma3_1b', 'gemma3_27b']
 
 
 def _norm(name: str) -> str:

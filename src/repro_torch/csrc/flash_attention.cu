@@ -22,7 +22,8 @@
 // Design: one block per (batch, kv head, tile of Tq query positions); the
 // block's rows are the G query heads of those positions, so each K/V tile
 // is loaded once for all G heads that read it: Tq = 128 / G in bf16 (128
-// rows, 8 warps of 16), Tq = 64 / G in fp32 (64 rows, 4 warps), at least 1.
+// rows, 8 warps of 16; 64 rows at d 256, below), Tq = 64 / G in fp32 (64
+// rows, 4 warps), at least 1.
 // The block walks keys in tiles of 64 from max(0, q0 - window + 1) to the
 // last query's own index (causal), or to S: tiles wholly outside the window
 // or in the future are never read. That skip is by index, so the mask
@@ -54,7 +55,15 @@
 // a tile, waited on with cp.async.wait_group, so the copies of the next tiles
 // are in flight while the math runs on this one. Blocks start with the last
 // query tile, whose causal range is the longest, so the short ones fill in at
-// the end.
+// the end. Head width 256 (gemma3-1b; Bf16Tile): a warp owning 16 rows with
+// all 256 value columns would hold 128 fp32 accumulator and 64 Q-fragment
+// registers a lane before S and P, and spill; and three stages of 64-key
+// K/V tiles (203 KB) beside 128 query rows (66 KB) exceed the 227 KB a block
+// may have. So at d 256 two warps share 16 rows, each computing their whole
+// S and softmax (the same instructions on the same data) and owning 128 of
+// the value columns; a block holds 64 rows (8 warps), and the ring 2 stages:
+// the copy of tile i + 1 still overlaps the math of tile i (165 KB a
+// block).
 // float32 (flash_f32): plain FMA with the accumulator in registers (no
 // TF32), key rows padded by one float so lanes reading different keys hit
 // different banks; loads and stores are 16 bytes a thread.
@@ -72,8 +81,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // fp32 kernel
 constexpr int kRows = 64;      // query rows (positions x heads) per block, fp32
 constexpr int kThreadsBf16 = 256;
-constexpr int kRowsBf16 = 128;  // bf16: 8 warps of 16 rows
-constexpr int kStages = 3;      // bf16: K/V tiles in flight
 constexpr int kBk = 64;         // keys per tile
 constexpr int kRowsPerWarp = 16;
 constexpr float kNegInf = -1073741824.0f;  // -2^30, NEG_INF of the Pallas kernel
@@ -102,6 +109,17 @@ __device__ __forceinline__ bool tile_needs_index_rule(int j0, int q0, int q_last
   return (causal && j0 + kBk - 1 > q0) || (window > 0 && j0 < q_last - window + 1);
 }
 
+// the bf16 kernel's tiles by head width (see Design): warps sharing 16
+// rows (each owning kCols value columns), rows a block, K/V tiles in flight
+template <int D>
+struct Bf16Tile {
+  static constexpr int kColWarps = D > 128 ? 2 : 1;
+  static constexpr int kCols = D / kColWarps;
+  static constexpr int kRows = kThreadsBf16 / 32 * 16 / kColWarps;  // 128; 64 at d 256
+  static constexpr int kStages = D > 128 ? 2 : 3;
+  static_assert(kCols % 16 == 0, "a warp's value columns in 16-wide ldmatrix steps");
+};
+
 // shared-memory layout of the bf16 kernel, in bytes: the Q rows (read once
 // into registers), then kStages buffers of (K tile, V tile, key positions)
 template <int D>
@@ -109,8 +127,8 @@ struct Bf16Smem {
   static constexpr int kLd = D + 8;  // bf16 per row: 16 bytes of padding
   static constexpr int kQ = 0;
   static constexpr int kStage = 2 * kBk * kLd * 2 + kBk * 4;
-  static constexpr int kBuf = kQ + kRowsBf16 * kLd * 2;
-  static constexpr int kBytes = kBuf + kStages * kStage;
+  static constexpr int kBuf = kQ + Bf16Tile<D>::kRows * kLd * 2;
+  static constexpr int kBytes = kBuf + Bf16Tile<D>::kStages * kStage;
 };
 
 // shared-memory layout of the fp32 kernel, in bytes
@@ -136,6 +154,8 @@ __device__ __forceinline__ void key_range(const Args& a, int q0, int& lo, int& h
 template <int D>
 __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
   using L = Bf16Smem<D>;
+  using W = Bf16Tile<D>;
+  constexpr int kStages = W::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
 
@@ -174,7 +194,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
   };
 
   // Q rows (zeros past R or S), with tile 0 as commit group 0; tile 1 group 1
-  for (int e = tid; e < kRowsBf16 * kVec; e += kThreadsBf16) {
+  for (int e = tid; e < W::kRows * kVec; e += kThreadsBf16) {
     const int r = e / kVec, c = (e % kVec) * 8, i = q0 + r / a.G;
     const bool ok = r < R && i < S;
     const long long off = ok ? (((long long)b * S + i) * H + kvh * a.G + r % a.G) * D + c : 0;
@@ -186,13 +206,15 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
     cp_async_commit();
   }
 
-  // this warp's 16 rows: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1
+  // this warp's 16 rows from r0: lane holds rows g and g + 8, columns 2 tq,
+  // 2 tq + 1; its value columns start at c0
   const int g = lane >> 2, tq = lane & 3;
+  const int r0 = warp / W::kColWarps * kRowsPerWarp, c0 = warp % W::kColWarps * W::kCols;
   int rr[2], qi[2], pq[2];
   bool rok[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    rr[u] = warp * kRowsPerWarp + g + 8 * u;
+    rr[u] = r0 + g + 8 * u;
     qi[u] = q0 + rr[u] / a.G;
     rok[u] = rr[u] < R && qi[u] < S;
     pq[u] = rok[u] ? pos[qi[u]] : 0;
@@ -214,13 +236,13 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
   unsigned aq[kK][4];
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk)
-    ldsm_x4(aq[kk], sQ + (warp * kRowsPerWarp + (lane & 7) + ((lane >> 3) & 1) * 8) * L::kLd +
-                        kk * 16 + (lane >> 4) * 8);
+    ldsm_x4(aq[kk], sQ + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::kLd + kk * 16 +
+                        (lane >> 4) * 8);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[W::kCols / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int nt = 0; nt < W::kCols / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 2>();
@@ -320,7 +342,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
     // so a warp whose maxima all held skips it)
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
+      for (int nt = 0; nt < W::kCols / 8; ++nt) {
         o[nt][0] *= corr[0];
         o[nt][1] *= corr[0];
         o[nt][2] *= corr[1];
@@ -336,10 +358,10 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
                               pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                               pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < W::kCols / 16; ++n2) {
         unsigned bv[4];
-        ldsm_x4_t(bv, sV + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + n2 * 16 +
-                          (lane >> 4) * 8);
+        ldsm_x4_t(bv, sV + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + c0 +
+                          n2 * 16 + (lane >> 4) * 8);
         mma(o[2 * n2], ap, bv[0], bv[1]);
         mma(o[2 * n2 + 1], ap, bv[2], bv[3]);
       }
@@ -352,9 +374,10 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_bf16(Args a) {
   for (int u = 0; u < 2; ++u) {
     if (!rok[u]) continue;
     const float inv_l = 1.f / fmaxf(l[u], 1e-30f);
-    bf16* orow = out + (((long long)b * S + qi[u]) * H + kvh * a.G + rr[u] % a.G) * D + 2 * tq;
+    bf16* orow =
+        out + (((long long)b * S + qi[u]) * H + kvh * a.G + rr[u] % a.G) * D + c0 + 2 * tq;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < W::kCols / 8; ++nt)
       *reinterpret_cast<unsigned*>(orow + nt * 8) =
           pack_bf16(o[nt][2 * u] * inv_l, o[nt][2 * u + 1] * inv_l);
   }
@@ -529,13 +552,14 @@ cudaError_t launch(Kern kern, int threads, int rows, int smem, Args a, int B,
 template <int D>
 cudaError_t dispatch(const Args& a, int B, int dtype_code, cudaStream_t s) {
   if (dtype_code == 0) return launch(flash_f32<D>, kThreads, kRows, F32Smem<D>::kBytes, a, B, s);
-  return launch(flash_bf16<D>, kThreadsBf16, kRowsBf16, Bf16Smem<D>::kBytes, a, B, s);
+  return launch(flash_bf16<D>, kThreadsBf16, Bf16Tile<D>::kRows, Bf16Smem<D>::kBytes, a, B,
+                s);
 }
 
 }  // namespace
 
 // q (B, S, H, d), k and v (B, S, KV, d), pos (B, S) int32, out (B, S, H, d);
-// d in {16, 32, 64, 128}; H a multiple of KV with G = H / KV <= 64;
+// d in {16, 32, 64, 128, 256}; H a multiple of KV with G = H / KV <= 64;
 // dtype_code 0 = float32, 1 = bfloat16 (q, k, v and out).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* pos,
                                void* out, int B, int S, int H, int KV, int d, int causal,
@@ -562,6 +586,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, cons
     case 32: return (int)dispatch<32>(a, B, dtype_code, s);
     case 64: return (int)dispatch<64>(a, B, dtype_code, s);
     case 128: return (int)dispatch<128>(a, B, dtype_code, s);
+    case 256: return (int)dispatch<256>(a, B, dtype_code, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

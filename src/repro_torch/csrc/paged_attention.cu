@@ -30,8 +30,8 @@
 //
 // Design of the template below (the dense form with fp32 pages, mixed
 // dtypes or other widths, the MLA form other than fp32 q over bf16 pages,
-// and the int8 form other than bf16 q at d % 16 == 0, d <= 128; the dense
-// form with bf16 q and pages at d % 16 == 0, d <= 128, the int8 form with
+// and the int8 form other than bf16 q at d % 16 == 0, d <= 128 or d = 256;
+// the dense form with bf16 q and pages at those widths, the int8 form with
 // bf16 q at the same widths and the MLA form with fp32 q over bf16 pages at
 // r % 16 == 0, dr % 16 == 0, r, dr <= 512 have their own kernels,
 // namespaces split and mla_split further down): the T*G query rows of one
@@ -348,15 +348,17 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 }  // namespace
 
 // ===================================================================
-// Dense form, bf16 queries over bf16 pages, d % 16 == 0 and d <= 128: the
-// keys split over chunks of fixed length, on the tensor cores.
+// Dense form, bf16 queries over bf16 pages, d % 16 == 0 and d <= 128, or d
+// = 256 (gemma3-1b): the keys split over chunks of fixed length, on the
+// tensor cores.
 //
 // Bound, as above: bytes. At decode shapes one (slot, kv head) has only
 // T*G query rows (4 for mistral-7b at T 1, 16 for glm4-9b), so the template
 // above, one block per (slot, kv head, row tile) walking all keys alone,
 // keeps 8-32 blocks busy on 132 SMs and waits on its loads. Here:
 //
-// - Split. The grid is (B*KV, row tiles of kRows, key chunks). Chunk z holds
+// - Split. The grid is (B*KV, row tiles of Tile<D>::kRows, key chunks).
+//   Chunk z holds
 //   the virtual-cache indices [z*chunk, (z+1)*chunk) with chunk = kChunk = 64,
 //   a constant (chunk_len): the boundaries sit at multiples of kChunk in the
 //   virtual index and are never chosen from B, KV, T or the SM count (64
@@ -378,16 +380,21 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 //   current one.
 // - Tensor cores. Each warp owns one m16 tile of query rows (rows past R
 //   are zero and masked), held as bf16 A fragments in registers for the
-//   whole chunk. S = Q K^T runs on mma.sync.m16n8k16 (bf16, fp32
-//   accumulators) with K fragments from shared memory by ldmatrix; the fp32
-//   softmax runs on the S fragments with quad shuffles for the row max and
-//   sum; P goes straight from the S fragments into two bf16 A fragments,
-//   hi = bf16(P) and lo = bf16(P - hi), and P V runs on mma.sync as hi V +
-//   lo V with V fragments by ldmatrix.trans (P to about 16 bits: the value
-//   mix as exact as fp32 probabilities over bf16 values, for two more
-//   tensor-core products a key tile in a kernel bound by its loads); the
-//   accumulator stays in registers. All fragment layouts are PTX's
-//   documented ones.
+//   whole chunk, and the tile's D accumulator columns (Tile<D>). At D 256
+//   that would be 128 fp32 accumulator and 64 fragment registers a lane
+//   before S and P, past the 255 a thread may hold: there the block's four
+//   warps share one m16 tile, each computing the tile's whole S and softmax
+//   (the same instructions on the same data, so the same bits) and owning
+//   64 of the value columns, and a block holds 16 rows. S = Q K^T runs on
+//   mma.sync.m16n8k16 (bf16, fp32 accumulators) with K fragments from
+//   shared memory by ldmatrix; the fp32 softmax runs on the S fragments
+//   with quad shuffles for the row max and sum; P goes straight from the S
+//   fragments into two bf16 A fragments, hi = bf16(P) and lo = bf16(P -
+//   hi), and P V runs on mma.sync as hi V + lo V with V fragments by
+//   ldmatrix.trans (P to about 16 bits: the value mix as exact as fp32
+//   probabilities over bf16 values, for two more tensor-core products a key
+//   tile in a kernel bound by its loads); the accumulator stays in
+//   registers. All fragment layouts are PTX's documented ones.
 // - Loads. The K and V rows of the chunk come in by cp.async, 16 bytes (8
 //   bf16) a copy, each key row's address through the table (any page size,
 //   down to 1); a key with no stored position (empty ring slot, past the
@@ -409,7 +416,7 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 // skipped one, and the combine skips both. Inside a processed chunk every
 // sub-tile is processed.
 //
-// The int8 form with bf16 q (d % 16 == 0, d <= 128; the engines' int8
+// The int8 form with bf16 q (d % 16 == 0, d <= 128 or d = 256; the engines' int8
 // attends at full width) runs this kernel with Q = true; only the loads of
 // the pages and two scalings differ:
 // - Loads. The chunk's int8 K and V rows come in by cp.async, 16 bytes (16
@@ -429,7 +436,8 @@ int dispatch(const void* q, const void* k, const void* k2v, const void* kscale,
 //   so a fold would round it to bf16.
 // The partials, their workspace and the combine are the dense form's, with
 // the output in bf16. A block takes the dense layout plus 2 x 64 x d bytes
-// of staging and 2 x 64 fp32 scales: 52 KB at d 128, four blocks an SM.
+// of staging and 2 x 64 fp32 scales: 52 KB at d 128, four blocks an SM;
+// 101 KB at d 256 (the dense form 68 KB), two blocks an SM.
 //
 // The MLA form runs the same split and combine (namespace mla_split below).
 // internal linkage: no function-local static is shared between libraries
@@ -440,12 +448,22 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // query rows per block: one m16 tile a warp
 constexpr int kChunk = 64;         // keys per chunk
 constexpr int kSub = 32;            // keys per sub-tile (one commit group)
 constexpr int kSubs = kChunk / kSub;
 static_assert(kSub % 16 == 0 && kSub / 2 <= 32, "one bit a score of a lane's sub-tile");
 static_assert(kChunk % kSub == 0 && kSubs <= 4, "cp_async_wait_upto takes 0-3");
+
+// Warps of a block that share one m16 tile of query rows, each owning
+// kCols of the D value columns: 1 up to D 128, 4 at D 256 (see Tensor cores
+// above); kRows query rows a block.
+template <int D>
+struct Tile {
+  static constexpr int kColWarps = D > 128 ? 4 : 1;
+  static constexpr int kCols = D / kColWarps;
+  static constexpr int kRows = 16 * kWarps / kColWarps;
+  static_assert(kCols % 16 == 0, "a warp's value columns in 16-wide ldmatrix steps");
+};
 
 // The chunk length. A constant: never chosen from B, KV, T (R = T*G rows)
 // or the SM count, or the bitwise contracts above break.
@@ -540,6 +558,7 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
                              float* __restrict__ ws, int T_, int KV, int G, int ps, int P,
                              int chunk, int nch, float scale, int window) {
   using L = Smem<D, Q>;
+  using W = Tile<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
@@ -552,7 +571,7 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
 
   const int bh = blockIdx.x, b = bh / KV, h = bh % KV;
   const int R = T_ * G;
-  const int rb0 = blockIdx.y * kRows, rb1 = min(R, rb0 + kRows);  // the block's rows
+  const int rb0 = blockIdx.y * W::kRows, rb1 = min(R, rb0 + W::kRows);  // the block's rows
   const int j0 = blockIdx.z * chunk;
   const int S = P * ps;
   const int n = min(chunk, S - j0);  // keys of this chunk
@@ -596,9 +615,10 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
                   KV, h);
   }
 
-  // this warp's m16 tile: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1
+  // this warp's m16 tile: lane holds rows g and g + 8, columns 2 tq, 2 tq + 1;
+  // its value columns start at c0
   const int g = lane >> 2, tq = lane & 3;
-  const int rw = rb0 + warp * 16;
+  const int rw = rb0 + warp / W::kColWarps * 16, c0 = warp % W::kColWarps * W::kCols;
   const bool has_rows = rw < rb1;
   int rr[2], qp[2];
   bool rok[2];
@@ -627,9 +647,9 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[W::kCols / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int nt = 0; nt < W::kCols / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kSubs; ++s) {
@@ -704,7 +724,7 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
       l[i] = l[i] * corr[i] + sum[i];
     }
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < W::kCols / 8; ++nt) {
       o[nt][0] *= corr[0];
       o[nt][1] *= corr[0];
       o[nt][2] *= corr[1];
@@ -727,10 +747,10 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
         lo[f] = pack_bf16(p0 - __bfloat162float(h0), p1 - __bfloat162float(h1));
       }
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < W::kCols / 16; ++n2) {
         unsigned bv[4];
-        ldsm_x4_t(bv, tv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + n2 * 16 +
-                          (lane >> 4) * 8);
+        ldsm_x4_t(bv, tv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd + c0 +
+                          n2 * 16 + (lane >> 4) * 8);
         mma(o[2 * n2], hi, bv[0], bv[1]);
         mma(o[2 * n2 + 1], hi, bv[2], bv[3]);
         mma(o[2 * n2], lo, bv[0], bv[1]);
@@ -743,11 +763,11 @@ paged_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict_
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!rok[i]) continue;
-    float* a = acc_ws + (long long)rr[i] * D + 2 * tq;
+    float* a = acc_ws + (long long)rr[i] * D + c0 + 2 * tq;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < W::kCols / 8; ++nt)
       *reinterpret_cast<float2*>(a + nt * 8) = make_float2(o[nt][2 * i], o[nt][2 * i + 1]);
-    if (tq == 0) ml_ws[rr[i]] = make_float2(m[i], l[i]);
+    if (tq == 0 && c0 == 0) ml_ws[rr[i]] = make_float2(m[i], l[i]);
   }
 }
 
@@ -837,7 +857,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ksca
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  const dim3 grid(B * KV, (R + kRows - 1) / kRows, nch);
+  const dim3 grid(B * KV, (R + Tile<D>::kRows - 1) / Tile<D>::kRows, nch);
   paged_attention_split_kernel<D, Q><<<grid, kThreads, Smem<D, Q>::kBytes, stream>>>(
       static_cast<const bf16*>(q), k, v, static_cast<const bf16*>(kscale),
       static_cast<const bf16*>(vscale), cpos, table, pos0, ws, T_, KV, G, ps, P, chunk, nch,
@@ -1238,7 +1258,7 @@ extern "C" int paged_attention_smem(int R, int dq, int dv, int form) {
 }
 
 namespace {
-// the split kernel at head width d (16-128, a multiple of 16); Q: int8 form
+// the split kernel at head width d (16-128, a multiple of 16, or 256); Q: int8 form
 template <bool Q>
 int split_dispatch(const void* q, const void* k, const void* v, const void* kscale,
                    const void* vscale, const void* cpos, const void* table, const void* pos0,
@@ -1264,13 +1284,14 @@ int split_dispatch(const void* q, const void* k, const void* v, const void* ksca
     PA_SPLIT(96);
     PA_SPLIT(112);
     PA_SPLIT(128);
+    PA_SPLIT(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PA_SPLIT
 }
 }  // namespace
 
-// Dense form, bf16 q over bf16 pages with d % 16 == 0 and d <= 128: keys
+// Dense form, bf16 q over bf16 pages with d % 16 == 0 and d <= 128, or d = 256: keys
 // split over chunks (namespace split). ws: the workspace of
 // paged_attention_split_chunk's layout, (B*KV * chunks * T*G * (d + 2)) fp32
 // with chunks = ceil(P*ps / chunk).
@@ -1284,7 +1305,7 @@ extern "C" int paged_attention_split(const void* q, const void* k, const void* v
 }
 
 // int8 form, bf16 q over int8 k / v pages (NP, ps, KV, d) with bf16 k / v
-// scale pages (NP, ps, KV), d % 16 == 0 and d <= 128: keys split over
+// scale pages (NP, ps, KV), d % 16 == 0 and d <= 128, or d = 256: keys split over
 // chunks (namespace split, Q = true); out (B, T, KV, G, d) bf16; ws as
 // paged_attention_split's.
 extern "C" int paged_attention_quant_split(const void* q, const void* k, const void* v,

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import dtype_code, on_cpu, require
 
-HEAD_DIMS = (16, 32, 64, 128)      # head widths the CUDA kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the CUDA kernel is built for
 MAX_GROUP = 64                     # query heads per kv head (one block's rows)
 PLAIN_TILE = 512                   # queries per step of the plain version
 

@@ -6,18 +6,20 @@ with its MLA (``mla_split``) and int8 (``quant``) variants. The CUDA
 kernels are in ``repro_torch/csrc/paged_attention.cu``, in two designs,
 chosen by dtype and head width alone (never by a failure):
 
-- bf16 q over bf16 K/V pages with ``d % 16 == 0`` and ``d <= 128`` (what
-  the engine runs at full width) take the split kernel: the slot's
+- bf16 q over bf16 K/V pages at a split width (:func:`split_width`: ``d
+  % 16 == 0`` and ``d <= 128``, or ``d == 256``; what the engine runs at
+  full width) take the split kernel: the slot's
   virtual cache is cut into chunks of a fixed number of keys
   (``paged_attention_split_chunk``, 64), one block per (slot, kv head,
-  tile of 64 query rows, chunk) on the tensor cores (``mma.sync``, K/V by
+  tile of 64 query rows (16 at d 256, whose value columns the block's
+  four warps share), chunk) on the tensor cores (``mma.sync``, K/V by
   ``cp.async``), each writing its fp32 partial softmax (m, l, acc) to a
   workspace; a second launch combines the chunks in order. One call is two
   device kernels and counts as one launch.
   :func:`paged_attention_chunked_plain` mirrors that arithmetic in fp32
   (every form on the split design).
-- the int8 form with bf16 q over int8 pages at ``d % 16 == 0``, ``d <=
-  128`` (what the int8 engines run at full width; :func:`quant_split_form`)
+- the int8 form with bf16 q over int8 pages at a split width (what the
+  int8 engines run at full width; :func:`quant_split_form`)
   takes the same split kernel with the pages widened to bf16 in shared
   memory, the key scales applied to the scores and the value scales to the
   probabilities in fp32, then the same combine (two device kernels,
@@ -78,21 +80,26 @@ FORM_DENSE, FORM_MLA, FORM_QUANT = 0, 1, 2
 NEG_INF = -2.0 ** 30                    # the kernels' initial running max
 
 
+def split_width(d: int) -> bool:
+    """Head widths the split kernels are built for: multiples of 16 up to
+    128 (a warp owns a tile's rows and all its value columns), and 256
+    (gemma3-1b: four warps share a tile, 64 value columns each)."""
+    return (d % 16 == 0 and d <= 128) or d == 256
+
+
 def split_form(q: torch.Tensor, k_pages: torch.Tensor,
                v_pages: torch.Tensor) -> bool:
     """Whether a dense-form call on the card takes the split kernel: q and
-    both page leaves bf16, head width a multiple of 16 and at most 128."""
-    d = q.shape[-1]
+    both page leaves bf16 at a :func:`split_width`."""
     return (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16
-            and d % 16 == 0 and d <= 128)
+            and split_width(q.shape[-1]))
 
 
 def quant_split_form(q: torch.Tensor, k_pages: torch.Tensor) -> bool:
     """Whether an int8-form call on the card takes the split kernel: bf16
-    q over int8 pages, head width a multiple of 16 and at most 128."""
-    d = q.shape[-1]
+    q over int8 pages at a :func:`split_width`."""
     return (q.dtype == torch.bfloat16 and k_pages.dtype == torch.int8
-            and d % 16 == 0 and d <= 128)
+            and split_width(q.shape[-1]))
 
 
 MLA_SPLIT_MAX = 512                     # r and dr of the MLA split kernel
@@ -278,7 +285,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     :func:`paged_attention_plain`; CUDA tensors launch a dense-form kernel
     (q in float32 or bfloat16; K and V pages share one of those dtypes):
     the split kernel and its combine where :func:`split_form` holds (bf16 q
-    and pages, d % 16 == 0, d <= 128; q and pages 16-byte aligned), else
+    and pages at a split width; q and pages 16-byte aligned), else
     the template kernel. Counts calls in ``paged_attention.launches``, one
     a call whichever kernel runs."""
     if mla_split:
@@ -417,8 +424,8 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     pages (NP, ps, KV, d), bf16 scales (NP, ps, KV) -> (B, T, KV, G, d) in
     q's dtype. CPU tensors take :func:`paged_attention_plain` with the
     scales; CUDA tensors launch an int8 kernel: the split kernel and its
-    combine where :func:`quant_split_form` holds (bf16 q, d % 16 == 0, d <=
-    128; q and pages 16-byte aligned), else the template kernel. Counts
+    combine where :func:`quant_split_form` holds (bf16 q at a split width;
+    q and pages 16-byte aligned), else the template kernel. Counts
     calls in ``paged_attention_quant.launches``, one a call whichever
     kernel runs."""
     name = 'paged_attention_quant'

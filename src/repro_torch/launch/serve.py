@@ -22,6 +22,11 @@ paged KV pool with the prefix cache).
         --prefix-cache --max-slots 256 --requests 3  # a wide engine
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --prefix-cache --async-loop                 # the async host loop
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch gemma3-1b --prefix-cache --page-size 8 \
+        --shared-prefix 16 --fused-gather-rope      # gemma3: 5:1 rings
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch gemma3-27b --prefix-cache --fused-gather-rope  # on the card
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel

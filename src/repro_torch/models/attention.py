@@ -57,20 +57,40 @@ def _backend(backend, device):
 
 def attention_schema(cfg: ModelConfig) -> Dict:
     d, q, e = cfg.d_model, cfg.q_size, cfg.kv_size
-    return {'wq': L.dense_schema(d, q), 'wk': L.dense_schema(d, e),
-            'wv': L.dense_schema(d, e),
-            'wo': L.dense_schema(cfg.attn_out_size, d)}
+    sch = {'wq': L.dense_schema(d, q), 'wk': L.dense_schema(d, e),
+           'wv': L.dense_schema(d, e),
+           'wo': L.dense_schema(cfg.attn_out_size, d)}
+    if cfg.qk_norm:
+        sch['q_norm'] = {'scale': L.ParamSpec((cfg.head_dim,), 'ones')}
+        sch['k_norm'] = {'scale': L.ParamSpec((cfg.head_dim,), 'ones')}
+    return sch
 
 
 # ============================================== the part precompute removes
 def compute_qkv(params: Dict, x_normed: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project LN(x) -> (q, k, v), flat head layout, PRE-RoPE — exactly the
-    position-independent computation the paper moves into the table."""
-    if cfg.qk_norm:
-        raise NotImplementedError('qk_norm is not ported yet')
-    return (L.dense(params['wq'], x_normed), L.dense(params['wk'], x_normed),
-            L.dense(params['wv'], x_normed))
+    position-independent computation the paper moves into the table
+    (``qk_norm`` included: :func:`qk_normalize`)."""
+    q, k = qk_normalize(params, L.dense(params['wq'], x_normed),
+                        L.dense(params['wk'], x_normed), cfg)
+    return q, k, L.dense(params['wv'], x_normed)
+
+
+def qk_normalize(params: Dict, q: torch.Tensor, k: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gemma3's ``qk_norm``: an RMSNorm over each head of the flat q and k
+    (``q_norm`` / ``k_norm`` scales of width head_dim), as in JAX's
+    ``compute_qkv``; q and k unchanged without it. Position-independent,
+    so the table folds it in."""
+    if not cfg.qk_norm:
+        return q, k
+    lead, hd = q.shape[:-1], cfg.head_dim
+    q = L.rmsnorm(q.reshape(*lead, cfg.num_heads, hd),
+                  params['q_norm']['scale']).reshape(*lead, -1)
+    k = L.rmsnorm(k.reshape(*lead, cfg.num_kv_heads, hd),
+                  params['k_norm']['scale']).reshape(*lead, -1)
+    return q, k
 
 
 # ============================================================ full-seq core

@@ -113,8 +113,6 @@ def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
         raise NotImplementedError(
             'the full-sequence forward of MLA (mla_full) and MoE (with its '
             'aux loss) blocks is not ported yet')
-    if cfg.qk_norm:
-        raise NotImplementedError('qk_norm is not ported yet')
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     qkv = _full_qkv(params, h, cfg) if pre is None \
         else (pre['q'], pre['k'], pre['v'])
@@ -133,13 +131,16 @@ def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
 
 def _full_qkv(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple:
     """LN1 and the Q/K/V projections of a full sequence: with RMSNorm one
-    fused ``rmsnorm_qkv`` (the ``rmsnorm_matmul`` kernel on the card); with
-    LayerNorm the norm and ``torch.matmul``, as JAX leaves them to XLA
+    fused ``rmsnorm_qkv`` (the ``rmsnorm_matmul`` kernel on the card), then
+    ``qk_norm`` where the config has it (:func:`attention.qk_normalize`);
+    with LayerNorm the norm and ``torch.matmul``, as JAX leaves them to XLA
     outside any Pallas kernel."""
     a = params['attn']
     if cfg.norm == 'rmsnorm':
-        return rmsnorm_qkv(h, params['ln1']['scale'], a['wq']['w'],
-                           a['wk']['w'], a['wv']['w'])
+        q, k, v = rmsnorm_qkv(h, params['ln1']['scale'], a['wq']['w'],
+                              a['wk']['w'], a['wv']['w'])
+        q, k = A.qk_normalize(a, q, k, cfg)
+        return q, k, v
     return A.compute_qkv(a, L.norm_apply(params['ln1'], h, cfg.norm), cfg)
 
 

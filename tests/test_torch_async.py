@@ -27,6 +27,7 @@ bitwise the synchronous loop's.
   CLI's ``--async-loop``; the scenario of the ``cuda`` twin
   (``tests/test_torch_kernels.py::test_async_packed_replays_match_eager_on_card``).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 import io
 import sys
@@ -65,16 +66,6 @@ VARIANTS = {'mistral': [(False, False, 4), (True, False, 4),
             'pythia': [(False, False, 4), (True, False, 4),
                        (False, True, 4)]}
 LENS = (3, 9, 17, 5, 12)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -21,6 +21,7 @@ statuses, errors, greedy tokens, per-request preemptions and prefix hits,
 and the ``run()`` / ``stats()`` counters. Inside the port: tokens under a
 schedule equal the unfaulted run's, and no page leaks.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest
@@ -56,16 +57,6 @@ POOL_KEYS = ('prefix_hits', 'prefix_misses', 'prefix_hit_tokens',
              'pages_in_use', 'pages_free', 'evictions')
 ENGINES = [('glm4', False), ('glm4', True), ('mistral', True),
            ('deepseek', True)]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

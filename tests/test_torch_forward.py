@@ -19,6 +19,7 @@ mistral-7b (sliding window 8) and glm4-9b (all global), with the same
 The kernels' plain versions against the JAX kernels, and their ``cuda``
 twins, are in ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,16 +40,6 @@ ARCHS = ['mistral_7b', 'glm4_9b']
 TOL = dict(atol=2e-4, rtol=2e-3)
 DECODE_TOL = dict(atol=5e-4, rtol=5e-3)
 _MODELS = {}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _models(arch):

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, and ``chip_smoke.py`` fails
 (printing no result) where there is no card or no port beside it."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import shutil

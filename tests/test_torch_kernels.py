@@ -19,13 +19,17 @@ kernel a call after the first; the MLA form of ``paged_attention``
 and the 17-segment ``gather_rope`` at deepseek-v2-lite-16b widths; the
 int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths;
 ``sharded_paged_attention`` over a mesh of the card repeated, bitwise
-against one unsharded launch). The
+against one unsharded launch; at gemma3-1b's head width 256 the split
+``paged_attention`` in both forms with its row independence,
+``flash_attention``, ``gather_rope`` over 256-wide heads and the
+quantizing ``fused_page_write``). The
 int8 form's plain version is held against JAX in
 ``tests/test_torch_quant.py``. They import nothing of JAX, so on a machine with
 only the port they run with:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 import re
 
@@ -1145,3 +1149,168 @@ def test_async_packed_replays_match_eager_on_card(cuda):
     assert got == want
     for a, b in zip(got_logits, want_logits):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- gemma3 widths (d 256)
+def _gemma_pages(cuda, gen, quant, B, T, window, lengths):
+    """gemma3-1b's attend (KV 1, G 4, d 256): a ``window`` ring of 527
+    (512 + chunk 16 - 1) entries a slot as identity-table pages of one key,
+    or, with no window, 2048-token slots through a scattered table of
+    16-token pages; bf16 pages, or int8 with bf16 scales. -> (q, pages,
+    scales or None, cpos, table, pos0)."""
+    KV, G, d = 1, 4, 256
+    if window:
+        Sc = window + 15
+        lead = (B, Sc)
+    else:
+        ps, P = 16, 2048 // 16
+        NP = 1 + B * P
+        lead = (NP, ps)
+    if quant:
+        k, v, ks, vs = _int8_pages(gen, lead, KV, d, cuda)
+        scales = (ks, vs)
+    else:
+        k, v = (torch.randn(lead + (KV, d), generator=gen, device=cuda)
+                .bfloat16() for _ in range(2))
+        scales = None
+    if window:
+        cpos = torch.full((B, Sc), -1, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lengths):
+            p = torch.arange(max(0, n - Sc), n, device=cuda)
+            cpos[b, p % Sc] = p.to(torch.int32)
+        ps = dense_page_split(Sc)
+        k, v, cpos = (dense_as_pages(x, ps) for x in (k, v, cpos))
+        if quant:
+            scales = tuple(dense_as_pages(x, ps) for x in scales)
+        table = dense_identity_table(B, Sc, ps, cuda)
+    else:
+        table = (torch.randperm(NP - 1, generator=gen, device=cuda) + 1) \
+            .view(B, P).to(torch.int32)
+        cpos = torch.full((NP, ps), -1, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lengths):
+            table[b, -(-n // ps):] = 0
+            p = torch.arange(n, device=cuda)
+            cpos[table[b, p // ps].long(), p % ps] = p.to(torch.int32)
+    q = torch.randn((B, T, KV, G, d), generator=gen, device=cuda).bfloat16()
+    pos0 = torch.tensor([max(n - T, 0) for n in lengths], dtype=torch.int32,
+                        device=cuda)
+    return q, (k, v), scales, cpos, table, pos0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('quant', [False, True])
+@pytest.mark.parametrize('window', [0, 512])
+def test_paged_split_kernel_d256(cuda, window, quant):
+    """The split kernels (dense and int8 forms, bf16 q) at gemma3-1b's
+    shapes, d 256 (four warps share a tile of query rows): a 512-window
+    ring and a global layer, T 1 and 16, against the plain version (dense
+    within 2e-2; int8 within KERNEL_TOL and one bf16 step), an empty slot
+    all zeros, one launch a call; and row t of the 16-token call bitwise a
+    one-token call at pos0 + t."""
+    gen = torch.Generator(device=cuda).manual_seed(256 + window + quant)
+    lengths = [1300, 700, 0, 515] if window else [1800, 333, 0, 1031]
+    for T in (1, 16):
+        q, (k, v), scales, cpos, table, pos0 = _gemma_pages(
+            cuda, gen, quant, 4, T, window, lengths)
+        kw = dict(scale=256 ** -0.5, window=window)
+        fn = paged_attention_quant if quant else paged_attention
+        sc = () if scales is None else scales
+        n0 = fn.launches
+        got = fn(q, k, v, *sc, cpos, table, pos0, **kw)
+        want = paged_attention_plain(
+            q, k, v, cpos, table, pos0, **kw,
+            **({} if scales is None else dict(k_scale_pages=scales[0],
+                                              v_scale_pages=scales[1])))
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        assert got.dtype == torch.bfloat16 and not got[2].any()
+        if quant:
+            lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] \
+                * want.float().abs() + want.float().abs() * 2.0 ** -7
+            assert bool(((got.float() - want.float()).abs() <= lim).all())
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=2e-2, rtol=2e-2)
+        if T == 16:
+            for t in range(T):
+                one = fn(q[:, t:t + 1].contiguous(), k, v, *sc, cpos, table,
+                         pos0 + t, **kw)
+                assert torch.equal(one, got[:, t:t + 1]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('S,window', [(1000, 512), (577, 0)])
+def test_flash_attention_kernel_d256(cuda, S, window, dtype):
+    """flash_attention at gemma3-1b's heads (H 4 over KV 1, d 256; in bf16
+    two warps share a tile's rows and the ring holds 2 stages) against the
+    plain version (``_assert_flash_close``), ragged S, a local layer's
+    window of 512 and a global one."""
+    q, k, v = [torch.from_numpy(a).to(cuda, dtype)
+               for a in _flash_inputs(1, S, 4, 1, 256)]
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].contiguous()
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    _assert_flash_close(got, flash_attention_plain(q, k, v, pos,
+                                                   window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gather_rope_kernel_gemma_rows(cuda, dtype, tol):
+    """gemma3-1b rows (width 2688: x 1152, q 4 x 256, k 1 x 256, v 256)
+    at theta 1e4 (layer 0 is local), N 1, 4 and 64: rotated heads of 256
+    against the plain version, x and v copied bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    V, W = 4096, 2688
+    tab = torch.randn((V, W), generator=gen, device=cuda).to(dtype)
+    kw = dict(segs=((1152, 4, 256), (2176, 1, 256)), theta=1e4)
+    for N in (1, 4, 64):
+        ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        pos = torch.randint(0, 32768, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        got = gather_rope(tab, ids, pos, **kw)
+        torch.testing.assert_close(
+            got.float(), gather_rope_plain(tab, ids, pos, **kw).float(),
+            atol=tol, rtol=tol)
+        rows = tab[ids.long()]
+        assert torch.equal(got[:, :1152], rows[:, :1152])
+        assert torch.equal(got[:, 2432:], rows[:, 2432:])
+
+
+@pytest.mark.cuda
+def test_quantizing_page_write_kernel_d256_bitwise(cuda):
+    """The quantizing ``fused_page_write`` at gemma3-1b's pool rows (KV 1,
+    hd 256: one head read by 32 lanes) bitwise its plain version on the
+    five leaves, page size 16, T 1 and 16, a linear table and a ring of
+    527, fp32 and bf16 values."""
+    names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
+    pairs = [(0, 2), (1, 3)]
+    for Sc, T, dtype in itertools.product(
+            (2048, 527), (1, 16), (torch.float32, torch.bfloat16)):
+        pool, k, v, pos0, nv, table, pending = quant_write_case(
+            Sc + T, ps=16, Sc=Sc, T=T, KV=1, hd=256)
+        leaves = [torch.from_numpy(pool[nm]).to(cuda) for nm in names]
+        for i in (2, 3):
+            leaves[i] = leaves[i].to(torch.bfloat16)
+        jobs = PM.build_jobs(*(torch.from_numpy(a).to(cuda)
+                               for a in (pos0, nv, table)), Sc, 16, T,
+                             torch.from_numpy(pending).to(cuda))
+        pos_t = PM.chunk_positions(torch.from_numpy(pos0).to(cuda), T)
+        vals = [torch.from_numpy(k).to(cuda).to(dtype),
+                torch.from_numpy(v).to(cuda).to(dtype), None, None, pos_t]
+        fills = [PM.leaf_fill(nm) for nm in names]
+        want = [PM.fused_page_write_plain(x.clone(), y, jobs, Sc=Sc, fill=f)
+                for x, y, f in zip(leaves, PM.quantized_values(vals, pairs),
+                                   fills)]
+        PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills,
+                            quantize=pairs)
+        torch.cuda.synchronize()
+        for nm, g, w in zip(names, leaves, want):
+            bits = torch.int16 if 'scale' in nm else g.dtype
+            assert torch.equal(g.view(bits), w.view(bits)), \
+                (Sc, T, dtype, nm)

@@ -21,6 +21,7 @@ The ``cuda``-marked tests of the MLA kernel and the 17-segment
 ``gather_rope`` against their plain versions are in
 ``tests/test_torch_kernels.py``, which runs on a card without JAX.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,16 +53,6 @@ from repro_torch.serving.engine import Request, RequestStatus, ServingEngine
 ARCH = 'deepseek_v2_lite_16b'
 TOL = dict(atol=2e-4, rtol=2e-3)
 PS, MAX_SEQ = 8, 64
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

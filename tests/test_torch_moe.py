@@ -8,6 +8,7 @@ The inputs are standard normals, so router logits have no ties:
 ``torch.topk`` and ``lax.top_k`` order tied values differently, and a tie
 would route a token to different experts in the two packages.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax
@@ -24,16 +25,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.params import from_numpy_tree
 
 TOL = dict(atol=2e-4, rtol=2e-3)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(**moe):

@@ -21,6 +21,7 @@ packed engine, on the same numpy weights.
   to JAX's by ``tests/test_torch_quant.py``; here int8 packed is held
   bitwise to the port's own unpacked int8 engine.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import types
 
@@ -65,16 +66,6 @@ def _cfg(kind, get):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=0.5))
     return cfg
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

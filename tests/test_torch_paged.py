@@ -16,6 +16,7 @@ The ``cuda``-marked tests of the two CUDA kernels against their plain
 versions are in ``tests/test_torch_kernels.py``, which runs on a card
 without JAX.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ logits within the bound of ``tests/test_precompute_equivalence.py`` (atol
 - The paged engine with the radix cache: greedy tokens and prefix hits
   through a copy-on-write equal the JAX paged engine's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,16 +38,6 @@ from repro_torch.serving.engine import Request, RequestStatus, ServingEngine
 ARCH = 'pythia_6_9b'
 TOL = dict(atol=2e-4, rtol=2e-3)
 _MEMO = {}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

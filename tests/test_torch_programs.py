@@ -24,6 +24,7 @@ on the same numpy weights.
 The ``cuda`` twin of the replay-against-eager check is
 ``tests/test_torch_kernels.py::test_programs_replay_matches_eager_on_card``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import types
 
 import jax
@@ -57,16 +58,6 @@ STAT_KEYS = ('completed', 'tokens', 'engine_steps', 'moe_token_drops',
              'lanes_dispatched', 'lane_tokens', 'preemptions', 'failed')
 POOL_KEYS = ('prefix_hits', 'prefix_misses', 'prefix_hit_tokens',
              'pages_in_use', 'pages_free', 'evictions')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

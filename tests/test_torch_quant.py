@@ -29,6 +29,7 @@ its port. Tolerances, each with its reason:
 The ``cuda``-marked tests of the int8 kernel and of the page-maintenance
 kernels on int8 and scale leaves are in ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,16 +62,6 @@ from _torch_scenarios import quant_write_case
 INT8_MODEL_TOL = dict(atol=1e-3, rtol=2e-2)
 PS, MAX_SEQ = 8, 64
 LEAVES = ('k', 'v', 'k_scale', 'v_scale', 'pos')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

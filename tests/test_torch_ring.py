@@ -20,6 +20,7 @@ deferred-clear write path); inside the port, paged tokens equal dense ones
 and the pools, ring pages and snapshots of the two backends are bitwise
 equal. The ``cuda`` twin on the card is phase 9 of ``chip_smoke.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

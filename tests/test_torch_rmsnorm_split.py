@@ -22,6 +22,7 @@ import nothing of JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_rmsnorm_split.py
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import re
 
 import numpy as np

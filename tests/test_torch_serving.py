@@ -3,6 +3,7 @@ engine on the mistral-7b smoke config in fp32, same weights: equal greedy
 tokens for chunk sizes 1 and 4, with and without the precomputed table
 (the JAX engine pinned to ``attn_backend='reference'``); plus the port's
 own request contracts, sampler and histogram."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import jax

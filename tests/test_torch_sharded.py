@@ -27,6 +27,7 @@ so the mesh engine with ``attn_backend='cuda'`` runs every shard's attend
 through ``sharded_paged_attention``. The ``cuda``-marked twins of the kernel
 checks are in ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import types
 
 import jax
@@ -65,16 +66,6 @@ PS = 8
 MAX_SEQ = 64
 JAX_TOL = dict(atol=2e-4, rtol=2e-3)
 CPU4 = ['cpu'] * 4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cpu_mesh(spec):

@@ -30,6 +30,7 @@ chunked plain version and its row independence; both split kernels at G 1
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_split.py
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 
 import numpy as np
@@ -131,12 +132,13 @@ def test_chunked_plain_bf16_matches_plain():
 
 def test_split_form_by_dtype_and_width():
     """The split kernel takes bf16 q over bf16 pages at d % 16 == 0, d <=
-    128; fp32 pages, mixed dtypes and other widths keep the template."""
+    128, and at d 256 (gemma3-1b); fp32 pages, mixed dtypes and other
+    widths keep the template."""
     def t(d, dtype=torch.bfloat16):
         return torch.zeros((1, 1, 1, 1, d), dtype=dtype)
-    for d in (16, 32, 48, 64, 128):
+    for d in (16, 32, 48, 64, 128, 256):
         assert split_form(t(d), t(d), t(d))
-    for d in (8, 24, 136, 256):
+    for d in (8, 24, 136, 192, 512):
         assert not split_form(t(d), t(d), t(d))
     f = torch.float32
     assert not split_form(t(128, f), t(128, f), t(128, f))
@@ -311,15 +313,15 @@ def test_quant_chunked_plain_matches_plain_and_jax(jref, T):
 
 
 def test_quant_split_form_by_dtype_and_width():
-    """bf16 q over int8 pages at d % 16 == 0, d <= 128 take the split
-    kernel; fp32 q (the smoke configs') and other widths keep the
-    template."""
+    """bf16 q over int8 pages at d % 16 == 0, d <= 128, and at d 256 take
+    the split kernel; fp32 q (the smoke configs') and other widths keep
+    the template."""
     def t(d, dtype=torch.bfloat16):
         return torch.zeros((1, 1, 1, 1, d), dtype=dtype)
     i8 = torch.int8
-    for d in (16, 32, 48, 64, 128):
+    for d in (16, 32, 48, 64, 128, 256):
         assert quant_split_form(t(d), t(d, i8))
-    for d in (8, 24, 136, 256):
+    for d in (8, 24, 136, 192, 512):
         assert not quant_split_form(t(d), t(d, i8))
     assert not quant_split_form(t(128, torch.float32), t(128, i8))
     assert not quant_split_form(t(128), t(128))

@@ -17,6 +17,7 @@ traffic and fault script.
   telemetry on and off (dense and paged, temperature 0 and 0.8); under a
   2x2 mesh of CPU devices the phase counts equal the unsharded engine's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import numpy as np
@@ -33,8 +34,8 @@ from repro_torch.serving import (NULL_TELEMETRY, Request, RequestStatus,
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.kvpool import PrefixCache
 
-from test_torch_faults import (ENGINES, _one_torch_thread, engine,  # noqa
-                               models, prompts, serve)
+from test_torch_faults import (ENGINES, engine, models, prompts,  # noqa
+                               serve)
 
 # a steal that preempts (paged), a cancel mid-decode, a poisoned lane
 CHAOS = dict(steal_pages={3: 10}, restore_pages_at=(9,),

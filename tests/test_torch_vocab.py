@@ -21,6 +21,7 @@ its own request.
 The ``cuda``-marked twins (kernels and engine on the card) are in
 ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,16 +48,6 @@ V = 503                                   # every smoke config's vocabulary
 IDS = np.array([3, -1, -V, -V - 1, V, V + 7, 0, V - 1, 2 ** 31 - 1, -2 ** 31],
                np.int32)
 FINISHED = ('FINISHED', None)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """Smoke-size ops gain nothing from intra-op threads, and under the
-    suite's parallel workers those threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _assert_rows(got, want):
