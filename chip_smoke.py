@@ -230,8 +230,40 @@ Phases, in order; any failure raises and exits non-zero:
               rows, N 1, 4, 64, 4096) and Model.apply at B 1, S 4096,
               baseline and with the table (gemma3-1b: flash_attention at
               d 256 once a layer).
+11. encoders — whisper-tiny-rope (the paper's 4-layer example: a
+              bidirectional encoder over 1500 frames, a decoder with
+              cross-attention, RoPE; the table folds layer 0's self Q/K/V)
+              and whisper-tiny (learned positions: build_table refuses, the
+              reason printed), then internvl2-1b (a VLM: 14 query heads
+              over 2 kv heads of 64, G 7; the hybrid table), at full width
+              and depth on seeded random bf16 weights, frames and patches
+              from a seeded torch.Generator. whisper, following
+              examples/whisper_decode.py: encoder_apply over 4 x 1500
+              frames, prefill_cross_cache, 64 greedy decode steps from BOS
+              without the table and with it (fed the baseline's tokens:
+              logits within APPLY_TOL, argmax equal where the margin
+              decides; its own greedy tokens equal), one embed_gather a
+              step and no other launch (the attend is the reference, as
+              'auto' resolves for audio); the decode step's device ms at
+              B 1 and 4, baseline and with the table in turns, as CUDA-
+              graph replays of Model.decode_step, beside the bound of the bytes
+              a step reads; encdec_apply at B 1, decoder S 448, 4 runs of
+              each in turns; the engine serving 4 requests (reference
+              backend, chunk 1, dense caches, zero cross K/V) with tok/s.
+              internvl2-1b as phase 5 serves glm4-9b: the paged pool, two
+              waves on a 256-token system prompt, the table with the fused
+              gather-RoPE, the cuda backend, bf16 and int8, each replayed
+              run bitwise its eager twin; the layer-0 comparison (N 1-4096,
+              rmsnorm_matmul at W 1152 over d 896), Model.apply at B 1, S
+              4096 (16 text + 256 patches + 3824 text), baseline and with
+              the hybrid table, and layer 0 alone over that sequence,
+              baseline against hybrid. Phase 3 holds the kernels at these
+              shapes: the split paged_attention (dense and int8) at d 64,
+              G 7, T 1 and 16; flash_attention at d 64, H 14, KV 2, S
+              4096; embed_gather at 1536 and 2048 wide rows; gather_rope
+              over 14 + 2 heads of 64.
 
-Every one-device engine run of phases 4-10 with the cuda backend steps
+Every one-device engine run of phases 4-11 with the cuda backend steps
 through the engine's per-step programs: each step shape's CUDA graph is
 captured at its first step and replayed after (a mesh and the reference
 backend run eagerly). Phases 4-7 run one engine of each family first
@@ -303,7 +335,10 @@ from repro_torch.models.transformer import (  # noqa: E402
     fused_rope_segments, layer_plan)
 from repro_torch.models.attn_backend import (KERNEL_TOL,  # noqa: E402
                                              ReferenceBackend)
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import VLM_PREFIX, Model  # noqa: E402
+from repro_torch.models import encdec as E  # noqa: E402
+from repro_torch.models.vlm import project_patches  # noqa: E402
+from repro_torch.core.precompute import hybrid_vlm_pre0  # noqa: E402
 from repro_torch.serving import telemetry as TM  # noqa: E402
 from repro_torch.serving.engine import (Request, RequestStatus,  # noqa: E402
                                         ServingEngine, _eager_steps)
@@ -414,7 +449,10 @@ def phase_build() -> None:
 # for embed_gather also N 1 and 4096 (2048 for pythia-6.9b), the decode and
 # prefill sizes of the layer-0 comparison; gemma3-1b (2688-wide rows, 4 q
 # heads and 1 k head of 256) and gemma3-27b (13568-wide rows, 48 rotated
-# heads of 128) as their engines and layer-0 comparisons read them.
+# heads of 128) as their engines and layer-0 comparisons read them;
+# whisper-tiny-rope (1536-wide rows: decode steps of 1 and 4 tokens, its
+# engine's 4 slots, and Model.apply's 448 decoder positions) and
+# internvl2-1b (2048-wide rows; gather_rope over 14 + 2 heads of 64).
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 512, 4096)),
                ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -423,7 +461,10 @@ EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                ('deepseek_v2_lite_16b', True, (torch.float32,), (3, 24)),
                ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 2048)),
                ('gemma3_1b', False, (torch.bfloat16,), (1, 4, 64, 4096)),
-               ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 4096)))
+               ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 4096)),
+               ('whisper_tiny_rope', False, (torch.bfloat16,),
+                (1, 4, 64, 448)),
+               ('internvl2_1b', False, (torch.bfloat16,), (1, 4, 64, 4096)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (1, 4, 64, 512)),
               ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -436,7 +477,9 @@ ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
               ('pythia_6_9b', False, (torch.bfloat16,), (1, 4, 64, 512)),
               ('gemma3_1b', False, (torch.bfloat16, torch.float32),
                (1, 4, 64, 512)),
-              ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 512)))
+              ('gemma3_27b', False, (torch.bfloat16,), (1, 4, 64, 512)),
+              ('internvl2_1b', False, (torch.bfloat16, torch.float32),
+               (1, 4, 64, 512)))
 ROPE_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 
 
@@ -800,8 +843,14 @@ def write_counts(jobs, Sc, ps):
     return int(written.sum()), int(filled.sum())
 
 
-def check_fused_page_write(gen) -> dict:
-    cfg = get_config('glm4_9b')
+def check_fused_page_write(gen, arch='glm4_9b',
+                           dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """fused_page_write on ``arch``'s k / v / pos leaves (KV x d rows) over
+    the engine's default pool of 4 slots, max_seq 2048, page 16, in each
+    of ``dtypes``: linear job lists at T 1 and 16 and a ring of 27 at T
+    16, with pending clears, bitwise the plain version; the bf16 linear
+    writes timed. -> the bf16 decode step's (T 1) row."""
+    cfg = get_config(arch)
     KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, GLM_PS, GLM_SLOTS
     NP = glm_pool_pages()
     row = {}
@@ -825,7 +874,7 @@ def check_fused_page_write(gen) -> dict:
     nv = torch.tensor([16, 9, 0, 16], dtype=torch.int32, device='cuda')
     cases.append((f'ring Sc={Sc} T={T}', Sc, T, pos0, nv,
                   scattered_table(gen, B, P, NP, [Sc] * B, ps)))
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         k, v, pos = page_leaves(gen, dtype, NP, ps, KV, d)
         for label, Sc, T, pos0, nv, table in cases:
             start = torch.div(pos0 % Sc, ps, rounding_mode='floor').long()
@@ -853,8 +902,8 @@ def check_fused_page_write(gen) -> dict:
             assert torch.equal(pos[0], torch.full_like(pos[0], -1)) \
                 and not k[0].any() and not v[0].any(), 'null page written'
             if not (label.startswith('linear') and dtype is torch.bfloat16):
-                log(f'[kernel] fused_page_write {str(dtype)[6:]} {label}: '
-                    f'bitwise equal (modes {sorted(modes)}, {zero_jobs} jobs '
+                log(f'[kernel] fused_page_write {str(dtype)[6:]} {cfg.name} '
+                    f'{label} (KV={KV} d={d}): bitwise equal (modes {sorted(modes)}, {zero_jobs} jobs '
                     'on page 0)')
                 continue
             n_w, n_f = write_counts(jobs, Sc, ps)
@@ -869,8 +918,8 @@ def check_fused_page_write(gen) -> dict:
             # the same chunk rows by index_copy_ on each flattened leaf,
             # without the clears of the pending pages
             lib = library_page_write_ms(leaves, srcs, jobs, Sc, ps)
-            log(f'[kernel] fused_page_write {str(dtype)[6:]} {label} NP={NP} '
-                f'KV={KV} d={d} ({jobs.shape[0]} jobs, {n_w} rows written, '
+            log(f'[kernel] fused_page_write {str(dtype)[6:]} {cfg.name} '
+                f'{label} NP={NP} KV={KV} d={d} ({jobs.shape[0]} jobs, {n_w} rows written, '
                 f'{n_f} filled): bitwise equal (modes {sorted(modes)}, '
                 f'{zero_jobs} jobs on page 0); kernel {ms:.4f} ms, plain '
                 f'{plain:.4f} ms, index_copy_ x3 (no clears) {lib:.4f} ms, '
@@ -2108,28 +2157,33 @@ def same_leaves(label, got, want) -> None:
         assert torch.equal(g.view(bits), w.view(bits)), f'{label}: {nm}'
 
 
-# ----------------------- phase 3: gemma3-1b (head width 256) and its pool
-# the gemma3 engines' geometry: 4 slots, page 16, chunk 16, max_seq 2048;
-# the attend checks' slots hold GEMMA_LENGTHS tokens (a local layer's ring
+# ------- phase 3: the split kernels' engines (gemma3-1b: head width 256;
+# internvl2-1b: d 64, G 7) and their pools
+# the engines' geometry: 4 slots, page 16, chunk 16, max_seq 2048; the
+# attend checks' slots hold SPLIT_LENGTHS tokens (a local layer's ring
 # wraps in slots 0 and 3; slot 2 is empty)
-GEMMA_SEQ = 2048
-GEMMA_LENGTHS = (1300, 700, 0, 1100)
+SPLIT_SEQ = 2048
+SPLIT_LENGTHS = (1300, 700, 0, 1100)
 
 
-def gemma_attend_cases(gen, quant):
-    """gemma3-1b's attend (KV 1, G 4, d 256) on its engine's pool, through
-    a scattered table: a local layer's ring of cache_len(512, 2048, 16) =
-    527 positions a slot (33 ring pages; position p at ring index p % 527)
-    and a global layer's linear pages; bf16 pages, or int8 with bf16
-    scales (``quant``); bf16 queries at T 1 and 16. Yields (label, the
-    arguments of paged_attention or paged_attention_quant, kwargs, the
-    dense view of the slots' k / v / positions)."""
-    cfg = get_config('gemma3_1b')
+def split_attend_cases(gen, quant, arch='gemma3_1b'):
+    """The attend of ``arch``'s paged engine (gemma3-1b: KV 1, G 4, d 256;
+    internvl2-1b: KV 2, G 7, d 64) on its pool, through a scattered table
+    (4 slots of ``SPLIT_LENGTHS`` tokens, page 16, max_seq 2048): each
+    layer kind the config has, a local layer's ring of cache_len(512,
+    2048, 16) = 527 positions a slot (33 ring pages; position p at ring
+    index p % 527) and a global layer's linear pages; bf16 pages, or int8
+    with bf16 scales (``quant``); bf16 queries at T 1 and 16. Yields
+    (label, the arguments of paged_attention or paged_attention_quant,
+    kwargs, the dense view of the slots' k / v / positions)."""
+    cfg = get_config(arch)
     KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, RING_PS, RING_SLOTS
     G = cfg.num_heads // KV
     for kind in ('local', 'global'):
+        if kind not in cfg.pattern:
+            continue
         window = cfg.layer_window(kind)
-        Sc = A.cache_len(window, GEMMA_SEQ, 16)
+        Sc = A.cache_len(window, SPLIT_SEQ, 16)
         P = -(-Sc // ps)
         NP = 1 + B * P
         if quant:
@@ -2139,36 +2193,54 @@ def gemma_attend_cases(gen, quant):
             k, v, _ = page_leaves(gen, torch.bfloat16, NP, ps, KV, d)
             pages = (k, v)
         table = scattered_table(gen, B, P, NP,
-                                [min(n, Sc) for n in GEMMA_LENGTHS], ps)
+                                [min(n, Sc) for n in SPLIT_LENGTHS], ps)
         cpos = torch.full((NP, ps), -1, dtype=torch.int32, device='cuda')
-        for b, n in enumerate(GEMMA_LENGTHS):
+        for b, n in enumerate(SPLIT_LENGTHS):
             p = torch.arange(max(0, n - Sc), n, device='cuda')
             idx = p % Sc
             cpos[table[b, idx // ps].long(), idx % ps] = p.to(torch.int32)
         view = paged_view({'k': k, 'v': v, 'pos': cpos}, table, Sc)
         for T in (1, 16):
-            pos0 = torch.tensor([max(n - T, 0) for n in GEMMA_LENGTHS],
+            pos0 = torch.tensor([max(n - T, 0) for n in SPLIT_LENGTHS],
                                 dtype=torch.int32, device='cuda')
             q = torch.randn((B, T, KV, G, d), generator=gen,
                             device='cuda').to(torch.bfloat16)
-            yield (f'gemma3-1b {kind} Sc={Sc} T={T}',
+            yield (f'{cfg.name} {kind} Sc={Sc} T={T}',
                    (q, *pages, cpos, table, pos0),
                    dict(scale=d ** -0.5, window=window), view)
         del pages, k, v, cpos, table, view
 
 
-def check_gemma_kernels(gen) -> dict:
-    """The kernels at gemma3-1b's shapes. The split paged_attention at d
-    256 (four warps share a tile of query rows), its dense form held
-    within 2e-2 and by ``check_paged_bf16`` (the row-scaled limit; T 16
-    rows bitwise one-token calls), its int8 form by ``check_quant_case``,
-    both over ``gemma_attend_cases``, timed with the plain version, sdpa
-    (bf16) and the bound; the quantizing fused_page_write at KV 1, d 256
-    (:func:`check_quantizing_write_gemma`); cow_page_copy over its 25
-    stacked layers' pages, bf16 and int8 leaves. -> rows by kernel, keyed
-    '<kind> T<T>' for the attends."""
+def check_engine_kernels(gen, arch) -> dict:
+    """The paged engine's kernels at ``arch``'s shapes (gemma3-1b: KV 1, G
+    4, d 256; internvl2-1b: KV 2, G 7, d 64). The split paged_attention
+    (:func:`check_split_attends`); fused_page_write on bf16 k / v / pos
+    leaves (:func:`check_fused_page_write`) and in its quantizing form
+    (:func:`check_quantizing_write_pool`); cow_page_copy over its stacked
+    layers' pages, bf16 and int8 leaves. -> rows by kernel, keyed '<kind>
+    Sc=<Sc> T=<T>' for the attends."""
+    out = check_split_attends(gen, arch)
+    out['fused_page_write'] = dict(
+        check_fused_page_write(gen, arch, (torch.bfloat16,)),
+        **check_quantizing_write_pool(gen, arch))
+    out['cow_page_copy'] = check_cow_pages(gen, arch, ('bf16', 'int8'),
+                                           PYTHIA_COW_NP)
+    free()
+    return out
+
+
+def check_split_attends(gen, arch) -> dict:
+    """The split paged_attention at ``arch``'s engine shapes
+    (``split_attend_cases``): the dense form held within 2e-2 and by
+    ``check_paged_bf16`` (the row-scaled limit; T 16 rows bitwise
+    one-token calls), the int8 form by ``check_quant_case``, timed with
+    the plain version, sdpa (bf16) and the bound. -> rows of both forms,
+    keyed '<kind> Sc=<Sc> T=<T>'."""
+    cfg = get_config(arch)
+    KV, d = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
     out = {'paged_attention': {}, 'paged_attention_quant': {}}
-    for label, args, kw, view in gemma_attend_cases(gen, quant=False):
+    for label, args, kw, view in split_attend_cases(gen, False, arch):
         q, pos0 = args[0], args[-1]
         assert split_form(q, args[1], args[2]), label
         got = paged_attention(*args, **kw)
@@ -2186,35 +2258,37 @@ def check_gemma_kernels(gen) -> dict:
                                    pos0, kw['window'])
         b_ms, by = attention_bound(q, view['k'], view['pos'], pos0,
                                    kw['window'], torch.bfloat16)
-        log(f'[kernel] paged_attention bf16 {label} B={q.shape[0]} KV=1 G=4 '
-            f'd=256 scattered table: split kernel; max |err| {err:.3g} (tol '
-            f'2e-2; {held}), empty slot zeros; kernel {ms:.4f} ms, plain '
-            f'{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({by})')
+        log(f'[kernel] paged_attention bf16 {label} B={q.shape[0]} KV={KV} '
+            f'G={G} d={d} scattered table: split kernel; max |err| {err:.3g} '
+            f'(tol 2e-2; {held}), empty slot zeros; kernel {ms:.4f} ms, '
+            f'plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms '
+            f'({by})')
         key = label.split(' ', 1)[1]
         out['paged_attention'][key] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=by, library_ms=lib)
-    for label, args, kw, view in gemma_attend_cases(gen, quant=True):
+    for label, args, kw, view in split_attend_cases(gen, True, arch):
         assert quant_split_form(args[0], args[1]), label
         out['paged_attention_quant'][label.split(' ', 1)[1]] = \
             check_quant_case(label, args, kw, view['pos'])
-    out['fused_page_write'] = check_quantizing_write_gemma(gen)
-    out['cow_page_copy'] = check_cow_pages(gen, 'gemma3_1b', ('bf16', 'int8'),
-                                           PYTHIA_COW_NP)
     free()
     return out
 
 
-def check_quantizing_write_gemma(gen) -> dict:
-    """:func:`check_quantizing_write` at gemma3-1b's pool rows (KV 1, d
-    256: one head's values over the 32 lanes of a warp) on the five int8
-    leaves of its engine's default pool: linear job lists at T 1 and 16
-    and a local layer's ring (Sc 527) at T 16, then the edge rows over a
-    linear table and that ring. -> its times."""
-    cfg = get_config('gemma3_1b')
+def check_quantizing_write_pool(gen, arch) -> dict:
+    """:func:`check_quantizing_write` at ``arch``'s pool rows (gemma3-1b:
+    KV 1, d 256, one head's values over the 32 lanes of a warp;
+    internvl2-1b: KV 2, d 64, 8 lanes a head, so 4 heads share a warp and
+    half its lanes are past the heads) on the five int8 leaves of its
+    engine's default pool: linear job lists at T 1 and 16 and a ring at T
+    16 (a local layer's, Sc 527; a model without local layers takes
+    glm4-9b's Sc 27), then the edge rows over a linear table and that
+    ring. -> its times."""
+    cfg = get_config(arch)
     KV, d, ps, B = cfg.num_kv_heads, cfg.head_dim, RING_PS, RING_SLOTS
-    Sc_ring = A.cache_len(cfg.window, GEMMA_SEQ, 16)
-    lin, ring = GEMMA_SEQ // ps, -(-Sc_ring // ps)
+    Sc_ring = A.cache_len(cfg.window, SPLIT_SEQ, 16) \
+        if 'local' in cfg.pattern else 27
+    lin, ring = SPLIT_SEQ // ps, -(-Sc_ring // ps)
     NP = 1 + B * (lin + ring) + 8 * lin
     k, v, ks, vs = int8_leaves(gen, (NP, ps), KV, d)
     pos = torch.randint(0, 4096, (NP, ps), generator=gen, device='cuda',
@@ -2222,7 +2296,7 @@ def check_quantizing_write_gemma(gen) -> dict:
     leaves = [k, v, ks, vs, pos]
     for x, nm in zip(leaves, QUANT_LEAVES):
         x[0] = PM.leaf_fill(nm)                   # the null page
-    cases = [(f'linear T={T}', GEMMA_SEQ, T, [1300, 700, 0, 1100],
+    cases = [(f'linear T={T}', SPLIT_SEQ, T, [1300, 700, 0, 1100],
               [T, T, 0, 1], scattered_table(gen, B, lin, NP,
                                             [1300 + T, 700 + T, 0, 1101], ps))
              for T in (1, 16)]
@@ -2238,8 +2312,8 @@ def check_quantizing_write_gemma(gen) -> dict:
                                table.new_tensor(0)]).to(torch.int32)
         written.append((label, Sc, T, pos0,
                         PM.build_jobs(pos0, nv, table, Sc, ps, T, pending)))
-    row = check_quantizing_write(gen, leaves, written, 'gemma3_1b',
-                                 (GEMMA_SEQ, Sc_ring))
+    row = check_quantizing_write(gen, leaves, written, arch,
+                                 (SPLIT_SEQ, Sc_ring))
     del leaves, k, v, ks, vs, pos
     return row
 
@@ -2248,11 +2322,13 @@ def check_quantizing_write_gemma(gen) -> dict:
 # (config, S, window): the shapes Model.apply gives the flash kernel
 # (mistral-7b S 8192 with its 4096 window, glm4-9b S 4096 causal,
 # pythia-6.9b S 2048 over 32 kv heads, gemma3-1b S 4096 at d 256 over one
-# kv head, a local layer's 512 window and a global layer) and a ragged S
-# (not a multiple of any tile)
+# kv head, a local layer's 512 window and a global layer, internvl2-1b S
+# 4096 at d 64 over 14 heads of 2 kv heads: G 7) and a ragged S (not a
+# multiple of any tile)
 FLASH_CASES = (('mistral_7b', 8192, 4096), ('glm4_9b', 4096, 0),
                ('glm4_9b', 4097, 0), ('pythia_6_9b', 2048, 0),
-               ('gemma3_1b', 4096, 512), ('gemma3_1b', 4096, 0))
+               ('gemma3_1b', 4096, 512), ('gemma3_1b', 4096, 0),
+               ('internvl2_1b', 4096, 0))
 # tests/test_kernels.py's tolerances (2e-5 fp32, 3e-2 bf16); and in bf16 a
 # limit scaled by the output, |err| <= 0.02 rms(row) + 0.016 |want|: the
 # kernel rounds its probabilities to bf16 (2^-9 relative), an error that
@@ -2355,7 +2431,8 @@ def check_flash_attention(gen) -> dict:
             if (name, S, dtype) == ('mistral_7b', 8192, torch.bfloat16):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=by, library_ms=lib)
-            if name.startswith('gemma') and dtype is torch.bfloat16:
+            if name.startswith(('gemma', 'internvl')) \
+                    and dtype is torch.bfloat16:
                 row.setdefault(name, {})[f'window {window}'] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=by, library_ms=lib)
@@ -2610,19 +2687,39 @@ def profile_apply(fn) -> str:
 def phase_apply(model, params, table, S: int, tag: str) -> dict:
     """Model.apply at full width, B 1 and S tokens, baseline and with the
     table: launch counts per forward (flash_attention once a layer,
-    rmsnorm_matmul once a layer without the table and once less with it),
-    ms per forward in turns, the last 64 positions' logits of the two
-    against each other, and the precomputed forward's against the
-    engine's chunked decode (score) of the same prompt. -> launches by
-    run."""
+    rmsnorm_matmul once a layer without the table and once less with it,
+    embed_gather once with the table, no other kernel), ms per forward in
+    turns, the last 64 positions' logits of the two against each other,
+    and the precomputed forward's against the engine's chunked decode
+    (score) of the same prompt. A VLM's S positions are ``VLM_PREFIX``
+    text tokens, its patches (seeded) and the rest of the text; its table
+    is the hybrid one (text rows gathered, the patches' layer 0 on the
+    fly); its engine serves text only, so the score comparison gives way
+    to :func:`check_layer0_hybrid`. An encoder-decoder's forward is the
+    encoder over its frames (seeded) and the decoder over S tokens, whose
+    attention is plain torch ops (no flash_attention); all S positions'
+    logits are compared, and its engine serves one token a step over zero
+    cross K/V, so there is no score comparison. -> launches by run."""
     cfg = model.cfg
     nl = cfg.num_layers
+    audio = cfg.arch_class == 'audio'
+    vlm = cfg.arch_class == 'vlm'
     # a layer's LN1 + Q/K/V is one rmsnorm_matmul launch with RMSNorm; a
     # LayerNorm model (pythia-6.9b) runs them as torch ops: no launch
     rms = nl if cfg.norm == 'rmsnorm' else 0
+    flash = 0 if audio else nl
+    n_cmp = S if audio else 64
+    P = cfg.encoder.source_len if vlm else 0
     rng = np.random.default_rng(SEED + 7)
-    prompt = rng.integers(3, cfg.vocab_size, size=S).astype(np.int32)
+    prompt = rng.integers(3, cfg.vocab_size, size=S - P).astype(np.int32)
     batch = {'tokens': torch.from_numpy(prompt)[None].to('cuda')}
+    if vlm or audio:
+        e = cfg.encoder
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(SEED + 7)
+        batch['patches' if vlm else 'frames'] = torch.randn(
+            (1, e.source_len, e.frontend_dim), generator=gen,
+            device='cuda').to(torch.bfloat16)
     last, launches = {}, {}
     times = {'baseline': [], 'precomputed': []}
     order = ('baseline', 'precomputed') + ('baseline', 'precomputed',
@@ -2636,14 +2733,17 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         ln = read_launches()
-        assert ln['flash_attention'] == nl, (mode, ln)
+        assert ln['flash_attention'] == flash, (mode, ln)
         assert ln['rmsnorm_matmul'] == (rms if pre is None or not rms
                                         else rms - 1), (mode, ln)
+        assert ln['embed_gather'] == (pre is not None), (mode, ln)
+        assert all(v == 0 for k, v in ln.items() if k not in (
+            'flash_attention', 'rmsnorm_matmul', 'embed_gather')), (mode, ln)
         if i < 2:                    # first of each: checks, not timed
             assert logits.shape == (1, S, cfg.vocab_size), logits.shape
             assert bool(torch.isfinite(logits).all()), f'{mode} logits'
             assert aux.dtype == torch.float32 and float(aux) == 0.0
-            last[mode] = logits[0, -64:].float()
+            last[mode] = logits[0, -n_cmp:].float()
             launches[f'{tag}_apply' + ('_pre' if pre is not None else '')] \
                 = ln
         else:
@@ -2652,23 +2752,31 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
     mean = {m: float(np.mean(t)) for m, t in times.items()}
     spread = max(max(t) - min(t) for t in times.values())
     diff = mean['baseline'] - mean['precomputed']
-    log(f'[apply] {cfg.name} B=1 S={S}: ms per forward baseline '
+    layout = f' ({VLM_PREFIX} text + {P} patches + {S - P - VLM_PREFIX} ' \
+        'text; the hybrid table)' if vlm else \
+        f' (decoder; the encoder over {cfg.encoder.source_len} frames)' \
+        if audio else ''
+    log(f'[apply] {cfg.name} B=1 S={S}{layout}: ms per forward baseline '
         f'{[round(t, 2) for t in times["baseline"]]} (mean '
         f'{mean["baseline"]:.2f}), precomputed '
         f'{[round(t, 2) for t in times["precomputed"]]} (mean '
         f'{mean["precomputed"]:.2f}); baseline - precomputed {diff:.2f} ms, '
         f'{"inside" if abs(diff) <= spread else "outside"} the largest '
         f'spread between forwards of one mode ({spread:.2f} ms); launches a '
-        f'forward: flash_attention {nl}, rmsnorm_matmul {rms} baseline / '
+        f'forward: flash_attention {flash}, rmsnorm_matmul {rms} baseline / '
         f'{max(rms - 1, 0)} precomputed')
     base, pre = last['baseline'], last['precomputed']
-    log(f'[apply] {cfg.name} last 64 positions, precomputed vs baseline '
-        f'logits: {diff_text(pre, base)} (tol {APPLY_TOL}); '
+    log(f'[apply] {cfg.name} last {n_cmp} positions, precomputed vs '
+        f'baseline logits: {diff_text(pre, base)} (tol {APPLY_TOL}); '
         + argmax_check(pre, base, APPLY_TOL))
     torch.testing.assert_close(pre, base, **APPLY_TOL)
     log(f'[apply] {cfg.name} baseline forward, device ms by group: '
         + profile_apply(lambda: model.apply(params, batch)))
     free()
+    if vlm:
+        check_layer0_hybrid(model, params, table, batch)
+    if vlm or audio:
+        return launches
     eng = ServingEngine(model, params, max_slots=1, max_seq=S + 16,
                         precomputed=table, seed=SEED, dtype=torch.bfloat16,
                         chunk_size=256, fused_gather_rope=True,
@@ -2686,6 +2794,357 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
     del eng
     free()
     return launches
+
+
+def check_layer0_hybrid(model, params, table, batch) -> None:
+    """A VLM's layer 0 alone over one ``Model.apply`` sequence (``batch``:
+    B 1, ``VLM_PREFIX`` text tokens, the patches, the rest of the text):
+    the baseline (the embedding rows of the text and the projected patches
+    spliced, then rmsnorm_matmul over [Wq|Wk|Wv]: one launch) against the
+    hybrid table (``hybrid_vlm_pre0``: embed_gather of the text tokens'
+    rows, LN1 + Q/K/V of the patches as torch ops, the pieces spliced).
+    The projector runs once, outside both. q, k and v of the two within
+    RMS_TOL; timed as CUDA-graph replays beside the bound of each."""
+    cfg = model.cfg
+    lay0 = params['backbone']['layer0']
+    ws = [lay0['attn'][nm]['w'] for nm in ('wq', 'wk', 'wv')]
+    scale = lay0['ln1']['scale']
+    tokens = batch['tokens']
+    vis_h = project_patches(params, batch['patches'], cfg)
+    S_text, P = tokens.shape[1], vis_h.shape[1]
+    n = VLM_PREFIX
+
+    def baseline():
+        txt = params['embed']['table'][tokens.long()]
+        x = torch.cat([txt[:, :n], vis_h, txt[:, n:]], dim=1)
+        return rmsnorm_qkv(x, scale, *ws)
+
+    def hybrid():
+        pre = hybrid_vlm_pre0(params, cfg, table, tokens, vis_h, n)
+        return pre['q'], pre['k'], pre['v']
+    zero_launches()
+    want = baseline()
+    assert read_launches()['rmsnorm_matmul'] == 1
+    zero_launches()
+    got = hybrid()
+    ln = read_launches()
+    assert ln['embed_gather'] == 1 and ln['rmsnorm_matmul'] == 0, ln
+    torch.cuda.synchronize()
+    err = used = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=RMS_TOL,
+                                   rtol=RMS_TOL)
+        dd = (g.float() - w.float()).abs()
+        err = max(err, dd.max().item())
+        used = max(used, (dd / (RMS_TOL + RMS_TOL * w.float().abs()))
+                   .max().item())
+    base_ms, hyb_ms = (time_ms(f, 3, 3) for f in (baseline, hybrid))
+    es, d = 2, cfg.d_model
+    W = sum(w.shape[1] for w in ws)
+    b_base, _ = bound((S_text + P) * d * es + d * W * es
+                      + (S_text + P) * W * es, 2 * (S_text + P) * d * W,
+                      torch.bfloat16)
+    b_hyb, _ = bound(S_text * table.table.shape[1] * es * 2 + P * d * es
+                     + d * W * es + P * W * es, 2 * P * d * W,
+                     torch.bfloat16)
+    log(f'[layer0] {cfg.name} hybrid, B=1 S={S_text + P} ({n} text + {P} '
+        f'patches + {S_text - n} text; text fraction '
+        f'{S_text / (S_text + P):.4f}): baseline (embedding rows and the '
+        f'projected patches + rmsnorm_matmul) {base_ms:.4f} ms (bound '
+        f'{b_base:.4f}); hybrid (embed_gather of {S_text} text rows + LN1 '
+        f'and Q/K/V of {P} patches as torch ops) {hyb_ms:.4f} ms (bound '
+        f'{b_hyb:.4f}); baseline / hybrid {base_ms / hyb_ms:.2f}x; q, k, v '
+        f'max |diff| {err:.3g}, at most {used:.3f} of the limit atol + '
+        f'rtol |want| (atol = rtol = {RMS_TOL})')
+
+
+# ---------------------------------------------------------------- phase 11
+# whisper-tiny(-rope) at full width and depth: 4 requests of 1500 frames,
+# 64 greedy steps from BOS over self caches of the decoder's 448 positions
+WHISPER_B, WHISPER_STEPS, WHISPER_SEQ, WHISPER_BOS = 4, 64, 448, 1
+
+
+def whisper_setup(arch, tag):
+    """``arch``'s weights (seeded random bf16) and table (None where the
+    config refuses one: printed why), seeded frames for WHISPER_B requests,
+    the encoder's output (device ms of ``encoder_apply`` by CUDA events,
+    after a warm run) and the cross K/V (``prefill_cross_cache``)."""
+    cfg = get_config(arch)
+    model = Model(cfg)
+    params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
+    table = None
+    if cfg.precompute_supported:
+        table = model.build_table(params)
+    else:
+        try:
+            model.build_table(params)
+        except AssertionError as err:
+            log(f'[{tag}] build_table refused: {err}')
+        else:
+            raise AssertionError(f'{cfg.name}: build_table did not refuse')
+    e = cfg.encoder
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED + 11)
+    frames = torch.randn((WHISPER_B, e.source_len, e.frontend_dim),
+                         generator=gen, device='cuda').to(torch.bfloat16)
+    E.encoder_apply(params['encoder'], frames, cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    enc = E.encoder_apply(params['encoder'], frames, cfg)
+    end.record()
+    xkv = E.prefill_cross_cache(params, enc, cfg)
+    torch.cuda.synchronize()
+    assert enc.shape == (WHISPER_B, e.source_len, e.d_model) \
+        and bool(torch.isfinite(enc).all()), enc.shape
+    log(f'[{tag}] {cfg.name}: encoder {e.num_layers} x d {e.d_model} '
+        f'({e.num_heads} heads, sinusoidal positions), decoder '
+        f'{cfg.num_layers} x d {cfg.d_model} ({cfg.num_heads}H/'
+        f'{cfg.num_kv_heads}KV x {cfg.head_dim}, positions {cfg.pos}, '
+        f'cross-attention), tied head, vocab {cfg.vocab_size}; weights '
+        f'{tree_bytes(params) / 2**20:.1f} MiB'
+        + ('' if table is None else
+           f' + table {tuple(table.table.shape)} '
+           f'({nbytes(table.table) / 2**20:.1f} MiB, layout '
+           f'{table.layout})')
+        + f'; encoder_apply B={WHISPER_B} x {e.source_len} frames: '
+        f'{start.elapsed_time(end):.3f} ms, finite; cross K/V '
+        f'{sum(nbytes(*kv) for kv in cross_pairs(xkv)) / 2**20:.2f} MiB')
+    return cfg, model, params, table, xkv
+
+
+def cross_pairs(xkv):
+    """The (k, v) pairs of ``prefill_cross_cache``'s output."""
+    return [xkv['layer0']] + list(xkv.get('body', [])) \
+        + list(xkv.get('tail', []))
+
+
+def whisper_states(model, xkv, B):
+    """Fresh decode states for B requests (B <= WHISPER_B: the first B
+    requests' cross K/V), the cross K/V copied in."""
+    st = model.make_states(B, WHISPER_SEQ, torch.bfloat16, device='cuda')
+    part = {k: ([tuple(x[:, :B] for x in v[0])] if k == 'body' else
+                [tuple(x[:B] for x in kv) for kv in v] if k == 'tail' else
+                tuple(x[:B] for x in v)) for k, v in xkv.items()}
+    return E.put_cross_cache(st, part)
+
+
+def whisper_greedy(model, params, table, xkv, force=None):
+    """WHISPER_STEPS decode steps from BOS for WHISPER_B requests through
+    ``Model.decode_step`` (eager; the attend on the reference backend, as
+    'auto' resolves for audio), greedy, or fed ``force`` (B, steps) in
+    place of the greedy token. -> (logits (steps, B, V) fp32, greedy
+    tokens (B, steps), launches, host ms a step)."""
+    B = WHISPER_B
+    st = whisper_states(model, xkv, B)
+    tok = torch.full((B, 1), WHISPER_BOS, dtype=torch.int32, device='cuda')
+    logits, toks = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for i in range(WHISPER_STEPS):
+        pos = torch.full((B,), i, dtype=torch.int32, device='cuda')
+        lg, st = model.decode_step(params, tok, st, pos, precomputed=table)
+        logits.append(lg[:, 0].float())
+        nxt = lg[:, 0].argmax(-1).to(torch.int32)
+        toks.append(nxt)
+        tok = (nxt if force is None else force[:, i])[:, None].contiguous()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / WHISPER_STEPS
+    launches = read_launches()
+    lg = torch.stack(logits)
+    assert lg.shape == (WHISPER_STEPS, B, model.cfg.vocab_size) \
+        and bool(torch.isfinite(lg).all())
+    assert launches['embed_gather'] == (WHISPER_STEPS if table is not None
+                                        else 0), launches
+    assert all(v == 0 for k, v in launches.items() if k != 'embed_gather'), \
+        launches
+    return lg, torch.stack(toks, dim=1), launches, ms
+
+
+def decode_step_bytes(model, params, table, B, pos) -> int:
+    """Bytes one decode step at position ``pos`` must read: every decoder
+    weight but the cross-attention's wk / wv (their K/V come precomputed)
+    and, with the table, layer 0's wq / wk / wv (B table rows instead),
+    the tied head, the final norm, B requests' cross K/V, and of their
+    self caches the pos valid entries read and the new one written (the
+    reference reads all WHISPER_SEQ; the rest are masked, so the function
+    needs none of them)."""
+    cfg = model.cfg
+    skip = {'wk', 'wv'}
+
+    def layer_bytes(p, first):
+        n = 0
+        for nm, sub in p.items():
+            if nm == 'xattn':
+                n += sum(nbytes(v['w']) for k, v in sub.items()
+                         if k not in skip)
+            elif first and table is not None and nm in ('ln1', 'attn'):
+                n += nbytes(sub['wo']['w']) if nm == 'attn' else 0
+            else:
+                n += tree_bytes(sub)
+        return n
+    bp = params['backbone']
+    total = layer_bytes(bp['layer0'], True) \
+        + sum(layer_bytes(p, False) for p in bp.get('tail', []))
+    if 'body' in bp:
+        total += layer_bytes(bp['body'][0], False)
+    total += tree_bytes(params['embed']) + tree_bytes(params['final_norm'])
+    if table is not None:
+        total += B * table.table.shape[1] * 2
+    else:
+        total += B * cfg.d_model * 2 * (2 if cfg.pos == 'learned' else 1)
+    kvb = cfg.num_kv_heads * cfg.head_dim * 2
+    total += cfg.num_layers * B * (cfg.encoder.source_len * 2 * kvb
+                                   + (pos + 1) * (2 * kvb + 4))
+    return total
+
+
+def whisper_step_times(tag, model, params, table, xkv) -> None:
+    """Device ms of one ``Model.decode_step`` at B 1 and 4, baseline and
+    (where there is one) with the table, in turns (baseline, table, table,
+    baseline): 20 steps captured in a CUDA graph and replayed (``time_ms``;
+    an eager step is bound by its host's launches, which would hide the
+    table), the device kernels of a step (a capture's nodes), and the
+    bound of the bytes a step must read."""
+    modes = (('baseline', None),) + ((('table', table),) if table is not None
+                                     else ())
+    for B in (1, WHISPER_B):
+        steps = {}
+        for mode, tab in modes:
+            st = whisper_states(model, xkv, B)
+            tok = torch.full((B, 1), WHISPER_BOS, dtype=torch.int32,
+                             device='cuda')
+            pos = torch.full((B,), WHISPER_STEPS, dtype=torch.int32,
+                             device='cuda')
+            steps[mode] = (lambda st=st, tok=tok, pos=pos, tab=tab:
+                           model.decode_step(params, tok, st, pos,
+                                             precomputed=tab))
+        times = {mode: [] for mode in steps}
+        for mode in (list(steps) + list(steps)[::-1]):
+            times[mode].append(time_ms(steps[mode]))
+        for mode, tab in modes:
+            nb = decode_step_bytes(model, params, tab, B, WHISPER_STEPS)
+            b_ms, by = bound(nb, 0, torch.bfloat16)
+            log(f'[{tag}_step] B={B} {mode}: '
+                f'{[round(t, 4) for t in times[mode]]} device ms a decode '
+                f'step (CUDA-graph replays of Model.decode_step, in turns), '
+                f'{device_kernels(steps[mode])} device kernels a step, bound '
+                f'{b_ms:.4f} ms ({by}: {nb / 1e6:.2f} MB)')
+        if table is not None:
+            base, pre = (float(np.mean(times[m])) for m in ('baseline',
+                                                            'table'))
+            spread = max(max(t) - min(t) for t in times.values())
+            nl = model.cfg.num_layers
+            log(f'[{tag}_step] B={B}: the table saves {base - pre:.4f} ms '
+                f'of {base:.4f} ({(base - pre) / base:.1%}; the largest '
+                f'spread of one mode {spread:.4f} ms; the paper\'s bound for '
+                f'{nl} layers: {1 / nl:.0%})')
+        del steps
+
+
+def whisper_engine(tag, model, params, table) -> dict:
+    """The engine serving WHISPER_B requests as JAX's engine serves audio:
+    the reference backend ('auto'), chunk 1, dense caches, every slot's
+    cross K/V zero (the engine runs no encoder), the table; prompts of
+    8-24 tokens from BOS, 32 new tokens each, after a warm-up request.
+    -> launches (embed_gather once a step)."""
+    cfg = model.cfg
+    eng = ServingEngine(model, params, max_slots=WHISPER_B,
+                        max_seq=WHISPER_SEQ, precomputed=table, seed=SEED,
+                        dtype=torch.bfloat16, device='cuda')
+    assert eng.attn_backend.name == 'reference' and eng.chunk_size == 1 \
+        and not eng.paged and not eng._graphs
+    rng = np.random.default_rng(SEED + 13)
+
+    def prompt(n):
+        return np.concatenate([[WHISPER_BOS], rng.integers(
+            3, cfg.vocab_size, size=n - 1)]).astype(np.int32)
+    eng.submit(Request(uid=100, prompt=prompt(8), max_new_tokens=2))
+    eng.run()
+    reqs = [Request(uid=i, prompt=prompt(int(rng.integers(8, 25))),
+                    max_new_tokens=32) for i in range(WHISPER_B)]
+    torch.cuda.synchronize()
+    steps0 = eng.steps
+    zero_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    steps = eng.steps - steps0
+    for r in reqs:
+        assert r.status is RequestStatus.FINISHED and \
+            len(r.generated) == 32, (r.uid, r.status, r.error)
+    assert launches['embed_gather'] == (steps if table is not None else 0) \
+        and all(v == 0 for k, v in launches.items()
+                if k != 'embed_gather'), launches
+    stats = eng.stats(reqs)
+    log(f'[{tag}_engine] {WHISPER_B} requests (prompts '
+        f'{[len(r.prompt) for r in reqs]}, zero cross K/V, reference '
+        f'backend, chunk 1, eager steps), {stats["tokens"]} new tokens in '
+        f'{dt:.3f}s -> {stats["tokens"] / dt:.1f} tok/s; {steps} steps '
+        f'({dt / steps * 1e3:.2f} ms/step); mean TTFT '
+        f'{stats["mean_ttft_s"]:.3f}s; launches {json.dumps(launches)}')
+    return launches
+
+
+def phase_whisper(rows) -> dict:
+    """whisper-tiny-rope (the paper's 4-layer example) and whisper-tiny (its
+    learned positions refuse the table) at full width and depth on seeded
+    random bf16 weights, following ``examples/whisper_decode.py``: the
+    encoder over 4 x 1500 seeded frames, the cross K/V, 64 greedy decode
+    steps from BOS (whisper-tiny-rope with and without the table: the
+    table's run fed the baseline's tokens, logits within APPLY_TOL and
+    argmax equal where the margin decides; its own greedy run's tokens
+    equal to the baseline's), the decode step's device time as CUDA-graph
+    replays at B 1 and 4 in turns, ``Model.apply`` in turns and the
+    engine serving 4 requests. -> launches by run."""
+    out = {}
+    cfg, model, params, table, xkv = whisper_setup('whisper_tiny_rope',
+                                                   'whisper_rope')
+    base, btok, out['whisper_rope_base'], bms = whisper_greedy(
+        model, params, None, xkv)
+    forced, _, out['whisper_rope'], pms = whisper_greedy(
+        model, params, table, xkv, force=btok)
+    _, ptok, _, _ = whisper_greedy(model, params, table, xkv)
+    flat = (forced.reshape(-1, cfg.vocab_size),
+            base.reshape(-1, cfg.vocab_size))
+    torch.testing.assert_close(*flat, **APPLY_TOL)
+    same = int((ptok == btok).sum())
+    assert same == btok.numel(), \
+        f'whisper-tiny-rope: the table\'s greedy tokens differ ({same} of ' \
+        f'{btok.numel()} equal)'
+    log(f'[whisper_rope] {WHISPER_STEPS} greedy steps x {WHISPER_B} '
+        f'requests from BOS over the cross K/V: baseline {bms:.3f} host ms '
+        f'a step (eager), with the table {pms:.3f}; the table fed the '
+        f'baseline\'s tokens: {diff_text(*flat)} (tol {APPLY_TOL}); '
+        + argmax_check(*flat, APPLY_TOL)
+        + f'; the table\'s own greedy tokens equal to the baseline\'s: '
+        f'{same}/{btok.numel()} (asserted); launches with the table '
+        f'{json.dumps(out["whisper_rope"])} (one embed_gather a step)')
+    whisper_step_times('whisper_rope', model, params, table, xkv)
+    out.update(phase_apply(model, params, table, WHISPER_SEQ,
+                           'whisper_rope'))
+    out['whisper_rope_engine'] = whisper_engine('whisper_rope', model,
+                                                params, table)
+    del model, params, table, xkv
+    free()
+    cfg, model, params, table, xkv = whisper_setup('whisper_tiny',
+                                                   'whisper_tiny')
+    assert table is None
+    _, tok, out['whisper_tiny'], ms = whisper_greedy(model, params, None,
+                                                     xkv)
+    log(f'[whisper_tiny] {WHISPER_STEPS} greedy steps x {WHISPER_B} requests '
+        f'(learned positions added to the embedding rows a step, no table): '
+        f'{ms:.3f} host ms a step (eager), finite logits, greedy tokens of '
+        f'request 0: {tok[0, :16].tolist()}...')
+    whisper_step_times('whisper_tiny', model, params, None, xkv)
+    del model, params, xkv
+    free()
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -4581,8 +5040,8 @@ def phase_gemma(arch, tag, rows, num_pages=None, runs=('int8',)) -> dict:
         f'made on the card in {time.perf_counter() - t0:.1f}s')
     waves, prompts = gemma_traffic(cfg)
     if num_pages is not None:
-        lin = GEMMA_SEQ // RING_PS
-        ring = -(-A.cache_len(cfg.window, GEMMA_SEQ, 16) // RING_PS)
+        lin = SPLIT_SEQ // RING_PS
+        ring = -(-A.cache_len(cfg.window, SPLIT_SEQ, 16) // RING_PS)
         log(f'[{tag}] pool cut to {num_pages} pages from the engine\'s '
             f'default {1 + RING_SLOTS * (lin + ring) + 8 * lin} (widths '
             'unchanged)')
@@ -4590,7 +5049,7 @@ def phase_gemma(arch, tag, rows, num_pages=None, runs=('int8',)) -> dict:
     def serve(run, kv_quant, **kw):
         (launches, tokens, digest), calls = split_calls(lambda: serve_ring(
             model, params, table, prompts, run, kv_quant, 'cuda',
-            max_seq=GEMMA_SEQ, num_pages=num_pages, pre_waves=waves, **kw))
+            max_seq=SPLIT_SEQ, num_pages=num_pages, pre_waves=waves, **kw))
         split = 'paged_attention_quant_split' if kv_quant \
             else 'paged_attention_split'
         assert calls[split] > 0 and calls['paged_attention'] == 0 \
@@ -4653,8 +5112,9 @@ def main() -> None:
         rows[name]['mistral_ring'] = ring
     rows['flash_attention'] = check_flash_attention(gen)
     free()
-    for name, row in check_gemma_kernels(gen).items():
-        rows[name]['gemma3_1b'] = row
+    for arch in ('gemma3_1b', 'internvl2_1b'):
+        for name, row in check_engine_kernels(gen, arch).items():
+            rows[name][arch] = row
     phases = phase_mistral(rows)
     free()
     phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
@@ -4675,6 +5135,13 @@ def main() -> None:
                               num_pages=GEMMA27_PAGES,
                               runs=('int8', 'async')))
     phases.update(phase_gemma('gemma3_1b', 'gemma1', rows))
+    free()
+    # phase 11: the encoder families
+    phases.update(phase_whisper(rows))
+    phases.update(phase_paged(get_config('internvl2_1b'), 'internvl',
+                              'paged_attention', int8=True, rows=rows,
+                              apply_seq=4096))
+    free()
     # each kernel's launches on the engine path its row was measured for
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',

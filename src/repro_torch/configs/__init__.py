@@ -15,10 +15,14 @@ from repro_torch.config import ModelConfig
 # the paged KV pool, an MLA + MoE model (latent caches, expert FFN) and the
 # paper's parallel example (LayerNorm, MHA; the FFN and the skip fold into
 # the table), and gemma3 (5:1 local/global, two RoPE thetas, qk_norm folded
-# into the table, head width 256 in the 1b); other families join as their
+# into the table, head width 256 in the 1b), the encoder families: whisper
+# (an encoder-decoder with cross-attention; learned decoder positions block
+# the table) and its RoPE variant (the paper's 4-layer example), and
+# internvl2-1b (a VLM: the hybrid table); other families join as their
 # modules are ported
 ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
-                      'pythia_6_9b', 'gemma3_1b', 'gemma3_27b']
+                      'pythia_6_9b', 'gemma3_1b', 'gemma3_27b',
+                      'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b']
 
 
 def _norm(name: str) -> str:

@@ -13,7 +13,8 @@ differs by block type, ``blocks.block_preproj`` does. At serving time the
 embedding read and those projections collapse into one row gather per
 token (:meth:`PrecomputedTable.gather`), which on a CUDA device is the
 ``embed_gather`` kernel. RoPE and attention stay at run time — the
-enabling condition.
+enabling condition. A VLM gathers rows for its text positions only and
+computes its patches' pieces on the fly (:func:`hybrid_vlm_pre0`).
 """
 from __future__ import annotations
 
@@ -75,3 +76,22 @@ def build_precomputed_table(params: Dict, cfg: ModelConfig, *,
                               dim=-1)[0])
     return PrecomputedTable(torch.cat(rows, dim=0).contiguous(), layout,
                             cfg.name)
+
+
+def hybrid_vlm_pre0(params: Dict, cfg: ModelConfig, table: PrecomputedTable,
+                    tokens: torch.Tensor, vision_h: torch.Tensor,
+                    n_prefix: int) -> Dict[str, torch.Tensor]:
+    """The VLM's *hybrid* mode: table rows for the text tokens (one
+    ``embed_gather``), layer 0's norm and projections on the fly for the
+    (continuous) vision embeddings (``block_preproj``), and each named
+    piece spliced as ``[text_prefix | vision | text_suffix]``."""
+    plan = layer_plan(cfg)
+    pre_txt = table.gather(tokens)
+    vpre = block_preproj(params['backbone']['layer0'], vision_h, cfg,
+                         plan.kinds[0], plan.use_moe[0])
+    out = {}
+    for nm, _ in table.layout:
+        t = pre_txt[nm]
+        out[nm] = torch.cat([t[:, :n_prefix], vpre[nm].to(t.dtype),
+                             t[:, n_prefix:]], dim=1)
+    return out

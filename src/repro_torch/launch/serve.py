@@ -27,9 +27,12 @@ paged KV pool with the prefix cache).
         --shared-prefix 16 --fused-gather-rope      # gemma3: 5:1 rings
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch gemma3-27b --prefix-cache --fused-gather-rope  # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch internvl2-1b --prefix-cache --fused-gather-rope  # text only
 
 The architecture is its smoke config, as in the JAX driver, with random
-weights from ``--seed``. ``--attn-backend auto`` takes the ``cuda`` kernel
+weights from ``--seed``; an audio config (whisper) exits with the JAX
+CLI's message, as there. ``--attn-backend auto`` takes the ``cuda`` kernel
 backend on a CUDA device and the plain ``reference`` backend on the CPU.
 ``--metrics-out`` writes the telemetry registry (the five step phases by
 backend and step kind, request latency and TTFT, the pool's gauges):
@@ -141,6 +144,8 @@ def main() -> None:
         mesh = make_serving_mesh(shape, devices=[torch.device('cpu')]
                                  * (shape[0] * shape[1]) if on_cpu else None)
     cfg = get_smoke_config(args.arch)
+    if cfg.arch_class in ('audio',):
+        raise SystemExit('use examples/whisper_transcribe.py for audio')
     model = Model(cfg)
     params = model.init(args.seed, device=args.device)
     table = None

@@ -182,6 +182,23 @@ def full_attention(params: Dict, x_normed: Optional[torch.Tensor],
     return L.dense(params['wo'], ctx)
 
 
+def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention: no mask, no RoPE on either side.
+    q (B, S, q_size), k/v (B, Sk, kv_size) flat -> (B, S, H*hd); fp32
+    scores, the probabilities in v's dtype before the value mix, as JAX."""
+    B, S, Sk = q.shape[0], q.shape[1], k.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = q.reshape(B, S, KV, H // KV, hd)
+    k = k.reshape(B, Sk, KV, hd)
+    v = v.reshape(B, Sk, KV, hd)
+    scores = torch.einsum('bqkgd,bskd->bkgqs', q.float(), k.float()) \
+        * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum('bkgqs,bskd->bqkgd', probs, v)
+    return ctx.reshape(B, S, H * hd)
+
+
 # ================================================================== KV cache
 def cache_len(window: int, seq_len: int, chunk: int = 1) -> int:
     """Ring length of a sliding-window cache; ``chunk - 1`` slack rows keep a

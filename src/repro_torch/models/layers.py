@@ -1,16 +1,18 @@
 """Primitive layers, ported from ``repro/models/layers.py``.
 
 Parameters are the JAX package's nested dicts (``{'w': (d_in, d_out)}`` for
-a dense layer, ``{'scale': (d,)}`` for an RMSNorm, ``{'scale', 'bias'}`` for
-a LayerNorm), held as torch tensors; see
-``repro_torch.params``. Norms and RoPE compute in fp32 and cast back to the
-input dtype, as in JAX.
+a dense layer, with ``'b': (d_out,)`` where it has a bias, ``{'scale':
+(d,)}`` for an RMSNorm, ``{'scale', 'bias'}`` for a LayerNorm), held as
+torch tensors; see ``repro_torch.params``. Norms and RoPE compute in fp32
+and cast back to the input dtype, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,8 +27,23 @@ class ParamSpec:
     dtype: Optional[str] = None     # None -> the model's dtype
 
 
-def dense_schema(d_in: int, d_out: int) -> Dict[str, ParamSpec]:
-    return {'w': ParamSpec((d_in, d_out))}
+def dense_schema(d_in: int, d_out: int, *,
+                 bias: bool = False) -> Dict[str, ParamSpec]:
+    sch = {'w': ParamSpec((d_in, d_out))}
+    if bias:
+        sch['b'] = ParamSpec((d_out,), 'zeros')
+    return sch
+
+
+def stack_schema(schema, n: int):
+    """The schema with a leading stacking dimension of size n on every leaf
+    (the layers of a pattern slot, looped over in place of JAX's scan)."""
+    if isinstance(schema, ParamSpec):
+        return ParamSpec((n,) + schema.shape, schema.init, schema.init_scale,
+                         schema.dtype)
+    if isinstance(schema, dict):
+        return {k: stack_schema(v, n) for k, v in schema.items()}
+    return type(schema)(stack_schema(v, n) for v in schema)
 
 
 def norm_schema(d: int, kind: str) -> Dict[str, ParamSpec]:
@@ -64,7 +81,12 @@ def norm_apply(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 # ==================================================================== linear
 def dense(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params['w']
+    """``x @ w``, plus the bias ``b`` where the leaf has one (the encoder's
+    ``proj_in``, the VLM projector); bias-free leaves are unchanged."""
+    y = x @ params['w']
+    if 'b' in params:
+        y = y + params['b'].to(y.dtype)
+    return y
 
 
 # ====================================================================== RoPE
@@ -90,6 +112,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sincos_pos_embedding(seq_len: int, d: int,
+                         device: torch.device | str = 'cpu') -> torch.Tensor:
+    """Classic sinusoidal table (the whisper encoder's): (seq_len, d) fp32,
+    sin at even columns, cos at odd ones, made in float64 with numpy as
+    JAX makes it. Made and copied to ``device`` once for each (seq_len,
+    d, device) and shared after that (JAX folds it as a constant), so a
+    caller must not write into it."""
+    return _sincos_table(seq_len, d, torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _sincos_table(seq_len: int, d: int, device: torch.device) -> torch.Tensor:
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((seq_len, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 # ================================================================= embedding

@@ -51,13 +51,18 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 # ============================================================ embed / head
-def embed_tokens(params: Dict, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    if cfg.pos == 'learned':
-        raise NotImplementedError('learned positions are not ported yet')
+def embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding rows in the model's dtype (times sqrt(d) where the config
+    scales them); learned absolute positions (``cfg.pos == 'learned'``)
+    add ``pos_embed[positions]``, which sits between the embedding and the
+    Q/K/V projections, so such a model has no table (paper §2)."""
     h = L.embed_lookup(params['embed'], tokens).to(getattr(torch, cfg.dtype))
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    if cfg.pos == 'learned':
+        assert positions is not None, 'learned positions need positions'
+        h = h + L.take_rows(params['pos_embed'], positions).to(h.dtype)
     return h
 
 
@@ -117,7 +122,7 @@ def lm_apply(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         h = pre0['s'] if 's' in pre0 else pre0['x']
     else:
         pre0 = None
-        h = embed_tokens(params, tokens, cfg)
+        h = embed_tokens(params, tokens, cfg, positions)
     h, aux = backbone_apply(params['backbone'], h, positions, cfg, pre0=pre0)
     h = L.norm_apply(params['final_norm'], h, cfg.norm)
     if return_hidden:
@@ -233,23 +238,29 @@ def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,
     assert packed is None or n_valid is not None, \
         'packed prefill runs the chunked path'
     rope_applied = False
+
+    def lane_positions():
+        # each lane's position: pos (one-token step), pos + t (chunk) or
+        # the packed grid's lane_pos
+        if n_valid is None:
+            return pos[:, None]
+        if packed is not None:
+            return packed.lane_pos
+        T = tokens.shape[1]
+        return pos[:, None].long() + torch.arange(T, device=pos.device)
     if precomputed is not None:
         if n_valid is not None and fused_gather_rope \
                 and fused_rope_eligible(precomputed, cfg):
-            if packed is not None:
-                pos_t = packed.lane_pos
-            else:
-                T = tokens.shape[1]
-                pos_t = pos[:, None].long() + torch.arange(T,
-                                                           device=pos.device)
-            pre0 = _fused_gather_rope_pre0(precomputed, tokens, pos_t, cfg)
+            pre0 = _fused_gather_rope_pre0(precomputed, tokens,
+                                           lane_positions(), cfg)
             rope_applied = True
         else:
             pre0 = precomputed.gather(tokens)
         h = pre0['s'] if 's' in pre0 else pre0['x']
     else:
         pre0 = None
-        h = embed_tokens(params, tokens, cfg)
+        h = embed_tokens(params, tokens, cfg, lane_positions()
+                         if cfg.pos == 'learned' else None)
     h, states, drops = backbone_decode(
         params['backbone'], h, states, pos, cfg, pre0=pre0, n_valid=n_valid,
         rope_applied=rope_applied, paged=paged, lane_valid=lane_valid,

@@ -4,7 +4,10 @@ The tree has the layout of ``repro.models.transformer.lm_schema``:
 ``embed/table``, ``final_norm/scale``, ``lm_head/w`` (untied heads) and
 ``backbone/{layer0, body, tail}``, where ``body`` is a list over the pattern
 slots whose leaves are stacked over ``layer_plan(cfg).reps`` and ``tail`` a
-list of unstacked blocks. Dense weights are ``(d_in, d_out)``.
+list of unstacked blocks. Dense weights are ``(d_in, d_out)``. The other
+families add their own leaves (:func:`model_schema`): the encoder-decoder
+``encoder/{proj_in, layers, final_norm}`` (its layers stacked) and, with
+learned positions, ``pos_embed``; the VLM ``projector/{ln, fc1, fc2}``.
 
 - :func:`from_numpy_tree` bridges a tree of numpy arrays (for example
   ``jax.tree.map(np.asarray, Model(cfg).init(key))``) into tensors — the
@@ -51,18 +54,18 @@ def from_numpy_tree(tree, device: torch.device | str = 'cuda'):
 
 
 def lm_schema(cfg: ModelConfig) -> Dict:
-    """ParamSpec tree of a decoder-only LM (the layout above)."""
+    """ParamSpec tree of a decoder-only LM (the layout above; learned
+    positions add ``pos_embed`` (max_seq_len, d))."""
     from repro_torch.models.blocks import block_schema
-    from repro_torch.models.layers import dense_schema, norm_schema
+    from repro_torch.models.layers import (dense_schema, norm_schema,
+                                           stack_schema)
     from repro_torch.models.transformer import layer_plan
     plan = layer_plan(cfg)
     backbone: Dict[str, Any] = {
         'layer0': block_schema(cfg, plan.kinds[0], plan.use_moe[0])}
     if plan.reps:
         backbone['body'] = [
-            _map(lambda s: ParamSpec((plan.reps,) + s.shape, s.init,
-                                     s.init_scale, s.dtype),
-                 block_schema(cfg, k, plan.use_moe[1]))
+            stack_schema(block_schema(cfg, k, plan.use_moe[1]), plan.reps)
             for k in plan.slots]
     if plan.n_tail:
         backbone['tail'] = [block_schema(cfg, plan.slots[i], plan.use_moe[-1])
@@ -75,7 +78,24 @@ def lm_schema(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         sch['lm_head'] = dense_schema(cfg.d_model, cfg.vocab_size)
+    if cfg.pos == 'learned':
+        sch['pos_embed'] = ParamSpec((cfg.max_seq_len, cfg.d_model),
+                                     'normal', 0.02)
     return sch
+
+
+def model_schema(cfg: ModelConfig) -> Dict:
+    """ParamSpec tree of ``cfg``'s family, as JAX's ``Model.schema``: the
+    encoder-decoder (``'audio'``, ``models.encdec.encdec_schema``), the VLM
+    (``'vlm'``: the LM plus its projector, ``models.vlm.vlm_schema``) or
+    the decoder-only LM."""
+    if cfg.arch_class == 'audio':
+        from repro_torch.models.encdec import encdec_schema
+        return encdec_schema(cfg)
+    if cfg.arch_class == 'vlm':
+        from repro_torch.models.vlm import vlm_schema
+        return vlm_schema(cfg)
+    return lm_schema(cfg)
 
 
 # largest fp32 temporary of one random draw (elements): a leaf above it is
@@ -121,7 +141,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                        .mul_(std))
         return out
 
-    return _map(make, lm_schema(cfg))
+    return _map(make, model_schema(cfg))
 
 
 def tree_slice(tree, i: int):

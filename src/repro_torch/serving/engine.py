@@ -67,6 +67,13 @@ device and the plain ``reference`` backend on the CPU
 wherever logits are not within the kernel tolerance of a tie; pool
 contents written by the two are bitwise equal.
 
+**Families.** A VLM serves text only, as the plain LM it decodes as. An
+audio (enc-dec) model serves as JAX's engine does: chunk size 1, dense
+caches (``prefix_cache=True`` raises ``ValueError``), no packing, the
+``reference`` backend (``'auto'`` resolves to it on every device,
+``'cuda'`` raises ``ValueError``), and every slot's cross K/V zero (the
+engine runs no encoder).
+
 **Requests** follow ``QUEUED -> PREFILLING -> DECODING -> FINISHED``
 (``PREEMPTED`` while requeued after a preemption; ``Request.terminal`` is
 true once ``FINISHED``, ``FAILED`` or ``CANCELLED``). Malformed submissions
@@ -235,7 +242,7 @@ from repro_torch.launch.mesh import make_serving_mesh, resolve_device
 from repro_torch.models.attention import cache_len
 from repro_torch.models.attn_backend import CudaBackend, get_backend
 from repro_torch.models.blocks import ATTN_KINDS, kind_window
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, audio_backend
 from repro_torch.models.transformer import fused_rope_eligible, layer_plan
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvpool import PrefixCache
@@ -420,6 +427,13 @@ class ServingEngine:
         self.max_slots, self.max_seq = max_slots, max_seq
         self.precomputed = precomputed
         self.attn_backend = get_backend(attn_backend, self.device)
+        if cfg.arch_class == 'audio':
+            chunk_size = 1   # enc-dec decode is one token per step by API
+            if prefix_cache:
+                raise ValueError('paged prefix caching is not supported for '
+                                 'audio enc-dec decode')
+            # 'auto' -> reference on every device; 'cuda' raises
+            self.attn_backend = audio_backend(attn_backend, self.device)
         self.chunk_size = chunk_size
         self.paged = bool(prefix_cache)
         # mesh: None | 'PxH' | (P, H) | a ServingMesh, resolved (and

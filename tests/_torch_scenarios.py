@@ -20,6 +20,26 @@ def paged_gqa_config() -> ModelConfig:
                        dtype='float32')
 
 
+def perturbed(tree, seed: int = 5):
+    """A numpy copy of a parameter tree with norm scales 1 + 0.1 N(0, 1)
+    and biases 0.1 N(0, 1) (leaves named ``scale``, ``bias`` and ``b``),
+    so that no norm or bias is the identity."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name=''):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        a = np.array(node)
+        if name == 'scale':
+            return (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        if name in ('bias', 'b'):
+            return (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+    return walk(tree)
+
+
 def _serve(eng, prompts, new_tokens=6):
     reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]

@@ -1152,13 +1152,14 @@ def test_async_packed_replays_match_eager_on_card(cuda):
 
 
 # ------------------------------------------------- gemma3 widths (d 256)
-def _gemma_pages(cuda, gen, quant, B, T, window, lengths):
-    """gemma3-1b's attend (KV 1, G 4, d 256): a ``window`` ring of 527
-    (512 + chunk 16 - 1) entries a slot as identity-table pages of one key,
-    or, with no window, 2048-token slots through a scattered table of
-    16-token pages; bf16 pages, or int8 with bf16 scales. -> (q, pages,
-    scales or None, cpos, table, pos0)."""
-    KV, G, d = 1, 4, 256
+def _split_pages(cuda, gen, quant, B, T, window, lengths, KV=1, G=4,
+                 d=256):
+    """gemma3-1b's attend (KV 1, G 4, d 256; other heads by ``KV``, ``G``
+    and ``d``): a ``window`` ring of 527 (512 + chunk 16 - 1) entries a
+    slot as identity-table pages of one key, or, with no window,
+    2048-token slots through a scattered table of 16-token pages; bf16
+    pages, or int8 with bf16 scales. -> (q, pages, scales or None, cpos,
+    table, pos0)."""
     if window:
         Sc = window + 15
         lead = (B, Sc)
@@ -1197,6 +1198,37 @@ def _gemma_pages(cuda, gen, quant, B, T, window, lengths):
     return q, (k, v), scales, cpos, table, pos0
 
 
+def _check_split(cuda, fn_args, quant, T, kw):
+    """One split attend (dense or int8 form) of ``_split_pages``' arguments
+    against the plain version (dense within 2e-2; int8 within KERNEL_TOL
+    and one bf16 step), slot 2 (empty) all zeros, one launch; at T 16 row
+    t bitwise a one-token call at pos0 + t."""
+    q, (k, v), scales, cpos, table, pos0 = fn_args
+    fn = paged_attention_quant if quant else paged_attention
+    sc = () if scales is None else scales
+    n0 = fn.launches
+    got = fn(q, k, v, *sc, cpos, table, pos0, **kw)
+    want = paged_attention_plain(
+        q, k, v, cpos, table, pos0, **kw,
+        **({} if scales is None else dict(k_scale_pages=scales[0],
+                                          v_scale_pages=scales[1])))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and not got[2].any()
+    if quant:
+        lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] \
+            * want.float().abs() + want.float().abs() * 2.0 ** -7
+        assert bool(((got.float() - want.float()).abs() <= lim).all())
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2e-2, rtol=2e-2)
+    if T == 16:
+        for t in range(T):
+            one = fn(q[:, t:t + 1].contiguous(), k, v, *sc, cpos, table,
+                     pos0 + t, **kw)
+            assert torch.equal(one, got[:, t:t + 1]), t
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('quant', [False, True])
 @pytest.mark.parametrize('window', [0, 512])
@@ -1210,32 +1242,9 @@ def test_paged_split_kernel_d256(cuda, window, quant):
     gen = torch.Generator(device=cuda).manual_seed(256 + window + quant)
     lengths = [1300, 700, 0, 515] if window else [1800, 333, 0, 1031]
     for T in (1, 16):
-        q, (k, v), scales, cpos, table, pos0 = _gemma_pages(
-            cuda, gen, quant, 4, T, window, lengths)
-        kw = dict(scale=256 ** -0.5, window=window)
-        fn = paged_attention_quant if quant else paged_attention
-        sc = () if scales is None else scales
-        n0 = fn.launches
-        got = fn(q, k, v, *sc, cpos, table, pos0, **kw)
-        want = paged_attention_plain(
-            q, k, v, cpos, table, pos0, **kw,
-            **({} if scales is None else dict(k_scale_pages=scales[0],
-                                              v_scale_pages=scales[1])))
-        torch.cuda.synchronize()
-        assert fn.launches == n0 + 1
-        assert got.dtype == torch.bfloat16 and not got[2].any()
-        if quant:
-            lim = KERNEL_TOL['atol'] + KERNEL_TOL['rtol'] \
-                * want.float().abs() + want.float().abs() * 2.0 ** -7
-            assert bool(((got.float() - want.float()).abs() <= lim).all())
-        else:
-            torch.testing.assert_close(got.float(), want.float(),
-                                       atol=2e-2, rtol=2e-2)
-        if T == 16:
-            for t in range(T):
-                one = fn(q[:, t:t + 1].contiguous(), k, v, *sc, cpos, table,
-                         pos0 + t, **kw)
-                assert torch.equal(one, got[:, t:t + 1]), t
+        _check_split(cuda, _split_pages(cuda, gen, quant, 4, T, window,
+                                        lengths), quant, T,
+                     dict(scale=256 ** -0.5, window=window))
 
 
 @pytest.mark.cuda
@@ -1282,18 +1291,17 @@ def test_gather_rope_kernel_gemma_rows(cuda, dtype, tol):
         assert torch.equal(got[:, 2432:], rows[:, 2432:])
 
 
-@pytest.mark.cuda
-def test_quantizing_page_write_kernel_d256_bitwise(cuda):
-    """The quantizing ``fused_page_write`` at gemma3-1b's pool rows (KV 1,
-    hd 256: one head read by 32 lanes) bitwise its plain version on the
-    five leaves, page size 16, T 1 and 16, a linear table and a ring of
-    527, fp32 and bf16 values."""
+def _check_quantizing_write(cuda, KV, hd, rings):
+    """The quantizing ``fused_page_write`` at pool rows of KV heads x hd
+    bitwise its plain version on the five leaves, page size 16, T 1 and
+    16, a linear table of 2048 and a ring of each of ``rings``, fp32 and
+    bf16 values, with the edge rows of ``tests/_torch_scenarios.py``."""
     names = ('k', 'v', 'k_scale', 'v_scale', 'pos')
     pairs = [(0, 2), (1, 3)]
     for Sc, T, dtype in itertools.product(
-            (2048, 527), (1, 16), (torch.float32, torch.bfloat16)):
+            (2048,) + rings, (1, 16), (torch.float32, torch.bfloat16)):
         pool, k, v, pos0, nv, table, pending = quant_write_case(
-            Sc + T, ps=16, Sc=Sc, T=T, KV=1, hd=256)
+            Sc + T, ps=16, Sc=Sc, T=T, KV=KV, hd=hd)
         leaves = [torch.from_numpy(pool[nm]).to(cuda) for nm in names]
         for i in (2, 3):
             leaves[i] = leaves[i].to(torch.bfloat16)
@@ -1307,10 +1315,111 @@ def test_quantizing_page_write_kernel_d256_bitwise(cuda):
         want = [PM.fused_page_write_plain(x.clone(), y, jobs, Sc=Sc, fill=f)
                 for x, y, f in zip(leaves, PM.quantized_values(vals, pairs),
                                    fills)]
+        n0 = PM.fused_page_write.launches
         PM.fused_page_write(leaves, vals, jobs, Sc=Sc, fills=fills,
                             quantize=pairs)
         torch.cuda.synchronize()
+        assert PM.fused_page_write.launches == n0 + 1
         for nm, g, w in zip(names, leaves, want):
             bits = torch.int16 if 'scale' in nm else g.dtype
             assert torch.equal(g.view(bits), w.view(bits)), \
                 (Sc, T, dtype, nm)
+
+
+@pytest.mark.cuda
+def test_quantizing_page_write_kernel_d256_bitwise(cuda):
+    """The quantizing ``fused_page_write`` at gemma3-1b's pool rows (KV 1,
+    hd 256: one head read by 32 lanes), a ring of 527."""
+    _check_quantizing_write(cuda, 1, 256, (527,))
+
+
+@pytest.mark.cuda
+def test_quantizing_page_write_kernel_d64_bitwise(cuda):
+    """The quantizing ``fused_page_write`` at internvl2-1b's pool rows (KV
+    2, hd 64: a head's 8 bf16 chunks over 8 lanes, so 4 heads share a warp
+    and the lanes of the 2 past the kv heads hold zeros through the amax
+    shuffles), a ring of 27."""
+    _check_quantizing_write(cuda, 2, 64, (27,))
+
+
+# ------------------------------------- internvl2-1b widths (d 64, G 7)
+@pytest.mark.cuda
+@pytest.mark.parametrize('quant', [False, True])
+def test_paged_split_kernel_d64_group7(cuda, quant):
+    """The split kernels (dense and int8 forms, bf16 q) at internvl2-1b's
+    heads: 14 query heads over 2 kv heads (G 7, an odd group: a tile's
+    rows map to (t, g) by / 7 and % 7), d 64, 2048-token slots through a
+    scattered table of 16-token pages, T 1 and 16 (112 query rows a kv
+    head), against the plain version; T 16 rows bitwise one-token
+    calls."""
+    gen = torch.Generator(device=cuda).manual_seed(64 + quant)
+    for T in (1, 16):
+        _check_split(cuda, _split_pages(cuda, gen, quant, 4, T, 0,
+                                        [1800, 333, 0, 1031], KV=2, G=7,
+                                        d=64), quant, T,
+                     dict(scale=64 ** -0.5, window=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('S', [4096, 1000])
+def test_flash_attention_kernel_d64_group7(cuda, S, dtype):
+    """flash_attention at internvl2-1b's heads (H 14 over KV 2: G 7, 18
+    positions of 7 heads in a 126-row block, d 64), causal, S 4096 (its
+    Model.apply) and a ragged 1000, against the plain version."""
+    q, k, v = [torch.from_numpy(a).to(cuda, dtype)
+               for a in _flash_inputs(1, S, 14, 2, 64)]
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].contiguous()
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    _assert_flash_close(got, flash_attention_plain(q, k, v, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gather_kernels_internvl_and_whisper_rows(cuda, dtype, tol):
+    """gather_rope over internvl2-1b's rows (width 2048: x 896, q 14 x 64,
+    k 2 x 64, v 128; theta 1e6) against the plain version, x and v
+    bitwise; embed_gather at its width and at whisper-tiny-rope's 1536
+    (x, q, k, v of 384), bitwise; N 1, 4 and 64."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    V = 4096
+    tab = torch.randn((V, 2048), generator=gen, device=cuda).to(dtype)
+    wtab = torch.randn((V, 1536), generator=gen, device=cuda).to(dtype)
+    kw = dict(segs=((896, 14, 64), (1792, 2, 64)), theta=1e6)
+    for N in (1, 4, 64):
+        ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        pos = torch.randint(0, 32768, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        got = gather_rope(tab, ids, pos, **kw)
+        torch.testing.assert_close(
+            got.float(), gather_rope_plain(tab, ids, pos, **kw).float(),
+            atol=tol, rtol=tol)
+        rows = tab[ids.long()]
+        assert torch.equal(got[:, :896], rows[:, :896])
+        assert torch.equal(got[:, 1920:], rows[:, 1920:])
+        for t in (tab, wtab):
+            assert torch.equal(embed_gather(t, ids), t[ids.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [1, 4, 64, 4096])
+def test_rmsnorm_matmul_kernel_internvl_width(cuda, N):
+    """rmsnorm_qkv at internvl2-1b's layer 0 (d 896 -> q 896, k 128, v 128:
+    W 1152) in bf16, every form its N takes, against the plain version
+    within the bf16 tolerance of ``tests/test_kernels.py``."""
+    arrs = _rms_inputs(N, 896, 896, 128)
+    arrs = arrs[:2] + tuple(w / np.sqrt(896) for w in arrs[2:])
+    x, scale, wq, wk, wv = [torch.from_numpy(np.ascontiguousarray(a))
+                            .to(cuda, torch.bfloat16) for a in arrs]
+    tol = RMS_TOL['bfloat16']
+    n0 = rmsnorm_matmul.launches
+    got = rmsnorm_qkv(x, scale, wq, wk, wv)
+    torch.cuda.synchronize()
+    assert rmsnorm_matmul.launches == n0 + 1
+    for g, w in zip(got, rmsnorm_qkv_plain(x, scale, wq, wk, wv)):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)

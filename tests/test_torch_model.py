@@ -45,7 +45,8 @@ def test_config_copy_matches_jax():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import ALL_IDS
     assert ALL_IDS == ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
-                       'pythia_6_9b', 'gemma3_1b', 'gemma3_27b']
+                       'pythia_6_9b', 'gemma3_1b', 'gemma3_27b',
+                       'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b']
     # field by field, nested MLA / MoE configs included (the copies are
     # other classes, so compare their fields and class names)
     def fields(c):
@@ -71,6 +72,20 @@ def test_init_params_tree_matches_jax_schema(both):
     w = ti['backbone']['body'][0]['attn']['wq']['w']
     assert abs(float(w.std()) - (w.shape[0] * w.shape[1]) ** -0.5) < 0.1 \
         * (w.shape[0] * w.shape[1]) ** -0.5
+    # the encoder families: the encoder-decoder (stacked encoder layers,
+    # the biased proj_in, learned positions) and the VLM's projector
+    for name in ('whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b'):
+        jtree = JaxModel(jax_smoke_config(name)).init(jax.random.PRNGKey(0))
+        ttree = Model(get_smoke_config(name)).init(seed=3, device='cpu')
+        assert jax.tree_util.tree_structure(
+            jax.tree.map(lambda x: 0, jtree)) == \
+            jax.tree_util.tree_structure(jax.tree.map(lambda x: 0, ttree))
+        assert [(a.shape, str(a.dtype)) for a in _leaves(jtree)] == \
+            [(tuple(t.shape), str(t.dtype)[6:]) for t in _leaves(ttree)]
+        # zeros-initialised biases, as JAX's
+        b = ttree['encoder']['proj_in']['b'] if 'encoder' in ttree \
+            else ttree['projector']['fc1']['b']
+        assert not b.any()
 
 
 def test_table_matches_jax(both):
@@ -200,7 +215,7 @@ def test_decode_matches_jax(both, jax_runs, chunk, table, fused, backend):
 def test_unported_families_raise():
     cfg = get_smoke_config('mistral_7b')
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, arch_class='audio'))
+        Model(dataclasses.replace(cfg, arch_class='ssm'))
     # the parallel block with an MoE FFN (a parallel Mixtral) is not ported
     moe = dataclasses.replace(get_smoke_config('deepseek_v2_lite_16b'),
                               mla=None, block_type='parallel')
@@ -208,3 +223,53 @@ def test_unported_families_raise():
         Model(moe).make_states(1, 8, device='cpu')
     with pytest.raises(NotImplementedError):
         get_config('mixtral_8x7b')
+
+
+@pytest.fixture(scope='module')
+def learned():
+    """mistral-7b's smoke config with learned absolute positions in place
+    of RoPE: a decoder-only model that takes ``pos_embed`` (no config of
+    the repo is one; whisper's decoder embeds through ``encdec``), on one
+    set of weights in both packages."""
+    kw = dict(pos='learned', precompute_supported=False)
+    jm = JaxModel(dataclasses.replace(jax_smoke_config('mistral_7b'), **kw))
+    jp = jm.init(jax.random.PRNGKey(3))
+    tm = Model(dataclasses.replace(get_smoke_config('mistral_7b'), **kw))
+    tp = PR.from_numpy_tree(jax.tree.map(np.asarray, jp), device='cpu')
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize('chunk', [0, 1, 4])
+def test_learned_positions_decoder_matches_jax(learned, chunk):
+    """``lm_schema``'s ``pos_embed`` and ``embed_tokens(positions)``: the
+    full forward (chunk 0), the one-token step (each lane at pos) and the
+    chunked step (lane t at pos + t) within TOL of JAX's, 5 steps; the
+    table is refused, as JAX refuses it."""
+    jm, jp, tm, tp = learned
+    assert tp['pos_embed'].shape == (tm.cfg.max_seq_len, tm.cfg.d_model)
+    with pytest.raises(AssertionError):
+        tm.build_table(tp)
+    toks, nv = _stream(max(chunk, 1))
+    B = toks.shape[0]
+    if chunk == 0:
+        jl, _ = jm.apply(jp, {'tokens': jnp.asarray(toks[:, :16])})
+        tl, _ = tm.apply(tp, {'tokens': torch.from_numpy(toks[:, :16])})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        return
+    jst = jm.make_states(B, toks.shape[1], jnp.float32, chunk=chunk)
+    st = tm.make_states(B, toks.shape[1], torch.float32, chunk=chunk,
+                        device='cpu')
+    pos = np.zeros(B, np.int32)
+    for _ in range(5):
+        tk = np.stack([toks[b, pos[b]:pos[b] + chunk] for b in range(B)])
+        jkw = dict(n_valid=jnp.asarray(nv)) if chunk > 1 else {}
+        tkw = dict(n_valid=torch.from_numpy(nv)) if chunk > 1 else {}
+        jl, jst = jm.decode_step(jp, jnp.asarray(tk), jst, jnp.asarray(pos),
+                                 attn_backend='reference', **jkw)
+        tl, st = tm.decode_step(tp, torch.from_numpy(tk), st,
+                                torch.from_numpy(pos), **tkw)
+        for b in range(B):
+            n = int(nv[b]) if chunk > 1 else 1
+            np.testing.assert_allclose(tl[b, :n].numpy(),
+                                       np.asarray(jl)[b, :n], **TOL)
+        pos = pos + (nv if chunk > 1 else 1)
