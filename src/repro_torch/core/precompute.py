@@ -8,9 +8,13 @@ mistral-7b), or ``[x, q, c_kv, k_pe]`` for MLA (d + H·(dn + dr) + r + dr;
 5696 for deepseek-v2-lite-16b), as ``blocks.preproj_layout`` lays out. A
 parallel block (pythia-6.9b) also runs LN2, the FFN and the skip for every
 row: ``[s, q, k, v]`` with ``s = x + FFN(LN2(x))``, 16384 wide (d + 3 x
-4096), so layer 0 keeps only its attention at run time; no step here
-differs by block type, ``blocks.block_preproj`` does. At serving time the
-embedding read and those projections collapse into one row gather per
+4096), so layer 0 keeps only its attention at run time; in a parallel MoE
+block (mixtral-8x7b-parallel, the paper's §3 third column) that FFN is
+the whole expert FFN, run over each ``chunk`` of rows without a lane mask
+as JAX runs it, so the capacity is ``capacity(chunk)`` and rows past it
+drop exactly as in JAX's table (``return_drops`` counts them). No step
+here differs by block type, ``blocks.block_preproj`` does. At serving time
+the embedding read and those projections collapse into one row gather per
 token (:meth:`PrecomputedTable.gather`), which on a CUDA device is the
 ``embed_gather`` kernel. RoPE and attention stay at run time — the
 enabling condition. A VLM gathers rows for its text positions only and
@@ -54,9 +58,12 @@ class PrecomputedTable:
 
 @torch.no_grad()
 def build_precomputed_table(params: Dict, cfg: ModelConfig, *,
-                            chunk: int = 8192) -> PrecomputedTable:
+                            chunk: int = 8192, return_drops: bool = False):
     """Offline pass: run the whole vocabulary through layer 0's
-    position-independent computation, ``chunk`` rows at a time."""
+    position-independent computation, ``chunk`` rows at a time (JAX's
+    chunk: the parallel MoE's capacity depends on it). ``return_drops`` ->
+    (table, MoE token slots dropped over the build: an int, zero unless
+    layer 0 is a parallel MoE block)."""
     assert cfg.precompute_supported, (
         f'{cfg.name}: position encoding "{cfg.pos}" is applied before the '
         'projections — the paper\'s precondition does not hold')
@@ -65,17 +72,23 @@ def build_precomputed_table(params: Dict, cfg: ModelConfig, *,
     layout = preproj_layout(cfg, kind0, moe0)
     embed = params['embed']['table']
     dtype = getattr(torch, cfg.dtype)
-    rows = []
+    # written chunk by chunk into its place: the peak is one table, not two
+    rows = torch.empty((embed.shape[0], sum(w for _, w in layout)),
+                       dtype=dtype, device=embed.device)
+    drops = 0
     for s in range(0, embed.shape[0], chunk):
         x = embed[s:s + chunk].to(dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-        pieces = block_preproj(params['backbone']['layer0'], x[None], cfg,
-                               kind0, moe0)
-        rows.append(torch.cat([pieces[nm].to(dtype) for nm, _ in layout],
-                              dim=-1)[0])
-    return PrecomputedTable(torch.cat(rows, dim=0).contiguous(), layout,
-                            cfg.name)
+        pieces, d = block_preproj(params['backbone']['layer0'], x[None],
+                                  cfg, kind0, moe0, return_drops=True)
+        off = 0
+        for nm, w in layout:
+            rows[s:s + chunk, off:off + w] = pieces[nm][0]
+            off += w
+        drops = drops + d
+    table = PrecomputedTable(rows, layout, cfg.name)
+    return (table, int(drops)) if return_drops else table
 
 
 def hybrid_vlm_pre0(params: Dict, cfg: ModelConfig, table: PrecomputedTable,

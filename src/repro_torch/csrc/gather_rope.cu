@@ -16,8 +16,11 @@
 // Segments: GQA rows have two (q heads, k heads); MLA rows have one per head
 // (its q_pe slice between the q_nope slices) plus the shared k_pe, 17 for
 // deepseek-v2-lite-16b, so the segment table holds up to kMaxSegs = 32, and
-// the head table up to kMaxHeads = 128 rotated heads over all segments (64
-// q + 64 k heads); the wrapper checks both before a launch.
+// the head table up to kMaxHeads = 192 rotated heads over all segments
+// (llama3-405b's 128 q + 8 k heads; up to 128 q + 64 k); the wrapper checks
+// both before a launch. The plan (head columns and tiles) is passed by value
+// as a __grid_constant__ and sized to stay inside the classic 4 KB of
+// kernel parameters, which every CUDA 12 toolkit accepts.
 //
 // Design: grid (tokens, column tiles), so that even 4 tokens spread over
 // the SMs. The host cuts a row once per call into tiles of about one unit
@@ -52,8 +55,8 @@
 namespace {
 
 constexpr int kMaxSegs = 32;    // MLA rows: one per head's q_pe slice + k_pe
-constexpr int kMaxHeads = 128;  // rotated heads over all segments
-constexpr int kMaxTiles = 128;
+constexpr int kMaxHeads = 192;  // rotated heads over all segments
+constexpr int kMaxTiles = 192;  // llama3-405b's row at 64 threads: 51
 
 struct Tile {
   int hd;       // 0: a copy tile; else the head width of a rotated tile
@@ -67,6 +70,9 @@ struct Plan {
   int head_col[kMaxHeads];
   Tile t[kMaxTiles];
 };
+// the plan and the kernel's other arguments (5 pointers, 2 ints)
+static_assert(sizeof(Plan) + 5 * sizeof(void*) + 2 * sizeof(int) <= 4096,
+              "gather_rope's parameters exceed 4 KB");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -28,9 +28,11 @@ Segs = Tuple[Tuple[int, int, int], ...]
 # segments per launch (csrc kMaxSegs): GQA rows have 2 (q, k); MLA rows one
 # per head's q_pe slice plus k_pe, 17 for deepseek-v2-lite-16b
 MAX_SEGS = 32
-# rotated heads over all segments per launch (csrc kMaxHeads): 64 q + 64 k
-# heads of full multi-head attention; the plain version has no such limit
-MAX_HEADS = 128
+# rotated heads over all segments per launch (csrc kMaxHeads): llama3-405b's
+# 128 q + 8 k heads, up to 128 q + 64 k; the kernel's plan of head columns
+# and tiles then stays a 4 KB kernel parameter. The plain version has no
+# such limit
+MAX_HEADS = 192
 _INV: Dict[tuple, torch.Tensor] = {}
 _SEG_ARGS: Dict[Segs, tuple] = {}
 

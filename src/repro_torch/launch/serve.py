@@ -29,6 +29,11 @@ paged KV pool with the prefix cache).
         --arch gemma3-27b --prefix-cache --fused-gather-rope  # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch internvl2-1b --prefix-cache --fused-gather-rope  # text only
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mixtral-8x7b-parallel --prefix-cache \
+        --fused-gather-rope      # or mixtral-8x7b: MoE over ring pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch llama3-405b --prefix-cache --fused-gather-rope  # linear pages
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``; an audio config (whisper) exits with the JAX

@@ -1,18 +1,18 @@
 """Per-layer blocks (port of ``repro/models/blocks.py``): the attention kinds
 ``'global'`` / ``'local'`` with a serial block (GQA or MLA attention,
 ``cfg.mla``, and a dense or MoE FFN, ``use_moe``) or a parallel block
-(``h + attn(LN1(h)) + FFN(LN2(h))``: GQA or MHA attention and a dense FFN,
-pythia-6.9b). Other kinds (recurrent, hybrid) and the parallel block with
-MoE or MLA raise ``NotImplementedError`` until they are ported.
+(``h + attn(LN1(h)) + FFN(LN2(h))``: GQA or MHA attention and a dense or
+MoE FFN: pythia-6.9b, mixtral-8x7b-parallel). Other kinds (recurrent,
+hybrid) and the parallel block with MLA (no config has one) raise
+``NotImplementedError``.
 
 ``block_preproj`` is THE PAPER's position-independent first-layer
 computation; ``pre`` (its named pieces, gathered from the precomputed
 table) short-circuits layer 0's norm and projections in ``block_decode``
-and in the full-sequence ``block_apply_full`` (GQA blocks with a dense FFN;
-MLA and MoE raise there until ``mla_full`` and the MoE aux loss are
-ported). In a parallel block the piece ``'s' = x + FFN(LN2(x))`` also folds
-layer 0's FFN and skip into the table, so layer 0 then runs attention
-alone.
+and in the full-sequence ``block_apply_full``. In a parallel block the
+piece ``'s' = x + FFN(LN2(x))`` also folds layer 0's FFN and skip into the
+table, the whole expert FFN where it is MoE (paper §3), so layer 0 then
+runs attention alone.
 """
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ ATTN_KINDS = ('global', 'local')
 def _supported(cfg: ModelConfig, kind: str) -> None:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f'layer kind {kind!r} is not ported yet')
-    if cfg.block_type == 'parallel' and (cfg.moe is not None or cfg.mla):
+    if cfg.block_type == 'parallel' and cfg.mla:
         raise NotImplementedError('the parallel block is ported with GQA '
-                                  'attention and a dense FFN only')
+                                  'attention only')
 
 
 def kind_window(cfg: ModelConfig, kind: str) -> int:
@@ -67,22 +67,37 @@ def block_schema(cfg: ModelConfig, kind: str, use_moe: bool) -> Dict:
 
 
 def block_preproj(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                  use_moe: bool) -> Dict[str, torch.Tensor]:
-    """Position-independent first-layer computation on raw embeddings x:
-    ``{'x', 'q', 'k', 'v'}``, or ``{'x', 'q', 'ckv', 'kpe'}`` for MLA
-    (serial block); ``{'s', 'q', 'k', 'v'}`` for the parallel block, with
-    ``s = x + FFN(LN2(x))`` (the skip folded in, per the paper)."""
+                  use_moe: bool, *, return_drops: bool = False):
+    """Position-independent first-layer computation on raw embeddings x
+    (B, S, d): ``{'x', 'q', 'k', 'v'}``, or ``{'x', 'q', 'ckv', 'kpe'}``
+    for MLA (serial block); ``{'s', 'q', 'k', 'v'}`` for the parallel
+    block, with ``s = x + FFN(LN2(x))`` (the skip folded in, per the
+    paper). A parallel MoE block runs the whole expert FFN over x with the
+    default router and no lane mask, as JAX does: its capacity comes from
+    x's row count, so rows can overflow an expert and drop.
+    ``return_drops`` -> (pieces, dropped token slots: an int32 scalar
+    tensor, zero without a parallel MoE)."""
     _supported(cfg, kind)
     xn = L.norm_apply(params['ln1'], x, cfg.norm)
+    drops = None
     if cfg.mla:
         q, ckv, kpe = M.compute_latents(params['attn'], xn, cfg)
-        return {'x': x, 'q': q, 'ckv': ckv, 'kpe': kpe}
-    q, k, v = A.compute_qkv(params['attn'], xn, cfg)
-    if cfg.block_type == 'parallel':
-        xn2 = L.norm_apply(params['ln2'], x, cfg.norm)
-        s = x + ffn_apply(params['ffn'], xn2, act=cfg.act)
-        return {'s': s, 'q': q, 'k': k, 'v': v}
-    return {'x': x, 'q': q, 'k': k, 'v': v}
+        pieces = {'x': x, 'q': q, 'ckv': ckv, 'kpe': kpe}
+    else:
+        q, k, v = A.compute_qkv(params['attn'], xn, cfg)
+        if cfg.block_type == 'parallel':
+            xn2 = L.norm_apply(params['ln2'], x, cfg.norm)
+            if use_moe:
+                f, drops = moe_apply(params['moe'], xn2, cfg)
+            else:
+                f = ffn_apply(params['ffn'], xn2, act=cfg.act)
+            pieces = {'s': x + f, 'q': q, 'k': k, 'v': v}
+        else:
+            pieces = {'x': x, 'q': q, 'k': k, 'v': v}
+    if not return_drops:
+        return pieces
+    return pieces, torch.zeros((), dtype=torch.int32, device=x.device) \
+        if drops is None else drops
 
 
 def preproj_layout(cfg: ModelConfig, kind: str, use_moe: bool
@@ -103,30 +118,54 @@ def block_apply_full(params: Dict, h: torch.Tensor, positions: torch.Tensor,
                      pre: Optional[Dict] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block: h (B, S, d), positions (B, S) -> (h_out, aux
-    loss, a float32 zero). ``pre`` (precomputed rows) supplies layer 0's
-    q/k/v (and, in a parallel block, ``s``, which replaces LN2, the FFN
-    and the skip); otherwise LN1 and the Q/K/V projections are
-    :func:`_full_qkv`, so the baseline and the precomputed forward differ
-    only in layer 0."""
+    loss: a float32 scalar, the MoE's load-balance loss or zero). ``pre``
+    (precomputed rows) supplies layer 0's q/k/v (MLA: q/c_kv/k_pe; and, in
+    a parallel block, ``s``, which replaces LN2, the FFN or the whole MoE,
+    and the skip: no aux loss then); otherwise LN1 and the Q/K/V
+    projections are :func:`_full_qkv` (MLA: LN1 and ``mla_full``'s own
+    projections), so the baseline and the precomputed forward differ only
+    in layer 0. The serial MoE routes ``'softmax_topk'`` with shared
+    experts, else ``'topk_softmax'``; the parallel one takes the default,
+    as in JAX."""
     _supported(cfg, kind)
-    if cfg.mla or use_moe:
-        raise NotImplementedError(
-            'the full-sequence forward of MLA (mla_full) and MoE (with its '
-            'aux loss) blocks is not ported yet')
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    qkv = _full_qkv(params, h, cfg) if pre is None \
-        else (pre['q'], pre['k'], pre['v'])
-    attn_out = A.full_attention(params['attn'], None, positions, cfg,
-                                rope_theta=kind_theta(cfg, kind),
-                                window=kind_window(cfg, kind), qkv=qkv)
+    theta = kind_theta(cfg, kind)
+    if cfg.mla:
+        xn = L.norm_apply(params['ln1'], h, cfg.norm) if pre is None \
+            else None
+        lat = None if pre is None else (pre['q'], pre['ckv'], pre['kpe'])
+        attn_out = M.mla_full(params['attn'], xn, positions, cfg,
+                              rope_theta=theta, latents=lat)
+    else:
+        qkv = _full_qkv(params, h, cfg) if pre is None \
+            else (pre['q'], pre['k'], pre['v'])
+        attn_out = A.full_attention(params['attn'], None, positions, cfg,
+                                    rope_theta=theta,
+                                    window=kind_window(cfg, kind), qkv=qkv)
     if cfg.block_type == 'parallel':
         if pre is not None:
             return pre['s'] + attn_out, aux
         xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
-        return h + attn_out + ffn_apply(params['ffn'], xn2, act=cfg.act), aux
+        if use_moe:
+            f, aux, _ = moe_apply(params['moe'], xn2, cfg, with_aux=True)
+        else:
+            f = ffn_apply(params['ffn'], xn2, act=cfg.act)
+        return h + attn_out + f, aux
     h = h + attn_out
     xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
+    if use_moe:
+        f, aux, _ = moe_apply(params['moe'], xn2, cfg,
+                              router_mode=serial_router_mode(cfg),
+                              with_aux=True)
+        return h + f, aux
     return h + ffn_apply(params['ffn'], xn2, act=cfg.act), aux
+
+
+def serial_router_mode(cfg: ModelConfig) -> str:
+    """The serial MoE block's router: softmax over all experts, then top-k
+    (DeepSeek) with shared experts, else top-k then softmax (Mixtral)."""
+    return 'softmax_topk' if cfg.moe and cfg.moe.num_shared \
+        else 'topk_softmax'
 
 
 def _full_qkv(params: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple:
@@ -241,30 +280,38 @@ def block_decode(params: Dict, h: torch.Tensor, state: Dict,
                 params['attn'], xn, state, pos, cfg, rope_theta=theta,
                 window=window, qkv=qkv, backend=backend)
     attn_out = tl(attn_out)
-    if cfg.block_type == 'parallel':      # a dense FFN (``_supported``)
-        drops = torch.zeros((), dtype=torch.int32, device=h.device)
-        if pre is not None:
-            return pre['s'] + attn_out, state, drops
-        xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
-        f = ffn_apply(params['ffn'], xn2, act=cfg.act)
+
+    def ffn(xn2, router_mode):
+        """The dense FFN, or the MoE with the step's lane mask (JAX's:
+        chunk padding and free slots route nowhere; packed prefill takes
+        the slot-major capacity and canonical lane order), made only
+        where the block has an MoE so that dense steps run none of it."""
+        if not use_moe:
+            return (ffn_apply(params['ffn'], xn2, act=cfg.act),
+                    torch.zeros((), dtype=torch.int32, device=h.device))
+        T = h.shape[1]
+        moe_kw = {}
+        if packed is not None:
+            lane_mask = packed.lane_valid
+            moe_kw = dict(capacity_tokens=pos.shape[0] * T,
+                          lane_order=packed.lane_slot * T
+                          + packed.lane_local)
+        elif chunked:
+            lane_mask = torch.arange(T, device=h.device)[None] \
+                < n_valid.long()[:, None]
+        else:
+            lane_mask = None if lane_valid is None else lane_valid[:, None]
+        return moe_apply(params['moe'], xn2, cfg, router_mode=router_mode,
+                         lane_mask=lane_mask, **moe_kw)
+
+    if cfg.block_type == 'parallel':
+        if pre is not None:     # layer 0: the table's s holds LN2 + FFN
+            return pre['s'] + attn_out, state, torch.zeros(
+                (), dtype=torch.int32, device=h.device)
+        f, drops = ffn(L.norm_apply(params['ln2'], h, cfg.norm),
+                       'topk_softmax')
         return h + attn_out + f, state, drops
     h = h + attn_out
-    xn2 = L.norm_apply(params['ln2'], h, cfg.norm)
-    if not use_moe:
-        drops = torch.zeros((), dtype=torch.int32, device=h.device)
-        return h + ffn_apply(params['ffn'], xn2, act=cfg.act), state, drops
-    T = h.shape[1]
-    moe_kw = {}
-    if packed is not None:
-        lane_mask = packed.lane_valid
-        moe_kw = dict(capacity_tokens=pos.shape[0] * T,
-                      lane_order=packed.lane_slot * T + packed.lane_local)
-    elif chunked:
-        lane_mask = torch.arange(T, device=h.device)[None] \
-            < n_valid.long()[:, None]
-    else:
-        lane_mask = None if lane_valid is None else lane_valid[:, None]
-    f, drops = moe_apply(params['moe'], xn2, cfg,
-                         router_mode='softmax_topk' if cfg.moe.num_shared
-                         else 'topk_softmax', lane_mask=lane_mask, **moe_kw)
+    f, drops = ffn(L.norm_apply(params['ln2'], h, cfg.norm),
+                   serial_router_mode(cfg))
     return h + f, state, drops

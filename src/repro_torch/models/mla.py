@@ -1,6 +1,5 @@
-"""DeepSeek-V2 Multi-head Latent Attention (port of ``repro/models/mla.py``
-for decode and serving; the full-sequence ``mla_full`` waits for the
-full-sequence path).
+"""DeepSeek-V2 Multi-head Latent Attention (port of ``repro/models/mla.py``:
+decode, serving and the full-sequence ``mla_full``).
 
 MLA compresses K/V into a low-rank latent ``c_kv`` (kv_lora_rank wide)
 plus a small decoupled RoPE key ``k_pe`` shared across heads; only
@@ -10,9 +9,12 @@ RMSNorm(W_DKV·LN(x))`` and the pre-RoPE ``k_pe`` — so the paper's table
 row is ``[x, q, c_kv, k_pe]``. RoPE on ``q_pe``/``k_pe`` and the
 up-projections W_UK/W_UV (which read the cache) stay at run time.
 
-Decode uses the absorbed form: W_UK is folded into the query, so scores
-are taken against the latent cache directly, and W_UV is applied after
-the value mix.
+The full-sequence forward (:func:`mla_full`) uses the non-absorbed form,
+as JAX does: W_UK / W_UV expand the latents into per-head keys and values
+and the attention is the plain O(S^2) one (torch ops, as JAX leaves it to
+XLA outside any Pallas kernel). Decode uses the absorbed form: W_UK is
+folded into the query, so scores are taken against the latent cache
+directly, and W_UV is applied after the value mix.
 
 Caches are dicts ``{'ckv': (B, Sc, r), 'kpe': (B, Sc, dr), 'pos': (B, Sc)
 int32}`` (``pos`` -1 = never written), or the paged pool's ``(num_pages,
@@ -80,6 +82,36 @@ def _rope_kpe(k_pe: torch.Tensor, pos_t: torch.Tensor,
               theta: float) -> torch.Tensor:
     """Rotate the shared (B, T, dr) k_pe as one head."""
     return L.apply_rope(k_pe[:, :, None, :], pos_t, theta)[:, :, 0]
+
+
+# ------------------------------------------------------------------ full seq
+def mla_full(params: Dict, x_normed: Optional[torch.Tensor],
+             positions: torch.Tensor, cfg: ModelConfig, *, rope_theta: float,
+             latents: Optional[Tuple] = None) -> torch.Tensor:
+    """Full-sequence MLA, non-absorbed form: x_normed (B, S, d), positions
+    (B, S) -> (B, S, d) after the output projection. ``latents`` (q, c_kv,
+    k_pe) are the precomputed rows, replacing :func:`compute_latents`.
+    fp32 scores; the probabilities take v's dtype before the value mix, as
+    in JAX."""
+    m = cfg.mla
+    q, c_kv, k_pe = compute_latents(params, x_normed, cfg) \
+        if latents is None else latents
+    B, S = q.shape[0], q.shape[1]
+    q_nope, q_pe = _split_q(q, cfg)                    # (B,S,H,dn)/(B,S,H,dr)
+    q_pe = L.apply_rope(q_pe, positions, rope_theta)
+    k_pe = _rope_kpe(k_pe, positions, rope_theta)
+    k_nope = torch.einsum('bsr,rhd->bshd', c_kv, params['wuk'].to(c_kv.dtype))
+    v = torch.einsum('bsr,rhd->bshd', c_kv, params['wuv'].to(c_kv.dtype))
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scores = (torch.einsum('bqhd,bshd->bhqs', q_nope.float(), k_nope.float())
+              + torch.einsum('bqhd,bsd->bhqs', q_pe.float(), k_pe.float())
+              ) * scale
+    i = positions[:, None, :, None]
+    j = positions[:, None, None, :]
+    scores = scores.masked_fill(~(j <= i), A.NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum('bhqs,bshd->bqhd', probs, v)
+    return L.dense(params['wo'], ctx.reshape(B, S, -1))
 
 
 # -------------------------------------------------------------------- caches

@@ -58,12 +58,14 @@ class Model:
     def apply(self, params: Dict, batch: Dict[str, torch.Tensor], *,
               precomputed=None, return_hidden: bool = False):
         """The full-sequence forward: ``batch['tokens']`` (B, S) -> (logits
-        (B, S, V), aux loss, a float32 scalar on the tokens' device). With
-        ``precomputed`` (``build_table``) layer 0 reads table rows instead of
-        running its norm and projections; the logits equal the baseline's
-        (the paper's contract). GQA blocks with a dense FFN, serial or
-        parallel (a parallel table row also carries layer 0's FFN and
-        skip); MLA and MoE blocks raise ``NotImplementedError``. An
+        (B, S, V), aux loss, a float32 scalar on the tokens' device: the
+        MoE load-balance loss summed over the MoE layers, zero without
+        them). With ``precomputed`` (``build_table``) layer 0 reads table
+        rows instead of running its norm and projections; the logits equal
+        the baseline's (the paper's contract). GQA or MLA attention with a
+        dense or MoE FFN, serial or parallel (a parallel table row also
+        carries layer 0's FFN, the whole expert FFN for a parallel MoE, and
+        its skip: layer 0's MoE, and its aux loss, then drop out). An
         audio model also reads ``batch['frames']`` (B, T, frontend_dim)
         and a VLM ``batch['patches']`` (B, P, frontend_dim), spliced after
         ``VLM_PREFIX`` text tokens (its logits cover the whole sequence;

@@ -1,7 +1,7 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch (port of
-``repro/models/moe.py`` for serving: routing, capacity, lane masks, the
-packed-prefill ``lane_order`` and the drop count; the training-only
-load-balance loss is not ported).
+``repro/models/moe.py``: routing, capacity, lane masks, the packed-prefill
+``lane_order``, the drop count and the Switch-style load-balance loss,
+which only the full-sequence forward asks for).
 
 Tokens are routed to their top-k experts, the (token, k) slots are
 stable-sorted by expert, each slot's position within its expert comes from
@@ -68,14 +68,38 @@ def router_probs(logits: torch.Tensor, m: MoEConfig, mode: str
     return top / top.sum(dim=-1, keepdim=True), idx
 
 
+def load_balance_loss(logits: torch.Tensor, counts: torch.Tensor, k: int,
+                      lane_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Switch-style aux loss ``E * sum_e(mean router prob_e * slot
+    fraction_e)`` from the router logits (N, E) and the per-expert slot
+    counts (E,) of the real lanes, as JAX's ``moe_apply``: with a lane mask
+    both means run over the real lanes only (at least one)."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    if lane_mask is None:
+        nv = float(logits.shape[0])
+        p_mean = probs.mean(dim=0)
+    else:
+        valid = lane_mask.reshape(-1, 1).float()
+        nv = valid.sum().clamp(min=1.0)
+        p_mean = (probs * valid).sum(dim=0) / nv
+    frac = counts.float() / (nv * k)
+    return E * (p_mean * frac).sum()
+
+
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
               router_mode: str = 'topk_softmax',
               lane_mask: Optional[torch.Tensor] = None,
               capacity_tokens: Optional[int] = None,
-              lane_order: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              lane_order: Optional[torch.Tensor] = None,
+              with_aux: bool = False) -> Tuple[torch.Tensor, ...]:
     """x (B, S, d) -> (y (B, S, d), dropped_token_slots (int32 scalar
-    tensor, on x's device)).
+    tensor, on x's device)); ``with_aux`` -> (y, aux loss (float32 scalar,
+    :func:`load_balance_loss`), dropped_token_slots), JAX's order. JAX
+    computes the loss in every call and XLA drops it where unused; here
+    only the full-sequence forward asks for it, so a decode step runs none
+    of its work.
 
     ``lane_mask`` (B, S) bool marks real tokens: masked lanes (chunk
     padding, free slots) route to the null expert ``E``, which sorts last
@@ -147,4 +171,15 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = per_slot.view(N, k, d).sum(dim=1)
     if 'shared' in params:
         y = y + ffn_apply(params['shared'], xf, act='silu')
+    if with_aux:
+        aux = load_balance_loss(logits, counts, k, lane_mask)
+        return y.reshape(B, S, d), aux, dropped
     return y.reshape(B, S, d), dropped
+
+
+def moe_num_weights(cfg: ModelConfig) -> int:
+    m = cfg.moe
+    n = 3 * cfg.d_model * m.d_ff_expert * m.num_experts
+    if m.num_shared:
+        n += 3 * cfg.d_model * m.d_ff_expert * m.num_shared
+    return n

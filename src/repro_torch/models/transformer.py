@@ -85,7 +85,8 @@ def backbone_apply(params: Dict, h: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, pre0: Optional[Dict] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer on initial hidden states h (B, S, d); ``pre0`` holds
-    layer 0's precomputed rows. -> (h, aux loss summed over layers)."""
+    layer 0's precomputed rows. -> (h, the MoE load-balance loss summed
+    over layers, a float32 scalar)."""
     plan = layer_plan(cfg)
     if plan.n_head:
         raise NotImplementedError(

@@ -13,8 +13,8 @@ mistral-7b (sliding window 8) and glm4-9b (all global), with the same
 - The port's own contracts: baseline logits equal precomputed logits (the
   paper's), and ``apply`` equals token-by-token ``decode_step`` with the
   table (atol 5e-4 / rtol 5e-3, as ``test_precompute_equivalence.py``).
-- MLA / MoE (deepseek-v2-lite-16b) raise ``NotImplementedError`` in
-  ``apply``.
+- MLA / MoE blocks (deepseek-v2-lite-16b, the Mixtrals) are in
+  ``tests/test_torch_moe_forward.py`` and ``tests/test_torch_mixtral.py``.
 
 The kernels' plain versions against the JAX kernels, and their ``cuda``
 twins, are in ``tests/test_torch_kernels.py``.
@@ -192,11 +192,3 @@ def test_apply_on_cpu_counts_no_launch():
     tm.apply(tp, {'tokens': tok})
     tm.apply(tp, {'tokens': tok}, precomputed=tt)
     assert (rmsnorm_matmul.launches, flash_attention.launches) == before
-
-
-def test_apply_mla_moe_raises():
-    tm = Model(get_smoke_config('deepseek_v2_lite_16b'))
-    tp = tm.init(0, device='cpu', dtype=torch.float32)
-    tok = torch.from_numpy(_tokens(tm.cfg, 1, 8))
-    with pytest.raises(NotImplementedError, match='mla_full'):
-        tm.apply(tp, {'tokens': tok})

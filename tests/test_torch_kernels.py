@@ -22,7 +22,8 @@ int8 form ``paged_attention_quant`` at mistral-7b and glm4-9b widths;
 against one unsharded launch; at gemma3-1b's head width 256 the split
 ``paged_attention`` in both forms with its row independence,
 ``flash_attention``, ``gather_rope`` over 256-wide heads and the
-quantizing ``fused_page_write``). The
+quantizing ``fused_page_write``; ``gather_rope`` over llama3-405b's 136
+rotated heads, bitwise). The
 int8 form's plain version is held against JAX in
 ``tests/test_torch_quant.py``. They import nothing of JAX, so on a machine with
 only the port they run with:
@@ -594,6 +595,32 @@ def test_gather_rope_kernel_mla_segments(cuda, dtype, tol, N):
         assert torch.equal(got[:, ~rotated], rows[:, ~rotated])
         assert _device_kernels(lambda: gather_rope(
             tab, ids[:n], pos[:n], segs=segs, theta=1e4)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_gather_rope_kernel_llama3_405b_heads(cuda, dtype):
+    """llama3-405b's row (width 34816: x 16384, 128 q heads and 8 k heads of
+    128, v 1024), 136 rotated heads at theta 500k, N 1, 4, 64 and 512:
+    bitwise the plain version, one device kernel a call; more heads than
+    ``MAX_HEADS`` raise."""
+    from repro_torch.kernels.gather_rope import MAX_HEADS
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    V, W, d, H, KV, hd = 1000, 34816, 16384, 128, 8, 128
+    tab = torch.randn((V, W), generator=gen, device=cuda).to(dtype)
+    kw = dict(segs=((d, H, hd), (d + H * hd, KV, hd)), theta=5e5)
+    for N in (1, 4, 64, 512):
+        ids = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        pos = torch.randint(0, 131072, (N,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        got = gather_rope(tab, ids, pos, **kw)
+        assert torch.equal(got, gather_rope_plain(tab, ids, pos, **kw)), N
+        assert _device_kernels(lambda: gather_rope(tab, ids, pos, **kw)) == 1
+    assert H + KV <= MAX_HEADS
+    with pytest.raises(ValueError, match='rotated heads'):
+        gather_rope(tab, ids, pos, segs=((0, MAX_HEADS + 1, 128),),
+                    theta=5e5)
 
 
 @pytest.mark.cuda

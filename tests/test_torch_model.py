@@ -46,7 +46,9 @@ def test_config_copy_matches_jax():
     from repro_torch.configs import ALL_IDS
     assert ALL_IDS == ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
                        'pythia_6_9b', 'gemma3_1b', 'gemma3_27b',
-                       'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b']
+                       'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b',
+                       'mixtral_8x7b', 'mixtral_8x7b_parallel',
+                       'llama3_405b']
     # field by field, nested MLA / MoE configs included (the copies are
     # other classes, so compare their fields and class names)
     def fields(c):
@@ -216,13 +218,15 @@ def test_unported_families_raise():
     cfg = get_smoke_config('mistral_7b')
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(cfg, arch_class='ssm'))
-    # the parallel block with an MoE FFN (a parallel Mixtral) is not ported
-    moe = dataclasses.replace(get_smoke_config('deepseek_v2_lite_16b'),
-                              mla=None, block_type='parallel')
+    # the parallel block with MLA attention (no config has one)
+    mla = dataclasses.replace(get_smoke_config('deepseek_v2_lite_16b'),
+                              block_type='parallel')
     with pytest.raises(NotImplementedError):
-        Model(moe).make_states(1, 8, device='cpu')
-    with pytest.raises(NotImplementedError):
-        get_config('mixtral_8x7b')
+        Model(mla).make_states(1, 8, device='cpu')
+    # the recurrent and hybrid families
+    for name in ('xlstm_125m', 'hymba_1_5b'):
+        with pytest.raises(NotImplementedError):
+            get_config(name)
 
 
 @pytest.fixture(scope='module')
