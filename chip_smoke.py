@@ -91,8 +91,10 @@ Phases, in order; any failure raises and exits non-zero:
               fused_page_write at KV 1, d 256 (linear and ring job lists,
               edge rows) and cow_page_copy over gemma3-1b's 25 stacked
               layers, bitwise.
-4. mistral  — serves mistral-7b at full width (random bf16 weights from a
-              seed, precomputed table, chunk 16, fused gather→RoPE, the
+4. mistral  — serves mistral-7b at full width and 16 of its 32 layers
+              (DEPTHS: phases 4-7 and 10 cut depth, and only depth, to
+              keep the script near 10 minutes; random bf16 weights from
+              a seed, precomputed table, chunk 16, fused gather→RoPE, the
               cuda attention backend) on dense ring caches: 4 requests,
               prompts of 64-200 tokens, 16 new tokens each; then the same
               requests on the same weights without the table (the
@@ -120,11 +122,12 @@ Phases, in order; any failure raises and exits non-zero:
               bf16 run the chat again with the async double-buffered loop
               (async_loop=True): the bf16 run's greedy tokens, and the
               flushes at snapshot boundaries counted.
-5. glm4     — serves glm4-9b at full width through the paged KV pool and
-              the radix prefix cache (bf16, seeded random weights,
-              precomputed table, page 16, max_seq 2048, chunk 16, fused
-              gather→RoPE, cuda backend, 4 slots): two waves of 4 requests
-              sharing a 256-token system prompt, one of which stops short
+5. glm4     — serves glm4-9b at full width (20 of 40 layers) through
+              the paged KV pool and the radix prefix cache (bf16, seeded
+              random weights, precomputed table, page 16, max_seq 2048,
+              chunk 16, fused gather→RoPE, cuda backend, 4 slots): two
+              waves of 4 requests sharing a 256-token system prompt, one
+              of which stops short
               inside a cached page (copy-on-write); prints tok/s, TTFT with
               and without a prefix hit, the device idle share and peak
               memory; then the same waves four times in turns without and
@@ -153,36 +156,34 @@ Phases, in order; any failure raises and exits non-zero:
               the layer-0 comparison (N 1, 4, 64, 4096) and Model.apply at
               B 1, S 4096 as in phase 4. Between the first run and the
               telemetry turns, the two waves on fresh engines with
-              segment-packed prefill, the async loop and both, in turns
-              (sync, packed, async, both, async, sync) and once more async
-              with telemetry: greedy tokens equal to the synchronous
-              unpacked run's, score() logits bitwise or their largest
-              difference; ms/step, the programs' device span and idle
-              share, prefill_lane_utilization and lanes dispatched,
-              captures and replays, launches a step, and the overlap
-              fraction (overlap_s over the host's schedule, radix and
+              segment-packed prefill, the async loop and both (sync,
+              packed, async, both) and once more async with telemetry: greedy
+              tokens equal to the synchronous unpacked run's, score() logits
+              bitwise or their largest difference; ms/step, the programs'
+              device span and idle share, prefill_lane_utilization and lanes
+              dispatched, captures and replays, launches a step, and the
+              overlap fraction (overlap_s over the host's schedule, radix and
               staging seconds).
 6. deepseek — serves deepseek-v2-lite-16b (MLA + MoE) at full width and
-              depth as phase 5 serves glm4-9b: paged pool, prefix cache,
-              the MLA kernel on every attend; also logs the MoE drop
-              count; then the waves unpacked and with segment-packed
-              prefill on fresh engines: greedy tokens and MoE drops
-              equal.
-7. pythia  — serves pythia-6.9b (the paper's parallel block: LayerNorm,
-              MHA, a GELU MLP; the table's rows [s, q, k, v] carry layer
-              0's FFN and skip too) at full width and depth on seeded random
-              bf16 weights: dense caches with the table and the fused
-              gather-RoPE, 4 requests of 64-200 tokens + 16 new, then the
-              same requests without the table (the share of equal greedy
-              tokens printed); the paged pool with the radix cache (phase
-              5's two waves, a copy-on-write at 128 KB leaf pages); the
-              layer-0 comparison (embedding rows + LN1 + Q/K/V + LN2 + FFN +
-              skip against embed_gather of table rows, N 1, 4, 64, 2048) and
-              Model.apply at B 1, S 2048, baseline and with the table.
-              Launches: one gather a step, paged_attention once a layer and
-              step, fused_page_write once a layer and step on the paged run,
-              cow_page_copy once per cache and copy, flash_attention once a
-              layer a forward, rmsnorm_matmul never.
+              14 of 27 layers as phase 5 serves glm4-9b: paged pool, prefix
+              cache, the MLA kernel on every attend; also logs the MoE drop
+              count; then the waves unpacked and with segment-packed prefill on
+              fresh engines: greedy tokens and MoE drops equal.
+7. pythia  — serves pythia-6.9b (the paper's parallel block: LayerNorm, MHA, a
+              GELU MLP; the table's rows [s, q, k, v] carry layer 0's FFN and
+              skip too) at full width and 16 of 32 layers on seeded random bf16
+              weights: dense caches with the table and the fused gather-RoPE, 4
+              requests of 64-200 tokens + 16 new, then the same requests
+              without the table (the share of equal greedy tokens printed); the
+              paged pool with the radix cache (phase 5's two waves, a
+              copy-on-write at 128 KB leaf pages); the layer-0 comparison
+              (embedding rows + LN1 + Q/K/V + LN2 + FFN + skip against
+              embed_gather of table rows, N 1, 4, 64, 2048) and Model.apply at
+              B 1, S 2048, baseline and with the table. Launches: one gather a
+              step, paged_attention once a layer and step, fused_page_write
+              once a layer and step on the paged run, cow_page_copy once per
+              cache and copy, flash_attention once a layer a forward,
+              rmsnorm_matmul never.
 8. pressure — the glm4-9b and mistral-7b (ring pages with snapshots)
               smoke configs in fp32 without the fused gather (so
               embed_gather runs on the paged path) and a pool too small
@@ -206,30 +207,28 @@ Phases, in order; any failure raises and exits non-zero:
               segment-packed prefill and the async loop give them too,
               on 16 pages also under a page steal and on 12 through the
               preemptions.
-10. gemma3  — serves gemma3-27b (62 layers: layer 0, 10 x the 5:1
-              local/global pattern, a tail of 1; window 1024; KV 16 x
-              128) and then gemma3-1b (26 layers, window 512, KV 1 x 256)
-              at full width and depth on seeded random bf16 weights: the
-              table (qk_norm and the sqrt(d) embedding scale folded in),
-              fused gather-RoPE at layer 0's theta (10k), the cuda
-              backend, 4 slots, chunk 16, page 16, max_seq 2048; a paged
-              pool with ring pages for the local layers and linear pages
-              for the global ones, the radix cache and snapshots
-              (gemma3-27b's pool cut to 768 pages, printed). Traffic:
-              two waves of 4 requests on a 256-token system prompt (wave
-              1 puts a snapshot at its end, each request of wave 2 hits
-              it; a hit under snapshots ends on a page boundary, so no
-              copy-on-write), then a two-turn chat of 4 prompts of
-              1100-1300 tokens whose second turns hit the snapshots. bf16
-              first inside _eager_steps(), then replayed and held bitwise
-              against it, then int8 (and, for gemma3-27b, the async loop:
-              the bf16 run's tokens); every attend on the split kernel
-              and the template kernel never; then qk_norm's device ms a
-              layer and a step at the step shapes, the layer-0 comparison (the embedding rows x sqrt(d),
-              rmsnorm_matmul and qk_norm against embed_gather of table
-              rows, N 1, 4, 64, 4096) and Model.apply at B 1, S 4096,
-              baseline and with the table (gemma3-1b: flash_attention at
-              d 256 once a layer).
+10. gemma3  — serves gemma3-27b (20 of its 62 layers: layer 0, 3 x the 5:1
+              local/global pattern and a tail of 1, depth the only cut; window
+              1024; KV 16 x 128) and then gemma3-1b (26 layers, window 512, KV
+              1 x 256) at full width and depth on seeded random bf16 weights:
+              the table (qk_norm and the sqrt(d) embedding scale folded in),
+              fused gather-RoPE at layer 0's theta (10k), the cuda backend, 4
+              slots, chunk 16, page 16, max_seq 2048; a paged pool with ring
+              pages for the local layers and linear pages for the global ones,
+              the radix cache and snapshots (gemma3-27b's pool cut to 768
+              pages, printed). Traffic: two waves of 4 requests on a 256-token
+              system prompt (wave 1 puts a snapshot at its end, each request of
+              wave 2 hits it; a hit under snapshots ends on a page boundary, so
+              no copy-on-write), then a two-turn chat of 4 prompts of 1100-1300
+              tokens whose second turns hit the snapshots. bf16 first inside
+              _eager_steps(), then replayed and held bitwise against it, then
+              int8 (and, for gemma3-27b, the async loop: the bf16 run's
+              tokens); every attend on the split kernel and the template kernel
+              never; then qk_norm's device ms a layer and a step at the step
+              shapes, the layer-0 comparison (the embedding rows x sqrt(d),
+              rmsnorm_matmul and qk_norm against embed_gather of table rows, N
+              1, 4, 64, 4096) and Model.apply at B 1, S 4096, baseline and with
+              the table (gemma3-1b: flash_attention at d 256 once a layer).
 11. encoders — whisper-tiny-rope (the paper's 4-layer example: a
               bidirectional encoder over 1500 frames, a decoder with
               cross-attention, RoPE; the table folds layer 0's self Q/K/V)
@@ -263,7 +262,7 @@ Phases, in order; any failure raises and exits non-zero:
               4096; embed_gather at 1536 and 2048 wide rows; gather_rope
               over 14 + 2 heads of 64.
 12. big   — mixtral-8x7b and mixtral-8x7b-parallel (the paper's §3
-              third column: layer 0's whole MoE FFN in the table) at 16 of
+              third column: layer 0's whole MoE FFN in the table) at 8 of
               their 32 layers, llama3-405b at 4 of its 126, full width, on
               seeded random bf16 weights (depth the only cut): the table
               (the parallel Mixtral's build also reports the MoE token
@@ -285,8 +284,49 @@ Phases, in order; any failure raises and exits non-zero:
               comparison. Phase 6 adds deepseek-v2-lite-16b's Model.apply
               at S 4096 (mla_full and the MoE aux loss: torch ops, no
               flash or rmsnorm_matmul launch).
+13. recurrent — xlstm-125m (12 layers alternating mLSTM / sLSTM, d 768,
+              no positions) and hymba-1.5b (32 hybrid layers: attention
+              beside mamba heads, window 1024 but for layers 0 and 16,
+              128 meta tokens) at full width and depth on seeded random
+              bf16 weights; 4 slots, chunk 16, the cuda backend (the fused
+              gather asked for falls back: layer 0 is no attention layer).
+              Each prints its table, the analysis ratio at batch 1 and the
+              engine runs' tok/s, ms/step, the step programs' device span
+              and idle share, and the device kernels a step of each
+              captured step shape. xlstm: the dense engine with the table
+              over phase 4's traffic, first as an eager twin and then
+              replayed on the same engine, bitwise (tokens, score logits,
+              every state leaf); the traffic without the table; the paged
+              engine with the radix cache over gemma_traffic's waves (wave
+              2 hits 256 tokens on a snapshot of every recurrent and conv
+              leaf's row; snapshot bytes printed; no page leaves), eager
+              twin then a replayed engine, bitwise; the waves with
+              segment-packed prefill and with the async loop (tokens equal
+              to the replayed run's). hymba: prefix_cache=True refused
+              with JAX's ValueError; each engine primes the meta tokens
+              into every slot at construction (timed); a two-turn chat of
+              4 prompts of 1100-1400 tokens, past the window, max_seq 2048:
+              turn 1 as an eager twin, then on the same engine turn 1
+              replayed bitwise and turn 2; one slot serving a 200-token
+              prompt twice (the same tokens); the chat without the table.
+              Launches: one embed_gather a step with the table, none
+              without; paged_attention once per hymba layer and step;
+              never a page kernel, gather_rope, rmsnorm_matmul or flash
+              in an engine step. Then Model.apply at B 1, S 2048 (hymba +
+              128 meta tokens) in turns, baseline and with the table
+              (flash_attention once per hymba layer, none on xlstm; no
+              rmsnorm_matmul: the hybrid block norms once for both
+              branches as torch ops), and layer 0 alone (N 1-4096,
+              LN1 and the block's projections as torch ops against
+              embed_gather). Phase 3 holds embed_gather at their 5384-
+              and 7040-wide rows (bitwise, N 1-4096), the split
+              paged_attention at hymba's d 64, G 5 over dense caches as
+              identity-table pages (a windowed layer's ring of 1039
+              positions and a global layer's 2048, T 1 and 16) and
+              flash_attention at H 25, KV 5, d 64, S 2176, causal and
+              window 1024.
 
-Every one-device engine run of phases 4-11 with the cuda backend steps
+Every one-device engine run of phases 4-13 with the cuda backend steps
 through the engine's per-step programs: each step shape's CUDA graph is
 captured at its first step and replayed after (a mesh and the reference
 backend run eagerly). Phases 4-7 run one engine of each family first
@@ -483,7 +523,10 @@ def phase_build() -> None:
 # internvl2-1b (2048-wide rows; gather_rope over 14 + 2 heads of 64);
 # llama3-405b (34816-wide rows over its 128256-row vocabulary, 8.9 GB in
 # bf16; gather_rope over 128 q + 8 k heads of 128 at theta 500k) at the
-# token counts of its engine and layer-0 comparison (phase 12).
+# token counts of its engine and layer-0 comparison (phase 12);
+# xlstm-125m's [x, u1, u2, v, ifg] rows (5384 wide) and hymba-1.5b's
+# [x, q, k, v, x_in, gate] rows (7040 wide) at the token counts of their
+# engines, Model.apply and layer-0 comparisons (phase 13).
 EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                 (1, 4, 64, 512, 4096)),
                ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -496,7 +539,9 @@ EMBED_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                ('whisper_tiny_rope', False, (torch.bfloat16,),
                 (1, 4, 64, 448)),
                ('internvl2_1b', False, (torch.bfloat16,), (1, 4, 64, 4096)),
-               ('llama3_405b', False, (torch.bfloat16,), (1, 4, 64, 512)))
+               ('llama3_405b', False, (torch.bfloat16,), (1, 4, 64, 512)),
+               ('xlstm_125m', False, (torch.bfloat16,), (1, 4, 64, 4096)),
+               ('hymba_1_5b', False, (torch.bfloat16,), (1, 4, 64, 4096)))
 ROPE_CASES = (('mistral_7b', False, (torch.bfloat16, torch.float32),
                (1, 4, 64, 512)),
               ('glm4_9b', False, (torch.bfloat16, torch.float32),
@@ -521,6 +566,37 @@ ROPE_BITWISE = ('llama3_405b',)
 
 def config_of(name: str, smoke: bool):
     return get_smoke_config(name) if smoke else get_config(name)
+
+
+# the depth of an engine phase's model, where it is cut (full width; depth
+# the only cut), so that the whole script ends in about 10 minutes on one
+# H100: half the layers of the serving models of phases 4-7, and for
+# gemma3-27b layer 0, three 5:1 local/global groups and the tail of 1 that
+# its 62 layers end in (the same layer plan, 3 global layers); the
+# Mixtrals' depth is BIG_MODELS'
+DEPTHS = {'mistral_7b': 16, 'glm4_9b': 20, 'deepseek_v2_lite_16b': 14,
+          'pythia_6_9b': 16, 'gemma3_27b': 20}
+
+
+def cut_config(name: str):
+    """``name``'s full-width config at its DEPTHS depth (or full depth);
+    logs the cut."""
+    full = get_config(name)
+    depth = DEPTHS.get(name)
+    if depth is None:
+        return full
+    log(f'[depth] {full.name}: {depth} of {full.num_layers} layers (full '
+        'width; depth the only cut)')
+    return dataclasses.replace(full, num_layers=depth)
+
+
+def row_width(cfg) -> int:
+    """Width of the config's table rows: the sum of its layer-0 layout
+    (``blocks.preproj_layout``), which also covers the recurrent and
+    hybrid rows."""
+    plan = layer_plan(cfg)
+    return sum(w for _, w in preproj_layout(cfg, plan.kinds[0],
+                                            plan.use_moe[0]))
 
 
 def out_of_range_ids(ids: torch.Tensor, V: int) -> torch.Tensor:
@@ -559,7 +635,7 @@ def check_embed_gather(gen) -> dict:
     row, at_n = {}, {}
     for name, smoke, dtypes, counts in EMBED_CASES:
         cfg = config_of(name, smoke)
-        V, W = cfg.vocab_size, cfg.precompute_row_width
+        V, W = cfg.vocab_size, row_width(cfg)
         for dtype in dtypes:
             table = torch.randn((V, W), generator=gen,
                                 device='cuda').to(dtype)
@@ -2318,6 +2394,61 @@ def check_split_attends(gen, arch) -> dict:
     return out
 
 
+# hymba-1.5b's dense engine (phase 13): 4 slots, chunk 16, max_seq 2048;
+# the slots hold SPLIT_LENGTHS tokens (a windowed layer's ring wraps in
+# slots 0 and 3; slot 2 is empty)
+HYMBA_SEQ = 2048
+
+
+def check_hymba_attends(gen) -> dict:
+    """The split paged_attention at hymba-1.5b's engine shapes (KV 5, G 5,
+    d 64), on its dense caches viewed as identity-table pages as the cuda
+    backend views them: a windowed layer's ring of cache_len(1024, 2048,
+    16) = 1039 positions and a global layer's 2048, bf16, T 1 and 16
+    (:func:`ring_case`). Held within 2e-2 and by ``check_paged_bf16`` (the
+    row-scaled limit; T 16 rows bitwise one-token calls), timed with the
+    plain version, sdpa and the bound. -> rows keyed '<kind> Sc=<Sc>
+    T=<T>'."""
+    cfg = get_config('hymba_1_5b')
+    KV, d = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
+    out = {}
+    for kind in ('hybrid', 'hybrid_global'):
+        window = cfg.layer_window(kind)
+        Sc = A.cache_len(window, HYMBA_SEQ, 16)
+        for T in (1, 16):
+            args, (k, v, cpos) = ring_case(gen, torch.bfloat16, RING_SLOTS,
+                                           T, KV, G, d, Sc, SPLIT_LENGTHS)
+            label = f'{kind} Sc={Sc} T={T}'
+            kw = dict(scale=d ** -0.5, window=window)
+            assert split_form(args[0], args[1], args[2]), label
+            got = paged_attention(*args, **kw)
+            want = paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+            assert not got[2].any(), 'empty slot must attend to zeros'
+            held = check_paged_bf16(f'hymba {label}', got, want, args, kw)
+            del got, want
+            ms = time_ms(lambda: paged_attention(*args, **kw))
+            plain = time_ms(lambda: paged_attention_plain(*args, **kw))
+            lib = library_attention_ms(args[0], k, v, cpos, args[5], window)
+            b_ms, by = attention_bound(args[0], k, cpos, args[5], window,
+                                       torch.bfloat16)
+            log(f'[kernel] paged_attention bf16 {cfg.name} {label} '
+                f'B={RING_SLOTS} KV={KV} G={G} d={d} dense caches as '
+                f'identity-table pages: split kernel; max |err| {err:.3g} '
+                f'(tol 2e-2; {held}), empty slot zeros; kernel {ms:.4f} ms, '
+                f'plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} '
+                f'ms ({by})')
+            out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=by, library_ms=lib)
+            del args, k, v, cpos
+    free()
+    return out
+
+
 def check_quantizing_write_pool(gen, arch) -> dict:
     """:func:`check_quantizing_write` at ``arch``'s pool rows (gemma3-1b:
     KV 1, d 256, one head's values over the 32 lanes of a warp;
@@ -2367,12 +2498,17 @@ def check_quantizing_write_pool(gen, arch) -> dict:
 # pythia-6.9b S 2048 over 32 kv heads, gemma3-1b S 4096 at d 256 over one
 # kv head, a local layer's 512 window and a global layer, internvl2-1b S
 # 4096 at d 64 over 14 heads of 2 kv heads: G 7, llama3-405b S 4096 over
-# 128 heads of 8 kv heads: G 16) and a ragged S (not a multiple of any
-# tile)
+# 128 heads of 8 kv heads: G 16, hymba-1.5b S 2048 + its 128 meta tokens
+# over 25 heads of 5 kv heads at d 64, a windowed layer's 1024 and a
+# global layer) and a ragged S (not a multiple of any tile)
+# Model.apply of hymba-1.5b in phase 13: 2048 tokens after 128 meta tokens
+HYMBA_APPLY_S = 2048 + 128
 FLASH_CASES = (('mistral_7b', 8192, 4096), ('glm4_9b', 4096, 0),
                ('glm4_9b', 4097, 0), ('pythia_6_9b', 2048, 0),
                ('gemma3_1b', 4096, 512), ('gemma3_1b', 4096, 0),
-               ('internvl2_1b', 4096, 0), ('llama3_405b', 4096, 0))
+               ('internvl2_1b', 4096, 0), ('llama3_405b', 4096, 0),
+               ('hymba_1_5b', HYMBA_APPLY_S, 1024),
+               ('hymba_1_5b', HYMBA_APPLY_S, 0))
 # tests/test_kernels.py's tolerances (2e-5 fp32, 3e-2 bf16); and in bf16 a
 # limit scaled by the output, |err| <= 0.02 rms(row) + 0.016 |want|: the
 # kernel rounds its probabilities to bf16 (2^-9 relative), an error that
@@ -2475,7 +2611,7 @@ def check_flash_attention(gen) -> dict:
             if (name, S, dtype) == ('mistral_7b', 8192, torch.bfloat16):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=by, library_ms=lib)
-            if name.startswith(('gemma', 'internvl', 'llama3')) \
+            if name.startswith(('gemma', 'internvl', 'llama3', 'hymba')) \
                     and dtype is torch.bfloat16:
                 row.setdefault(name, {})[f'window {window}'] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -2793,8 +2929,8 @@ def phase_apply(model, params, table, S: int, tag: str) -> dict:
             device='cuda').to(torch.bfloat16)
     last, launches, aux_of = {}, {}, {}
     times = {'baseline': [], 'precomputed': []}
-    order = ('baseline', 'precomputed') + ('baseline', 'precomputed',
-                                           'precomputed', 'baseline') * 2
+    order = ('baseline', 'precomputed', 'baseline', 'precomputed',
+             'precomputed', 'baseline')
     for i, mode in enumerate(order):
         pre = table if mode == 'precomputed' else None
         torch.cuda.synchronize()
@@ -3240,7 +3376,7 @@ def phase_mistral(rows) -> dict:
     then, on the same weights, through the paged pool with ring pages
     (:func:`phase_mistral_paged`), the layer-0 comparison and Model.apply
     at S 8192."""
-    cfg = get_config('mistral_7b')
+    cfg = cut_config('mistral_7b')
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
@@ -4439,11 +4575,10 @@ def observe_waves(model, params, table, tag, attn_kernel, system, warm,
 MODES = {'sync': {}, 'packed': dict(pack_prefill=True),
          'async': dict(async_loop=True),
          'both': dict(pack_prefill=True, async_loop=True)}
-# phase 5's modes, in turns (the synchronous unpacked run first and last),
-# then the async loop once more with telemetry (the overlap fraction)
+# phase 5's modes (the synchronous unpacked run first), then the async
+# loop once more with telemetry (the overlap fraction)
 GLM_MODES = (('sync', False), ('packed', False), ('async', False),
-             ('both', False), ('async', False), ('sync', False),
-             ('async', True))
+             ('both', False), ('async', True))
 
 
 @contextlib.contextmanager
@@ -4666,15 +4801,15 @@ def tree_bytes(tree) -> int:
 
 
 def phase_pythia(rows) -> dict:
-    """pythia-6.9b, the paper's parallel block (LayerNorm, MHA: G 1), at
-    full width and depth on seeded random bf16 weights: dense caches with
+    """pythia-6.9b, the paper's parallel block (LayerNorm, MHA: G 1), at full
+    width and its DEPTHS depth on seeded random bf16 weights: dense caches with
     the table (whose rows also carry layer 0's FFN and skip) and the fused
-    gather-RoPE, then the same requests without the table; the paged pool
-    with the radix cache (phase 5's two waves: prefix hits and a
-    copy-on-write at 128 KB leaf pages); then the layer-0 comparison
-    (``check_layer0_parallel``) and Model.apply at S 2048. rmsnorm_matmul
-    never launches (LayerNorm). -> launches by run."""
-    cfg = get_config(PYTHIA)
+    gather-RoPE, then the same requests without the table; the paged pool with
+    the radix cache (phase 5's two waves: prefix hits and a copy-on-write at
+    128 KB leaf pages); then the layer-0 comparison (``check_layer0_parallel``)
+    and Model.apply at S 2048. rmsnorm_matmul never launches (LayerNorm). ->
+    launches by run."""
+    cfg = cut_config(PYTHIA)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
@@ -5118,22 +5253,22 @@ def qk_norm_ms(cfg, params, tag) -> None:
 
 
 def phase_gemma(arch, tag, rows, num_pages=None, runs=('int8',)) -> dict:
-    """``arch`` (gemma3-27b or gemma3-1b) at full width and depth on seeded
-    random bf16 weights: the table (qk_norm and the sqrt(d) embedding scale
-    folded in), the fused gather-RoPE at layer 0's theta (10k: layer 0 is
-    local), the cuda backend, 4 slots, chunk 16, page 16, max_seq 2048; the
-    paged pool holds ring pages for the local layers and linear pages for
-    the global ones, with the radix cache and snapshots. Each run serves
-    ``gemma_traffic`` through :func:`serve_ring` (two waves on a system
-    prompt, the second hitting its snapshot, then the two-turn chat whose
-    second turns hit the snapshots): bf16 first inside ``_eager_steps()``,
-    then replayed and held bitwise against it, then the extra ``runs``
-    ('int8'; 'async': the async loop, the bf16 run's tokens). Every attend
-    takes the split kernel (dense or int8 form) and the template never
-    (``split_calls``). Then the cost of ``qk_norm`` a step
-    (:func:`qk_norm_ms`), the layer-0 comparison and Model.apply at S 4096.
-    -> launches by run."""
-    cfg = get_config(arch)
+    """``arch`` (gemma3-27b or gemma3-1b) at full width and its DEPTHS depth
+    (gemma3-1b: full depth) on seeded random bf16 weights: the table (qk_norm
+    and the sqrt(d) embedding scale folded in), the fused gather-RoPE at layer
+    0's theta (10k: layer 0 is local), the cuda backend, 4 slots, chunk 16,
+    page 16, max_seq 2048; the paged pool holds ring pages for the local layers
+    and linear pages for the global ones, with the radix cache and snapshots.
+    Each run serves ``gemma_traffic`` through :func:`serve_ring` (two waves on
+    a system prompt, the second hitting its snapshot, then the two-turn chat
+    whose second turns hit the snapshots): bf16 first inside
+    ``_eager_steps()``, then replayed and held bitwise against it, then the
+    extra ``runs`` ('int8'; 'async': the async loop, the bf16 run's tokens).
+    Every attend takes the split kernel (dense or int8 form) and the template
+    never (``split_calls``). Then the cost of ``qk_norm`` a step
+    (:func:`qk_norm_ms`), the layer-0 comparison and Model.apply at S 4096. ->
+    launches by run."""
+    cfg = cut_config(arch)
     model = Model(cfg)
     plan = layer_plan(cfg)
     t0 = time.perf_counter()
@@ -5204,11 +5339,11 @@ def phase_gemma(arch, tag, rows, num_pages=None, runs=('int8',)) -> dict:
 # ---------------------------------------------------------------- phase 12
 # (config, tag, layers): full width, depth the only cut, to fit one H100
 # beside pools, tables and the eager twins' states: mixtral-8x7b and its
-# parallel twin at 16 of 32 layers (46.4 GB of bf16 layers), llama3-405b
-# at 4 of 126 (25.5 GB of layers + 8.4 GB of embedding and head + an
-# 8.9 GB table)
-BIG_MODELS = (('mixtral_8x7b', 'mixtral', 16),
-              ('mixtral_8x7b_parallel', 'mixtral_par', 16),
+# parallel twin at 8 of 32 layers (23.2 GB of bf16 layers; 8, not 16, to
+# keep the script near 10 minutes), llama3-405b at 4 of 126 (25.5 GB of
+# layers + 8.4 GB of embedding and head + an 8.9 GB table)
+BIG_MODELS = (('mixtral_8x7b', 'mixtral', 8),
+              ('mixtral_8x7b_parallel', 'mixtral_par', 8),
               ('llama3_405b', 'llama3', 4))
 BIG_APPLY_SEQ = 4096
 
@@ -5311,9 +5446,487 @@ def phase_big(arch, tag, depth, rows) -> dict:
     return phases
 
 
+# ---------------------------------------------------------------- phase 13
+# the recurrent and hybrid families at full width and depth: 4 slots,
+# chunk 16, the cuda backend; xlstm-125m's dense engine at max_seq 512 and
+# its paged one at 2048 (page 16), hymba-1.5b's dense engine at 2048
+REC_SLOTS, REC_CHUNK = 4, 16
+XLSTM_DENSE_SEQ = 512
+REC_APPLY_SEQ = 2048
+# the layer kinds that keep no attention cache
+RECURRENT = ('mlstm', 'slstm')
+
+
+def rec_engine(model, params, table, max_seq, **kw):
+    """An engine of phase 13: 4 slots, chunk 16, the table (or None), the
+    fused gather asked for (it falls back: layer 0 is no attention layer),
+    the cuda backend, bf16 state."""
+    eng = ServingEngine(model, params, max_slots=REC_SLOTS, max_seq=max_seq,
+                        precomputed=table, seed=SEED, dtype=torch.bfloat16,
+                        chunk_size=REC_CHUNK, fused_gather_rope=True,
+                        attn_backend='cuda', device='cuda', **kw)
+    assert not eng.fused_gather_rope and eng._graphs
+    return eng
+
+
+def copy_requests(reqs):
+    return [Request(uid=r.uid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
+
+
+def program_nodes(eng) -> dict:
+    """Device kernels a step of each captured step shape: the nodes of a
+    re-capture of its forward (which launches nothing: the counts are put
+    back)."""
+    counts = read_launches()
+    nodes = {str(key): device_kernels(
+        lambda: p._forward(eng._bucket_states(p.nb)))
+        for key, p in sorted(eng.programs.items()) if p.graph is not None}
+    for kern, n in zip(KERNELS, counts.values()):
+        kern.launches = n
+    return nodes
+
+
+def serve_rec(eng, tag, waves, *, warm=None, eager=False, expect=None,
+              hits=None, score_len=40) -> dict:
+    """``waves`` on ``eng``, each run to its end: a list of Requests, or a
+    function of the previous wave's (finished) requests that makes them.
+    ``warm`` (a prompt): a 2-token request first, outside the measured run
+    (cuBLAS handles, the step shapes' graphs). With ``eager`` every step
+    runs inside ``_eager_steps()`` and no profile; ``expect`` (an eager
+    run's digest) holds tokens, ``score()`` logits and every state leaf
+    bitwise against it. ``hits``: each request's prefix-hit tokens, asserted.
+    Checks: every request FINISHED with its tokens; one embed_gather a step
+    with the table, none without; paged_attention once per attention layer
+    and step; no other kernel (no page write or copy, no fused gather). ->
+    launches, tokens, the requests, the digest (its leaves on the host
+    after an eager run, which the same engine may serve again), steps,
+    ms/step, tok/s, the programs' device span a step and, replayed, the
+    device kernels a step of each captured step shape."""
+    cfg = eng.model.cfg
+    attn_layers = sum(k not in RECURRENT for k in layer_plan(cfg).kinds)
+    reqs, prev, waves_s = [], None, []
+    if eager:
+        tag += ' eager'
+    with steps_mode(eager):
+        if warm is not None:
+            eng.submit(Request(uid=-1, prompt=warm, max_new_tokens=2))
+            eng.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = eng.steps
+        zero_launches()
+        with program_spans() as events:
+            t_all = time.perf_counter()
+            for wave in waves:
+                wave = wave(prev) if callable(wave) else wave
+                t0 = time.perf_counter()
+                for r in wave:
+                    eng.submit(r)
+                eng.run()
+                torch.cuda.synchronize()
+                waves_s.append(time.perf_counter() - t0)
+                reqs += wave
+                prev = wave
+            dt = time.perf_counter() - t_all
+    launches = read_launches()
+    steps = eng.steps - steps0
+    for r in reqs:
+        assert r.status is RequestStatus.FINISHED, (tag, r.uid, r.status,
+                                                    r.error)
+        assert len(r.generated) == r.max_new_tokens, (r.uid,
+                                                      len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    want = {'embed_gather': steps if eng.precomputed is not None else 0,
+            'paged_attention': attn_layers * steps}
+    assert all(launches[k] == want.get(k, 0) for k in launches), \
+        (tag, launches, want)
+    if hits is not None:
+        assert [r.prefix_hit_tokens for r in reqs] == hits, \
+            (tag, [r.prefix_hit_tokens for r in reqs], hits)
+    stats = eng.stats(reqs)
+    span_ms = sum(a.elapsed_time(b) for a, b in events)
+    ttft = [r.first_token_t - r.submit_t for r in reqs]
+    log(f'[{tag}] {len(reqs)} requests (prompts '
+        f'{[len(r.prompt) for r in reqs]}), {stats["tokens"]} new tokens in '
+        f'{dt:.3f}s -> {stats["tokens"] / dt:.1f} tok/s; {steps} steps '
+        f'({dt / steps * 1e3:.2f} ms/step); wave seconds '
+        f'{[round(w, 3) for w in waves_s]}; mean TTFT {np.mean(ttft):.3f}s; '
+        f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+        + span_text(events, dt, steps))
+    if eng.paged:
+        n_snap, snap_bytes = snapshots_held(eng)
+        log(f'[{tag}] prefix hits {stats["prefix_hits"]}, misses '
+            f'{stats["prefix_misses"]}, hit tokens '
+            f'{stats["prefix_hit_tokens"]} (per request '
+            f'{[r.prefix_hit_tokens for r in reqs]}), copy-on-write '
+            f'{stats["cow_copies"]}, pages in use {stats["pages_in_use"]} '
+            f'(no page leaves: {len(eng._pools)} pools); snapshots held '
+            f'{n_snap} ({snap_bytes} bytes, '
+            f'{snap_bytes / max(n_snap, 1) / 2**20:.2f} MiB each)')
+    log(f'[{tag}] launches {json.dumps(launches)} over {steps} steps '
+        f'(embed_gather {"one" if eng.precomputed is not None else "none"} '
+        f'a step, paged_attention {attn_layers} a step, no page kernel); '
+        'all requests FINISHED with their tokens (finite logits)')
+    tokens = [r.generated for r in reqs]
+    with steps_mode(eager):
+        scores = eng.score([reqs[0].prompt[:score_len]])
+    digest = replay_digest(eng, tokens, scores)
+    if eager:                   # the engine may serve again: keep copies
+        digest['leaves'] = [x.cpu() for x in digest['leaves']]
+    if expect is not None:
+        check_replay(f'[{tag}]', eng, digest, expect)
+    out = dict(launches=launches, tokens=tokens, requests=reqs,
+               digest=digest, steps=steps, ms_step=dt / steps * 1e3,
+               tok_s=stats['tokens'] / dt, span_ms=span_ms / steps)
+    if not eager:
+        log_programs(f'[{tag}]', eng)
+        out['nodes'] = program_nodes(eng)
+        log(f'[{tag}] device kernels a step by captured step shape '
+            f'{json.dumps(out["nodes"])}')
+    return out
+
+
+def rec_model(arch, tag):
+    """``arch`` at full width and depth on seeded random bf16 weights and
+    its table; logs the config, the weights, the table and
+    core.analysis's layer-0 read ratio at batch 1. -> (config, model,
+    params, table, ratio)."""
+    from repro_torch.core.analysis import analyze
+    cfg = get_config(arch)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device='cuda', dtype=torch.bfloat16)
+    table = model.build_table(params)
+    torch.cuda.synchronize()
+    t_made = time.perf_counter() - t0
+    plan = layer_plan(cfg)
+    an = analyze(cfg)
+    ratio = an.reduction_factor(1, cfg.d_model)
+    s = cfg.ssm
+    log(f'[{tag}] {cfg.name}: {cfg.num_layers} layers (layer 0 '
+        f'{plan.kinds[0]}, {plan.reps} x {plan.slots}, tail {plan.n_tail}), '
+        f'd {cfg.d_model}, positions {cfg.pos}, ssm heads '
+        f'{s.num_ssm_heads}, conv {s.conv_kernel}'
+        + (f', expand {s.expand}' if cfg.arch_class == 'ssm' else
+           f', {cfg.num_heads}H/{cfg.num_kv_heads}KV x {cfg.head_dim}, '
+           f'window {cfg.window}, state {s.state_dim}, '
+           f'{cfg.num_meta_tokens} meta tokens, {cfg.act} MLP {cfg.d_ff}')
+        + f', tied head, vocab {cfg.vocab_size}; weights '
+        f'{tree_bytes(params) / 2**30:.3f} GiB + table '
+        f'{tuple(table.table.shape)} ({nbytes(table.table) / 2**30:.3f} GiB, '
+        f'layout {table.layout}) made on the card in {t_made:.1f}s; '
+        f'analysis.analyze: layer 0 reads {an.reads_without_b1} elements at '
+        f'batch 1 without the table, {an.reads_with_b1} with it: '
+        f'{ratio:.1f}x')
+    return cfg, model, params, table, ratio
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def check_layer0_rec(model, params, table, ratio, counts=LAYER0_COUNTS):
+    """Layer 0 alone at full width: the baseline (the embedding rows read,
+    LN1 and the block's precomputable projections as torch ops:
+    ``blocks.block_preproj``; no kernel of the port) against the table
+    (embed_gather of the rows: one launch), every piece within RMS_TOL.
+    Launches rotate over COLD_COPIES copies of layer 0's weights and 16 id
+    sets, as :func:`check_layer0`. Beside the analysis ratio."""
+    from repro_torch.core.analysis import eliminated_weights
+    cfg = model.cfg
+    kind = layer_plan(cfg).kinds[0]
+    sets = [params['backbone']['layer0']] + [
+        clone_tree(params['backbone']['layer0'])
+        for _ in range(COLD_COPIES - 1)]
+    embed, rows = params['embed']['table'], table.table
+    es, d, W = embed.element_size(), cfg.d_model, rows.shape[1]
+    w_elems = eliminated_weights(cfg)     # the projections' weights
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    for n in counts:
+        ids = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device='cuda', dtype=torch.int32)
+               for _ in range(16)]
+        calls = [0]
+
+        def pick():
+            calls[0] += 1
+            return calls[0] % COLD_COPIES, ids[calls[0] % 16]
+
+        def baseline():
+            i, t = pick()
+            return block_preproj(sets[i], embed[t.long()][None], cfg, kind,
+                                 False)
+
+        def precomputed():
+            return table.gather(pick()[1][None])
+        zero_launches()
+        want = block_preproj(sets[0], embed[ids[0].long()][None], cfg, kind,
+                             False)
+        assert all(v == 0 for v in read_launches().values())
+        got = table.gather(ids[0][None])
+        assert read_launches()['embed_gather'] == 1
+        torch.cuda.synchronize()
+        err = 0.0
+        for nm, _ in table.layout:
+            torch.testing.assert_close(got[nm].float(), want[nm].float(),
+                                       atol=RMS_TOL, rtol=RMS_TOL)
+            err = max(err, (got[nm].float() - want[nm].float()).abs().max()
+                      .item())
+        del got, want
+        it = (20, 5) if n <= 64 else (3, 3)
+        base, pre = time_ms(baseline, *it), time_ms(precomputed, *it)
+        base_bytes = n * d * es + w_elems * es
+        pre_bytes = n * W * es
+        log(f'[layer0] {cfg.name} N={n}: baseline (embedding rows + LN1 + '
+            f'the {kind} block\'s projections of '
+            f'{[nm for nm, _ in table.layout][1:]} as torch ops, {w_elems} '
+            f'weights) {base:.4f} ms, {base_bytes} '
+            f'bytes read; precomputed (embed_gather of {W}-wide rows) '
+            f'{pre:.4f} ms, {pre_bytes} bytes read; baseline / precomputed '
+            f'{base / pre:.1f}x, bytes {base_bytes / pre_bytes:.1f}x; pieces '
+            f'max |diff| {err:.3g} (tol {RMS_TOL}); analysis ratio at batch 1 '
+            f'{ratio:.1f}x')
+    del sets
+    free()
+
+
+def phase_apply_rec(model, params, table, tag,
+                    order=('baseline', 'precomputed', 'precomputed',
+                           'baseline')) -> dict:
+    """Model.apply at full width, B 1 and REC_APPLY_SEQ tokens (hymba: after
+    its 128 meta tokens), baseline and with the table in turns (``order``;
+    xlstm's forward, a host-bound loop of ~5.7 s, runs once each): launches a
+    forward (embed_gather once with the table; flash_attention once per
+    attention layer, hymba's S + 128 being past the blocked threshold; nothing
+    else: no rmsnorm_matmul, the hybrid block norms once for both branches as
+    torch ops), ms of each forward, and the two runs' last 64 positions' logits
+    against each other (APPLY_TOL). -> launches by run."""
+    from repro_torch.models.attention import BLOCKED_THRESHOLD
+    cfg = model.cfg
+    S, M = REC_APPLY_SEQ, cfg.num_meta_tokens
+    attn_layers = sum(k not in RECURRENT for k in layer_plan(cfg).kinds)
+    flash = attn_layers if S + M >= BLOCKED_THRESHOLD else 0
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(3, cfg.vocab_size, size=S).astype(np.int32)
+    batch = {'tokens': torch.from_numpy(prompt)[None].to('cuda')}
+    last, launches, times = {}, {}, {'baseline': [], 'precomputed': []}
+    for mode in order:
+        pre = table if mode == 'precomputed' else None
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, aux = model.apply(params, batch, precomputed=pre)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3)
+        ln = read_launches()
+        assert ln['flash_attention'] == flash, (mode, ln)
+        assert ln['embed_gather'] == (pre is not None), (mode, ln)
+        assert all(v == 0 for k, v in ln.items() if k not in (
+            'flash_attention', 'embed_gather')), (mode, ln)
+        if mode not in last:
+            assert logits.shape == (1, S, cfg.vocab_size), logits.shape
+            assert bool(torch.isfinite(logits).all()), f'{mode} logits'
+            assert float(aux) == 0.0
+            last[mode] = logits[0, -64:].float()
+            launches[f'{tag}_apply' + ('_pre' if pre is not None else '')] \
+                = ln
+        del logits
+    base, pre = last['baseline'], last['precomputed']
+    mean = {m: float(np.mean(t)) for m, t in times.items()}
+    log(f'[apply] {cfg.name} B=1 S={S}'
+        + (f' (+ {M} meta tokens)' if M else '') + ': ms per forward '
+        f'baseline {[round(t, 1) for t in times["baseline"]]} (mean '
+        f'{mean["baseline"]:.1f}), precomputed '
+        f'{[round(t, 1) for t in times["precomputed"]]} (mean '
+        f'{mean["precomputed"]:.1f}); launches a forward: flash_attention '
+        f'{flash}, embed_gather 1 with the table, nothing else')
+    log(f'[apply] {cfg.name} last 64 positions, precomputed vs baseline '
+        f'logits: {diff_text(pre, base)} (tol {APPLY_TOL}); '
+        + logits_check(cfg, pre, base))
+    free()
+    return launches
+
+
+def xlstm_prompts(cfg, seed, n=REC_SLOTS, lo=64, hi=201):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        lo, hi))).astype(np.int32) for _ in range(n)]
+
+
+def phase_xlstm() -> dict:
+    """xlstm-125m (12 layers alternating mLSTM / sLSTM, d 768, no
+    positions) at full width and depth on seeded random bf16 weights: the
+    table ([x, u1, u2, v, ifg], 5384 wide) and the analysis ratio; the
+    dense engine with the table over phase 4's traffic (4 prompts of
+    64-200 tokens, 16 new) as an eager twin and then replayed on the same
+    engine, bitwise; the same traffic without the table; the paged engine
+    with the radix cache over gemma_traffic's two waves on a 256-token
+    system prompt (wave 2 hits wave 1's snapshot at 256: every recurrent
+    and conv leaf's row of the slot), eager twin then a replayed engine,
+    bitwise; the waves again with segment-packed prefill and with the
+    async loop on fresh engines (tokens equal to the replayed run's);
+    Model.apply at S 2048, baseline then table; layer 0 alone. No
+    attention: no paged_attention and no page kernel ever launches, one
+    embed_gather a step with the table. -> launches by run."""
+    tag = 'xlstm'
+    cfg, model, params, table, ratio = rec_model('xlstm_125m', tag)
+    phases = {}
+    prompts = xlstm_prompts(cfg, SEED + 3)
+    warm = xlstm_prompts(cfg, SEED + 4, n=1, lo=20, hi=21)[0]
+
+    def first():
+        return [Request(uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+    eng = rec_engine(model, params, table, XLSTM_DENSE_SEQ)
+    want = serve_rec(eng, f'{tag}_dense', [first()], warm=warm, eager=True)
+    got = serve_rec(eng, f'{tag}_dense', [first()], warm=warm,
+                    expect=want['digest'])
+    del eng, want
+    base = serve_rec(rec_engine(model, params, None, XLSTM_DENSE_SEQ),
+                     f'{tag}_dense_base', [first()], warm=warm)
+    log(f'[{tag}_dense_base] greedy tokens equal to the table run\'s: '
+        f'{token_share(base["tokens"], got["tokens"])} (reported, not '
+        'checked)')
+    phases[f'{tag}_dense'] = got['launches']
+    phases[f'{tag}_dense_base'] = base['launches']
+    free()
+    waves, _ = gemma_traffic(cfg)
+    hits = [0] * len(waves[0]) + [GEMMA_SYSTEM] * len(waves[1])
+
+    def paged_engine(**kw):
+        eng = rec_engine(model, params, table, SPLIT_SEQ, prefix_cache=True,
+                         page_size=RING_PS, **kw)
+        assert eng._pools == [] and not eng._fused_maint \
+            and eng._needs_snapshot and eng._sc_ring == 0
+        return eng
+    run = f'{tag}_paged'
+    want = serve_rec(paged_engine(), run, [copy_requests(w) for w in waves],
+                     warm=warm, eager=True, hits=hits)
+    got = serve_rec(paged_engine(), run, [copy_requests(w) for w in waves],
+                    warm=warm, expect=want['digest'], hits=hits)
+    phases[run] = got['launches']
+    del want
+    free()
+    for mode in ('packed', 'async'):
+        out = serve_rec(paged_engine(**MODES[mode]), f'{run}_{mode}',
+                        [copy_requests(w) for w in waves], warm=warm,
+                        hits=hits)
+        assert out['tokens'] == got['tokens'], \
+            f'[{run}_{mode}] greedy tokens differ from [{run}]'
+        scores = [np.frombuffer(b, np.float32) for b in
+                  (out['digest']['scores'][0], got['digest']['scores'][0])]
+        log(f'[{run}_{mode}] greedy tokens ({sum(map(len, out["tokens"]))})'
+            f' equal to [{run}]\'s; score logits '
+            + ('bitwise' if np.array_equal(*scores) else
+               f'not bitwise, largest difference '
+               f'{float(np.abs(scores[0] - scores[1]).max()):.3e}'))
+        phases[f'{run}_{mode}'] = out['launches']
+        free()
+    phases.update(phase_apply_rec(model, params, table, tag,
+                                  order=('baseline', 'precomputed')))
+    check_layer0_rec(model, params, table, ratio)
+    del params, table, model
+    free()
+    return phases
+
+
+def phase_hymba() -> dict:
+    """hymba-1.5b (32 hybrid layers: attention beside mamba heads, windowed
+    1024 but for the global layers 0 and 16; 128 meta tokens) at full width
+    and depth on seeded random bf16 weights: the table ([x, q, k, v, x_in,
+    gate], 7040 wide) and the analysis ratio; ``prefix_cache=True`` refused
+    with JAX's ValueError; the dense engine (max_seq 2048) with the table
+    over a two-turn chat of 4 prompts of 1100-1400 tokens (past the
+    window; turn 2 each prompt + its 16 tokens + 32 new): turn 1 as an
+    eager twin, then on the same engine (its slots reset from the primed
+    template) turn 1 replayed and held bitwise against it, then turn 2;
+    the same slot serving one prompt twice (the same tokens); the chat
+    without the table on an engine of its own; Model.apply at S 2048 (+
+    128 meta tokens) in turns; layer 0 alone. paged_attention once per
+    layer and step, one embed_gather a step with the table. Each engine
+    primes the meta tokens once at construction (eagerly; timed). ->
+    launches by run."""
+    tag = 'hymba'
+    cfg, model, params, table, ratio = rec_model('hymba_1_5b', tag)
+    try:
+        rec_engine(model, params, table, HYMBA_SEQ, prefix_cache=True,
+                   page_size=RING_PS)
+    except ValueError as err:
+        log(f'[{tag}] prefix_cache=True refused (as JAX): {err}')
+    else:
+        raise AssertionError('hymba: prefix_cache=True did not raise')
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(rng.integers(
+        1100, 1401))).astype(np.int32) for _ in range(REC_SLOTS)]
+    extra = [rng.integers(3, cfg.vocab_size, size=32).astype(np.int32)
+             for _ in range(REC_SLOTS)]
+    warm = rng.integers(3, cfg.vocab_size, size=20).astype(np.int32)
+
+    def turn1():
+        return [Request(uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+
+    def turn2(prev):
+        return [Request(uid=10 + i, prompt=np.concatenate(
+            [r.prompt, np.asarray(r.generated, np.int32), x]),
+            max_new_tokens=16) for i, (r, x) in enumerate(zip(prev, extra))]
+
+    def engine(tab):
+        t0 = time.perf_counter()
+        eng = rec_engine(model, params, tab, HYMBA_SEQ)
+        torch.cuda.synchronize()
+        log(f'[{tag}] engine with{"" if tab is not None else "out"} the '
+            f'table: {cfg.num_meta_tokens} meta tokens primed into '
+            f'{REC_SLOTS} slots x {cfg.num_layers} layers in '
+            f'{time.perf_counter() - t0:.2f}s (eager one-token steps); '
+            f'state {cache_bytes(eng) / 2**20:.1f} MiB')
+        return eng
+    phases = {}
+    eng = engine(table)
+    want = serve_rec(eng, f'{tag}_chat', [turn1()], warm=warm, eager=True)
+    got = serve_rec(eng, f'{tag}_chat', [turn1()], warm=warm,
+                    expect=want['digest'])
+    del want
+    got2 = serve_rec(eng, f'{tag}_chat_turn2', [turn2(got['requests'])])
+    phases[f'{tag}_chat'] = got['launches']
+    phases[f'{tag}_chat_turn2'] = got2['launches']
+    reuse = serve_rec(eng, f'{tag}_reuse', [
+        [Request(uid=50, prompt=prompts[0][:200], max_new_tokens=16)],
+        lambda prev: [Request(uid=51, prompt=prompts[0][:200],
+                              max_new_tokens=16)]])
+    assert reuse['tokens'][0] == reuse['tokens'][1], \
+        f'[{tag}_reuse] one slot served one prompt twice: tokens differ'
+    log(f'[{tag}_reuse] slot 0 served the same 200-token prompt twice: the '
+        'same 16 tokens (the slot reset copies the primed template)')
+    del eng
+    free()
+    base = serve_rec(engine(None), f'{tag}_chat_base', [turn1(), turn2],
+                     warm=warm)
+    log(f'[{tag}_chat_base] greedy tokens equal to the table run\'s: '
+        f'{token_share(base["tokens"], got["tokens"] + got2["tokens"])} '
+        '(reported, not checked)')
+    phases[f'{tag}_chat_base'] = base['launches']
+    free()
+    phases.update(phase_apply_rec(model, params, table, tag))
+    check_layer0_rec(model, params, table, ratio)
+    del params, table, model
+    free()
+    return phases
+
+
+
 def main() -> None:
+    t_start = time.perf_counter()
+
+    def lap(name: str) -> None:
+        log(f'[wall] {name} done at {time.perf_counter() - t_start:.1f}s')
     phase_device()
     phase_build()
+    lap('phase 2 (build)')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
     rows = {'embed_gather': check_embed_gather(gen),
@@ -5338,37 +5951,52 @@ def main() -> None:
     for arch in ('gemma3_1b', 'internvl2_1b'):
         for name, row in check_engine_kernels(gen, arch).items():
             rows[name][arch] = row
+    rows['paged_attention']['hymba_1_5b'] = check_hymba_attends(gen)
+    lap('phase 3 (kernels)')
     phases = phase_mistral(rows)
     free()
-    phases.update(phase_paged(get_config('glm4_9b'), 'glm4',
+    lap('phase 4 (mistral)')
+    phases.update(phase_paged(cut_config('glm4_9b'), 'glm4',
                               'paged_attention', int8=True, rows=rows,
                               apply_seq=4096, mesh_spec='2x2', observe=True,
                               wide=True, modes=GLM_MODES))
     free()
-    phases.update(phase_paged(get_config(DS), 'deepseek',
+    lap('phase 5 (glm4)')
+    phases.update(phase_paged(cut_config(DS), 'deepseek',
                               'paged_attention_mla', rows=rows,
                               apply_seq=4096,
                               modes=(('sync', False), ('packed', False))))
     free()
+    lap('phase 6 (deepseek)')
     phases.update(phase_pythia(rows))
     free()
+    lap('phase 7 (pythia)')
     phases['pressure'] = phase_pressure()
     phase_consistency()
     free()
+    lap('phases 8-9 (pressure, consistency)')
     phases.update(phase_gemma('gemma3_27b', 'gemma27', rows,
                               num_pages=GEMMA27_PAGES,
                               runs=('int8', 'async')))
     phases.update(phase_gemma('gemma3_1b', 'gemma1', rows))
     free()
+    lap('phase 10 (gemma3)')
     # phase 11: the encoder families
     phases.update(phase_whisper(rows))
     phases.update(phase_paged(get_config('internvl2_1b'), 'internvl',
                               'paged_attention', int8=True, rows=rows,
                               apply_seq=4096))
     free()
+    lap('phase 11 (whisper, internvl2)')
     # phase 12: the MoE configs and llama3-405b at full width
     for arch, tag, depth in BIG_MODELS:
         phases.update(phase_big(arch, tag, depth, rows))
+    lap('phase 12 (mixtral, llama3)')
+    # phase 13: the recurrent and hybrid families at full width and depth
+    phases.update(phase_xlstm())
+    lap('phase 13 (xlstm)')
+    phases.update(phase_hymba())
+    lap('phase 13 (hymba)')
     # each kernel's launches on the engine path its row was measured for
     main_path = {'embed_gather': 'mistral', 'gather_rope': 'mistral',
                  'paged_attention': 'glm4', 'fused_page_write': 'glm4',

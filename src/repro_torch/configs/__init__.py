@@ -21,13 +21,15 @@ from repro_torch.config import ModelConfig
 # internvl2-1b (a VLM: the hybrid table), mixtral-8x7b (a serial MoE
 # block: the table folds Q/K/V only), its parallel twin (the paper's §3
 # third column: the whole expert FFN folds into the table) and llama3-405b
-# (128 q heads over 8 kv heads: 136 rotated heads in a table row); the
-# recurrent and hybrid families join as their modules are ported
+# (128 q heads over 8 kv heads: 136 rotated heads in a table row), and
+# the recurrent and hybrid families: xlstm-125m (mLSTM / sLSTM blocks, no
+# positions: the table folds the up-projection, values and gates) and
+# hymba-1.5b (attention beside mamba heads, 128 meta tokens)
 ALL_IDS: List[str] = ['mistral_7b', 'glm4_9b', 'deepseek_v2_lite_16b',
                       'pythia_6_9b', 'gemma3_1b', 'gemma3_27b',
                       'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b',
                       'mixtral_8x7b', 'mixtral_8x7b_parallel',
-                      'llama3_405b']
+                      'llama3_405b', 'xlstm_125m', 'hymba_1_5b']
 
 
 def _norm(name: str) -> str:

@@ -34,10 +34,17 @@ paged KV pool with the prefix cache).
         --fused-gather-rope      # or mixtral-8x7b: MoE over ring pages
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch llama3-405b --prefix-cache --fused-gather-rope  # linear pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --prefix-cache --shared-prefix 16   # recurrent: snapshots, no pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --chunk-size 4          # attention beside mamba heads, meta tokens
 
 The architecture is its smoke config, as in the JAX driver, with random
 weights from ``--seed``; an audio config (whisper) exits with the JAX
-CLI's message, as there. ``--attn-backend auto`` takes the ``cuda`` kernel
+CLI's message, as there; ``--prefix-cache`` with hymba-1.5b (meta
+tokens) raises the engine's ``ValueError``, as JAX's; ``--fused-gather-rope``
+falls back to the plain gather where layer 0 is no attention layer
+(xlstm-125m, hymba-1.5b), as JAX's. ``--attn-backend auto`` takes the ``cuda`` kernel
 backend on a CUDA device and the plain ``reference`` backend on the CPU.
 ``--metrics-out`` writes the telemetry registry (the five step phases by
 backend and step kind, request latency and TTFT, the pool's gauges):

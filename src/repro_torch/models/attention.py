@@ -543,13 +543,13 @@ def chunk_write(cache: Dict, k_h: torch.Tensor, v_h: torch.Tensor,
 
 
 # ================================================================ decode core
-def decode_step(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
-                pos: torch.Tensor, cfg: ModelConfig, *, rope_theta: float,
-                window: int = 0, qkv: Optional[Tuple] = None, backend=None
-                ) -> Tuple[torch.Tensor, Dict]:
-    """One-token step: (qkv or projections) -> cache write -> attend -> wo.
-    ``qkv`` supplies precomputed (q, k, v) rows for the paper's layer-0
-    path."""
+def step_context(params: Dict, x_normed: Optional[torch.Tensor],
+                 cache: Dict, pos: torch.Tensor, cfg: ModelConfig, *,
+                 rope_theta: float, window: int = 0,
+                 qkv: Optional[Tuple] = None, backend=None) -> torch.Tensor:
+    """One-token attention up to the context, before any output
+    projection: (qkv or projections) -> cache write -> attend. ``qkv``
+    supplies precomputed (q, k, v) rows (the paper's layer-0 path)."""
     q, k, v = compute_qkv(params, x_normed, cfg) if qkv is None else qkv
     B = q.shape[0]
     k_h = k.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
@@ -557,8 +557,18 @@ def decode_step(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
         k_h = L.apply_rope(k_h, pos[:, None], rope_theta)
     v_h = v.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
     cache_update(cache, k_h, v_h, pos)
-    ctx = _backend(backend, q.device).attend_chunk(
+    return _backend(backend, q.device).attend_chunk(
         q, cache, pos, cfg, rope_theta=rope_theta, window=window)
+
+
+def decode_step(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
+                pos: torch.Tensor, cfg: ModelConfig, *, rope_theta: float,
+                window: int = 0, qkv: Optional[Tuple] = None, backend=None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One-token step: :func:`step_context`, then wo."""
+    ctx = step_context(params, x_normed, cache, pos, cfg,
+                       rope_theta=rope_theta, window=window, qkv=qkv,
+                       backend=backend)
     return L.dense(params['wo'], ctx), cache
 
 
@@ -615,16 +625,17 @@ def decode_attend_chunk(q: torch.Tensor, cache: Dict, pos0: torch.Tensor,
     return ctx.reshape(B, T, H * hd)
 
 
-def decode_chunk(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
-                 pos0: torch.Tensor, n_valid: torch.Tensor, cfg: ModelConfig,
-                 *, rope_theta: float, window: int = 0,
-                 qkv: Optional[Tuple] = None, rope_applied: bool = False,
-                 paged: Optional[PageTables] = None,
-                 backend=None) -> Tuple[torch.Tensor, Dict]:
-    """Chunked-prefill step: project (or take precomputed) a T-token chunk,
-    write its valid prefix into the cache in one call, attend all T
-    queries. ``rope_applied`` marks gathered rows already rotated by the
-    fused kernel; ``paged`` switches the cache to page-pool addressing."""
+def chunk_context(params: Dict, x_normed: Optional[torch.Tensor],
+                  cache: Dict, pos0: torch.Tensor, n_valid: torch.Tensor,
+                  cfg: ModelConfig, *, rope_theta: float, window: int = 0,
+                  qkv: Optional[Tuple] = None, rope_applied: bool = False,
+                  paged: Optional[PageTables] = None,
+                  backend=None) -> torch.Tensor:
+    """Chunked-prefill attention up to the context, before any output
+    projection: project (or take precomputed) a T-token chunk, write its
+    valid prefix into the cache in one call, attend all T queries.
+    ``rope_applied`` marks gathered rows already rotated by the fused
+    kernel; ``paged`` switches the cache to page-pool addressing."""
     q, k, v = compute_qkv(params, x_normed, cfg) if qkv is None else qkv
     B, T = q.shape[0], q.shape[1]
     k_h = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -634,7 +645,20 @@ def decode_chunk(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
     v_h = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     chunk_write(cache, k_h, v_h, pos0, n_valid, window=window, paged=paged,
                 backend=backend)
-    ctx = _backend(backend, q.device).attend_chunk(
+    return _backend(backend, q.device).attend_chunk(
         q, cache, pos0, cfg, rope_theta=rope_theta, window=window,
         rope_applied=rope_applied, paged=paged)
+
+
+def decode_chunk(params: Dict, x_normed: Optional[torch.Tensor], cache: Dict,
+                 pos0: torch.Tensor, n_valid: torch.Tensor, cfg: ModelConfig,
+                 *, rope_theta: float, window: int = 0,
+                 qkv: Optional[Tuple] = None, rope_applied: bool = False,
+                 paged: Optional[PageTables] = None,
+                 backend=None) -> Tuple[torch.Tensor, Dict]:
+    """Chunked-prefill step: :func:`chunk_context`, then wo."""
+    ctx = chunk_context(params, x_normed, cache, pos0, n_valid, cfg,
+                        rope_theta=rope_theta, window=window, qkv=qkv,
+                        rope_applied=rope_applied, paged=paged,
+                        backend=backend)
     return L.dense(params['wo'], ctx), cache

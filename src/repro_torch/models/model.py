@@ -1,12 +1,15 @@
 """Model facade (port of ``repro/models/model.py``): ``init`` / ``apply`` /
 ``decode_step`` / ``make_states`` / ``build_table``, dispatching on
-``cfg.arch_class`` as JAX does: the decoder-only LM classes ``'dense'`` and
-``'moe'``, the encoder-decoder ``'audio'`` (``models/encdec.py``; decode is
-one token a step on dense caches with the reference attention backend) and
-``'vlm'`` (``models/vlm.py``; ``apply`` reads ``batch['patches']``, decode
-is the plain LM's). Other classes (ssm, hybrid) raise
-``NotImplementedError``; which layer kinds and block structures are ported
-is decided in ``models/blocks.py``, which raises for the rest."""
+``cfg.arch_class`` as JAX does: the decoder-only LM classes ``'dense'``,
+``'moe'``, ``'ssm'`` (xLSTM's mLSTM / sLSTM blocks) and ``'hybrid'``
+(Hymba: attention beside mamba heads, with learnable meta tokens that
+lead every sequence: :func:`transformer.prime_meta_states` primes decode
+states with them), the encoder-decoder ``'audio'`` (``models/encdec.py``;
+decode is one token a step on dense caches with the reference attention
+backend) and ``'vlm'`` (``models/vlm.py``; ``apply`` reads
+``batch['patches']``, decode is the plain LM's). Which layer kinds and
+block structures are ported is decided in ``models/blocks.py``, which
+raises for the rest."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,7 +25,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
 
 VLM_PREFIX = 16          # static text-prefix length before the image span
-PORTED_CLASSES = ('dense', 'moe', 'audio', 'vlm')
+PORTED_CLASSES = ('dense', 'moe', 'ssm', 'hybrid', 'audio', 'vlm')
 
 
 def audio_backend(attn_backend, device):

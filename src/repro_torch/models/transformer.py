@@ -21,7 +21,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (ATTN_KINDS, block_apply_full,
                                        block_decode, block_make_state,
-                                       block_paged_mask, kind_theta)
+                                       block_paged_mask, block_preproj,
+                                       kind_theta)
 from repro_torch.params import tree_slice
 
 
@@ -108,14 +109,13 @@ def backbone_apply(params: Dict, h: torch.Tensor, positions: torch.Tensor,
 def lm_apply(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              precomputed=None, return_hidden: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) at positions 0 .. S-1 -> (logits (B, S, V), aux
-    loss). With ``precomputed`` (a ``core.precompute.PrecomputedTable``,
+    """tokens (B, S) at positions 0 .. S-1 (after ``cfg.num_meta_tokens``
+    meta tokens, whose positions come first and whose rows are dropped
+    before the head) -> (logits (B, S, V), aux loss). With ``precomputed`` (a ``core.precompute.PrecomputedTable``,
     the paper's feature) the embedding read and layer 0's norm and Q/K/V
     projections are one row gather per token. ``return_hidden`` returns
     the final-normed hidden states instead of logits."""
     B, S = tokens.shape
-    if cfg.num_meta_tokens:
-        raise NotImplementedError('meta tokens are not ported yet')
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     if precomputed is not None:
@@ -124,8 +124,28 @@ def lm_apply(params: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     else:
         pre0 = None
         h = embed_tokens(params, tokens, cfg, positions)
+    M = cfg.num_meta_tokens
+    if M:
+        # Hymba's learnable meta tokens lead the sequence at positions
+        # 0 .. M-1; the text follows them
+        h = torch.cat([params['meta'].to(h.dtype)[None].expand(B, M, -1), h],
+                      dim=1)
+        mpos = torch.arange(M, dtype=torch.int32,
+                            device=tokens.device)[None].expand(B, M)
+        positions = torch.cat([mpos, positions + M], dim=1)
+        if pre0 is not None:
+            # meta tokens are no vocabulary entries: their layer-0 pieces
+            # are computed on the fly and lead the gathered rows
+            plan = layer_plan(cfg)
+            mpre = block_preproj(params['backbone']['layer0'], h[:, :M], cfg,
+                                 plan.kinds[0], plan.use_moe[0])
+            pre0 = {k: torch.cat([mpre[k].to(v.dtype), v], dim=1)
+                    for k, v in pre0.items()}
+            h = pre0['s'] if 's' in pre0 else pre0['x']
     h, aux = backbone_apply(params['backbone'], h, positions, cfg, pre0=pre0)
     h = L.norm_apply(params['final_norm'], h, cfg.norm)
+    if M:
+        h = h[:, M:]
     if return_hidden:
         return h, aux
     return lm_head(params, h, cfg), aux
@@ -205,6 +225,22 @@ def backbone_decode(params: Dict, h: torch.Tensor, states: Dict,
                                cfg, plan.slots[i], plan.use_moe[-1], **kw)
         drops = drops + d
     return h, states, drops
+
+
+def prime_meta_states(params: Dict, states: Dict, cfg: ModelConfig,
+                      batch: int, attn_backend=None) -> Dict:
+    """Feed the learnable meta tokens (Hymba) through the one-token decode
+    path, in place, so that the caches and recurrent states of all
+    ``batch`` slots start as if the meta prefix had been prefilled; token
+    positions then start at ``cfg.num_meta_tokens``."""
+    dtype = getattr(torch, cfg.dtype)
+    for i in range(cfg.num_meta_tokens):
+        h = params['meta'][i].to(dtype)[None, None] \
+            .expand(batch, 1, cfg.d_model).contiguous()
+        pos = torch.full((batch,), i, dtype=torch.int32, device=h.device)
+        backbone_decode(params['backbone'], h, states, pos, cfg,
+                        attn_backend=attn_backend)
+    return states
 
 
 def lm_decode_step(params: Dict, tokens: torch.Tensor, states: Dict,

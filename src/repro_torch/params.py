@@ -7,7 +7,11 @@ slots whose leaves are stacked over ``layer_plan(cfg).reps`` and ``tail`` a
 list of unstacked blocks. Dense weights are ``(d_in, d_out)``. The other
 families add their own leaves (:func:`model_schema`): the encoder-decoder
 ``encoder/{proj_in, layers, final_norm}`` (its layers stacked) and, with
-learned positions, ``pos_embed``; the VLM ``projector/{ln, fc1, fc2}``.
+learned positions, ``pos_embed``; the VLM ``projector/{ln, fc1, fc2}``;
+Hymba its meta tokens ``meta``. The recurrent blocks' leaves follow
+``repro_torch.models.ssm`` (sLSTM's recurrent ``r_*`` (H, dh, dh) and the
+convolutions' ``w`` (k, C) are ``fan_in``; mamba's ``a_log`` zeros and
+``d_skip`` ones).
 
 - :func:`from_numpy_tree` bridges a tree of numpy arrays (for example
   ``jax.tree.map(np.asarray, Model(cfg).init(key))``) into tensors — the
@@ -55,7 +59,8 @@ def from_numpy_tree(tree, device: torch.device | str = 'cuda'):
 
 def lm_schema(cfg: ModelConfig) -> Dict:
     """ParamSpec tree of a decoder-only LM (the layout above; learned
-    positions add ``pos_embed`` (max_seq_len, d))."""
+    positions add ``pos_embed`` (max_seq_len, d), meta tokens ``meta``
+    (num_meta_tokens, d))."""
     from repro_torch.models.blocks import block_schema
     from repro_torch.models.layers import (dense_schema, norm_schema,
                                            stack_schema)
@@ -81,6 +86,9 @@ def lm_schema(cfg: ModelConfig) -> Dict:
     if cfg.pos == 'learned':
         sch['pos_embed'] = ParamSpec((cfg.max_seq_len, cfg.d_model),
                                      'normal', 0.02)
+    if cfg.num_meta_tokens:
+        sch['meta'] = ParamSpec((cfg.num_meta_tokens, cfg.d_model),
+                                'normal', 0.02)
     return sch
 
 

@@ -38,8 +38,12 @@ for the linear table and one for the ring table, each built once per step
 on the host and shared by the layers of that table) also clears freshly
 allocated pages, and copy-on-write is ``cow_page_copy``; the reference
 backend clears pages when they are allocated and writes with plain
-scatters. Recurrent state and meta tokens are not ported to paged mode
-and raise ``NotImplementedError``.
+scatters. Recurrent and conv state (xLSTM, a hybrid layer's mamba heads)
+stays per slot beside the pool, never pooled: it is reset per slot and
+rides in the snapshots below. A stack without attention (xlstm-125m) has
+no page leaves at all: its page tables only key the radix index, and no
+page kernel runs. Meta tokens (Hymba) are refused with JAX's
+``ValueError``: the primed prefix would need template pages.
 
 **Ring pages with snapshots** (configurations with windowed layers):
 each slot also owns ``ceil(sc_ring / page_size)`` private ring pages,
@@ -53,7 +57,8 @@ node — a copy of its ring pages on every layer (and of any per-slot state
 rows). A later hit matches only nodes that carry one, and its admission
 copies the snapshot into the new request's ring pages (copy-on-attach);
 such configurations never copy on write. A preempted slot publishes only
-when it stands at a page boundary.
+when it stands at a page boundary. Recurrent stacks take snapshots too:
+every layer's state is rewritten in place.
 
 **MoE** layers route only real tokens: chunk padding and, in the dense
 one-token step, free slots (``lane_valid``) are masked out of the expert
@@ -67,7 +72,14 @@ device and the plain ``reference`` backend on the CPU
 wherever logits are not within the kernel tolerance of a tie; pool
 contents written by the two are bitwise equal.
 
-**Families.** A VLM serves text only, as the plain LM it decodes as. An
+**Families.** A slot's reset copies its rows from a template made with
+the states (JAX's ``_fresh``): empty caches, recurrent state as
+``models.ssm`` initialises it (sLSTM's ``n`` is ones) and, for Hymba, the
+state after its meta tokens, which ``transformer.prime_meta_states`` runs
+through every slot once at construction (eagerly, on the engine's
+attention backend); a slot's positions then start at
+``num_meta_tokens``, and a prompt must leave room for them in
+``max_seq``. A VLM serves text only, as the plain LM it decodes as. An
 audio (enc-dec) model serves as JAX's engine does: chunk size 1, dense
 caches (``prefix_cache=True`` raises ``ValueError``), no packing, the
 ``reference`` backend (``'auto'`` resolves to it on every device,
@@ -223,7 +235,8 @@ loop's; sampled ones (temperature above 0) are not compared across loops,
 as in JAX.
 
 Not ported yet, and rejected with ``NotImplementedError``: the dense
-engine under a mesh, and a mesh with the async loop.
+engine under a mesh, a mesh with the async loop, and a mesh with a
+recurrent or meta-token model (ROADMAP A.5).
 """
 from __future__ import annotations
 
@@ -241,9 +254,10 @@ from repro_torch.kernels import paged_maintenance as PM
 from repro_torch.launch.mesh import make_serving_mesh, resolve_device
 from repro_torch.models.attention import cache_len
 from repro_torch.models.attn_backend import CudaBackend, get_backend
-from repro_torch.models.blocks import ATTN_KINDS, kind_window
+from repro_torch.models.blocks import ATTN_KINDS, HYBRID_KINDS, kind_window
 from repro_torch.models.model import Model, audio_backend
-from repro_torch.models.transformer import fused_rope_eligible, layer_plan
+from repro_torch.models.transformer import (fused_rope_eligible, layer_plan,
+                                            prime_meta_states)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvpool import PrefixCache
 from repro_torch.serving.programs import CHUNK, PACKED, STEP, StepProgram
@@ -332,8 +346,8 @@ class _Lane:
     req: Request
     admit_seq: int
     consumed: int
-    p_before: int           # stream position before this dispatch
-    p_after: int            # ... and after
+    p_before: int           # stream index before this dispatch
+    p_after: int            # ... and after (positions less meta tokens)
     pos_after: int          # the slot's position after this dispatch
     gen: bool               # the commit appends a sampled token
 
@@ -439,7 +453,17 @@ class ServingEngine:
         # mesh: None | 'PxH' | (P, H) | a ServingMesh, resolved (and
         # ValueError'd on impossible shapes) by make_serving_mesh
         self.mesh = make_serving_mesh(mesh)
+        plan = layer_plan(cfg)
+        # Hymba's meta tokens lead every slot's sequence: positions start
+        # after them
+        self._meta = cfg.num_meta_tokens
         if self.mesh is not None:
+            if self._meta or any(k not in ATTN_KINDS for k in plan.kinds):
+                raise NotImplementedError(
+                    'ServingEngine(mesh=...) is ported for attention layers; '
+                    'recurrent state and meta tokens under a mesh are not '
+                    f'ported yet (ROADMAP A.5; layers: '
+                    f'{sorted(set(plan.kinds))})')
             if not self.paged:
                 raise NotImplementedError(
                     'ServingEngine(mesh=...) is ported for the paged engine '
@@ -504,33 +528,34 @@ class ServingEngine:
         self.fused_gather_rope = bool(fused_gather_rope) \
             and (chunk_size > 1 or self.paged) \
             and fused_rope_eligible(precomputed, cfg)
-        plan = layer_plan(cfg)
         self.num_pages = 0
         self._sc_ring = 0
         self.kv: Optional[PrefixCache] = None
+        # the layers that keep attention caches (pool leaves when paged)
+        attn = [k for k in plan.kinds if k in ATTN_KINDS + HYBRID_KINDS]
         if self.paged:
-            if getattr(cfg, 'num_meta_tokens', 0) \
-                    or any(k not in ATTN_KINDS for k in plan.kinds):
-                raise NotImplementedError(
-                    'paged prefix caching is ported for attention layers '
-                    "('global' and windowed 'local'); recurrent state and "
-                    f'meta tokens are not ported yet (layers: '
-                    f'{sorted(set(plan.kinds))})')
+            if self._meta:
+                raise ValueError('paged prefix caching does not support '
+                                 'meta-token architectures yet (the primed '
+                                 'meta prefix would need template pages)')
             if max_seq % page_size:
                 raise ValueError(f'max_seq ({max_seq}) must be a multiple of '
                                  f'page_size ({page_size}) so the paged '
                                  'virtual cache matches the dense cache '
                                  'length exactly')
-            windows = [kind_window(cfg, k) for k in plan.kinds]
+            windows = [kind_window(cfg, k) for k in attn]
             # the ring of the windowed layers: the dense ring cache's length
             self._sc_ring = cache_len(cfg.window, max_seq, chunk_size) \
                 if any(windows) else 0
             self._pages_lin = max_seq // page_size
             self._pages_ring = -(-self._sc_ring // page_size)
-            # a layer whose state is rewritten in place (a ring) resumes a
-            # prefix only from the snapshot on its radix node
+            # a layer whose state is rewritten in place (a ring, recurrent
+            # or conv state) resumes a prefix only from the snapshot on its
+            # radix node
             self._needs_snapshot = any(k != 'global' for k in plan.kinds)
-            # which job lists a fused step needs: the tables its layers use
+            # which job lists a fused step needs: the tables its attention
+            # layers use (none for a recurrent stack: its pool has no page
+            # leaves, and no page kernel ever launches)
             self._ring_layers = any(windows)
             self._lin_layers = not all(windows)
             if num_pages is None:
@@ -555,8 +580,19 @@ class ServingEngine:
             max_slots, max_seq, dtype, chunk=chunk_size, device=self.device,
             num_pages=self.num_pages, page_size=page_size if self.paged else 0,
             kv_quant=self.kv_quant)
+        if self._meta:
+            # every slot starts from the primed meta prefix: run once here,
+            # eagerly, 128 one-token steps at full width (never captured)
+            with torch.no_grad():
+                prime_meta_states(params, self.states, cfg, max_slots,
+                                  attn_backend=self.attn_backend)
         self._paged_mask = model.paged_state_mask(self.kv_quant) \
             if self.paged else None
+        # the template of a clean slot (JAX's ``_fresh``): a copy of every
+        # per-slot leaf as made (and primed), which a slot reset copies its
+        # rows from in place; pool leaves are cleared per page instead
+        self._fresh = [leaf.clone() for leaf, _ in
+                       self._slot_leaves(self.states)]
         if self.mesh is None:
             self._index_states()
         else:           # at rest in blocks; indexed while gathered
@@ -593,7 +629,8 @@ class ServingEngine:
         # Deferred clear-on-alloc: with a fused_maintenance backend, freshly
         # allocated pages are queued here and ride into the next step as
         # PageTables.pending, where every layer's fused write clears them
-        self._fused_maint = self.paged and self.attn_backend.fused_maintenance
+        self._fused_maint = self.paged and bool(attn) \
+            and self.attn_backend.fused_maintenance
         self._pending_clear: List[int] = []
         # the width of the pending array a step takes (a fixed shape);
         # past it _alloc_pages clears eagerly
@@ -635,13 +672,23 @@ class ServingEngine:
             for layer, lmask in zip(layers, masks):
                 yield layer, lmask, part == 'body'
 
+    def _slot_leaves(self, states):
+        """(leaf, slot axis) of every per-slot leaf of a states tree, in
+        walk order: caches of a dense engine, recurrent and conv state; not
+        the page pool."""
+        for layer, lmask, stacked in self._layers(states):
+            for nm, leaf in layer.items():
+                if not lmask.get(nm):
+                    yield leaf, 1 if stacked else 0
+
     def _index_states(self) -> None:
         """Index the leaves of ``self.states`` (full leaves) that slot
         resets, page clears, copy-on-write and snapshots touch."""
-        # (leaf, slot axis, fresh value) of every per-slot cache leaf, for
-        # slot reset; the page pool is never slot-reset (pages are cleared
-        # when they are allocated instead)
-        self._reset_plan = []
+        # (leaf, slot axis, template leaf) of every per-slot leaf, for slot
+        # reset; the page pool is never slot-reset (pages are cleared when
+        # they are allocated instead)
+        self._reset_plan = [(leaf, axis, fresh) for (leaf, axis), fresh in
+                            zip(self._slot_leaves(self.states), self._fresh)]
         # (pool leaves, reps) of every layer's page pool: reps > 0 for
         # leaves stacked over the layers of a pattern slot
         self._pools = []
@@ -656,10 +703,6 @@ class ServingEngine:
             axis = 1 if stacked else 0
             self._snap_plan += [(leaf, axis, bool(lmask.get(nm)))
                                 for nm, leaf in layer.items()]
-            self._reset_plan += [(leaf, 1 if stacked else 0,
-                                  PM.leaf_fill(nm))
-                                 for nm, leaf in layer.items()
-                                 if not lmask.get(nm)]
 
     def _map_states(self, states, fn):
         """A states tree of the same structure with ``fn(leaf, name,
@@ -722,7 +765,7 @@ class ServingEngine:
         prompt = np.atleast_1d(np.asarray(req.prompt))
         if prompt.size == 0:
             return 'empty_prompt'
-        if prompt.size >= self.max_seq:
+        if prompt.size + self._meta >= self.max_seq:
             return 'prompt_too_long'
         if req.max_new_tokens <= 0:
             return 'max_new_tokens_not_positive'
@@ -837,10 +880,12 @@ class ServingEngine:
         self.queue = keep
 
     def _reset_slot(self, slot: int) -> None:
-        """Return one slot's cache rows to the empty state (zeros,
-        ``pos == -1``) in place: no leakage across requests."""
-        for leaf, axis, fill in self._reset_plan:
-            leaf.select(axis, slot).fill_(fill)
+        """Return one slot's rows to their initial state (empty caches,
+        recurrent state as ``ssm.*_init_state`` makes it, the primed meta
+        prefix) by copying them from the template, in place: no leakage
+        across requests, and captured graphs keep their addresses."""
+        for leaf, axis, fresh in self._reset_plan:
+            leaf.select(axis, slot).copy_(fresh.select(axis, slot))
 
     # ------------------------------------------------------------ paged ops
     def _clear_pages(self, pages: List[int]) -> None:
@@ -1181,7 +1226,7 @@ class ServingEngine:
                         return          # queue head parked (or failed)
                 else:
                     self.slot_req[slot] = req
-                    self.slot_pos[slot] = 0
+                    self.slot_pos[slot] = self._meta   # after meta tokens
                     self.slot_next_tok[slot] = int(stream[0])
                     self._reset_slot(slot)
                 self.slot_stream[slot] = stream
@@ -1263,6 +1308,11 @@ class ServingEngine:
                 self._commit(prev)
         elif rec is not None:
             self._commit(rec)
+
+    def _progress(self, slot: int) -> int:
+        """Index in the slot's stream of the next token it consumes: its
+        position less the meta tokens."""
+        return int(self.slot_pos[slot]) - self._meta
 
     def _flush_async(self) -> None:
         """Commit the dispatch in flight, if any (the pending record is
@@ -1406,7 +1456,7 @@ class ServingEngine:
             return None
         step_idx = self.steps
         prefilling = self.chunk_size > 1 and any(
-            len(self.slot_stream[s]) - int(self.slot_pos[s]) > 1
+            len(self.slot_stream[s]) - self._progress(s) > 1
             for s in active)
         if prefilling or self.paged:
             # paged mode always runs the chunk-shaped step; its T == 1 case
@@ -1418,7 +1468,7 @@ class ServingEngine:
                 if self.slot_req[s] is None:
                     continue      # preempted by an earlier slot's _ensure
                 stream = self.slot_stream[s]
-                p = int(self.slot_pos[s])
+                p = self._progress(s)
                 # a prefilling slot takes up to T prompt tokens, a decoding
                 # slot its one sampled token
                 take = min(T, len(stream) - p) if p < len(stream) else 1
@@ -1427,7 +1477,8 @@ class ServingEngine:
                     # land exactly on the snapshot boundary, so that the
                     # capture is the state after `target` tokens
                     take = min(take, int(self.slot_insert_at[s]) - p)
-                if self.paged and not self._ensure_blocks(s, p + take):
+                if self.paged and not self._ensure_blocks(
+                        s, int(self.slot_pos[s]) + take):
                     continue      # slot preempted/failed: lane stays empty
                 if p < len(stream):
                     tokens[s, :take] = stream[p:p + take]
@@ -1463,7 +1514,7 @@ class ServingEngine:
             for s in active:
                 # a prefilling slot's token from its stream: in the async
                 # loop slot_next_tok is set one commit late
-                p = int(self.slot_pos[s])
+                p = self._progress(s)
                 if p < len(self.slot_stream[s]):
                     tokens[s, 0] = self.slot_stream[s][p]
             n_valid = None
@@ -1472,7 +1523,7 @@ class ServingEngine:
         if obs:
             n_pre = 0
             for s in active:
-                p = int(self.slot_pos[s])
+                p = self._progress(s)
                 if p < len(self.slot_stream[s]):
                     n_pre += 1
                     tel.event(self.slot_req[s].uid, TM.EV_PREFILL_CHUNK,
@@ -1484,7 +1535,7 @@ class ServingEngine:
         # slot was preempted runs without the all-lane head
         want_logits = any(
             self.slot_req[s].return_logits
-            and int(self.slot_pos[s]) < len(self.slot_stream[s])
+            and self._progress(s) < len(self.slot_stream[s])
             for s in active)
         # the slot bucket: every lane at or past nb is empty
         nb = self._bucket(active)
@@ -1535,13 +1586,14 @@ class ServingEngine:
         needs_sync = False
         for s in active:
             c = int(consumed[s])
-            p_before = int(self.slot_pos[s])
+            p_before = self._progress(s)
             self.slot_pos[s] += c
-            p_after = int(self.slot_pos[s])
+            p_after = self._progress(s)
             lanes.append(_Lane(slot=s, req=self.slot_req[s],
                                admit_seq=int(self.slot_admit_seq[s]),
                                consumed=c, p_before=p_before,
-                               p_after=p_after, pos_after=p_after,
+                               p_after=p_after,
+                               pos_after=int(self.slot_pos[s]),
                                gen=p_after >= len(self.slot_stream[s])))
             if self.paged and self._needs_snapshot \
                     and p_after == int(self.slot_insert_at[s]):

@@ -48,7 +48,7 @@ def test_config_copy_matches_jax():
                        'pythia_6_9b', 'gemma3_1b', 'gemma3_27b',
                        'whisper_tiny', 'whisper_tiny_rope', 'internvl2_1b',
                        'mixtral_8x7b', 'mixtral_8x7b_parallel',
-                       'llama3_405b']
+                       'llama3_405b', 'xlstm_125m', 'hymba_1_5b']
     # field by field, nested MLA / MoE configs included (the copies are
     # other classes, so compare their fields and class names)
     def fields(c):
@@ -215,18 +215,25 @@ def test_decode_matches_jax(both, jax_runs, chunk, table, fused, backend):
 
 
 def test_unported_families_raise():
-    cfg = get_smoke_config('mistral_7b')
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, arch_class='ssm'))
-    # the parallel block with MLA attention (no config has one)
+    """What is still unported raises: the parallel block with MLA
+    attention (no config has one), and a mesh engine with a recurrent or
+    meta-token model (ROADMAP A.5). The recurrent and hybrid families are
+    ported (``tests/test_torch_recurrent.py``)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.engine import ServingEngine
     mla = dataclasses.replace(get_smoke_config('deepseek_v2_lite_16b'),
                               block_type='parallel')
     with pytest.raises(NotImplementedError):
         Model(mla).make_states(1, 8, device='cpu')
-    # the recurrent and hybrid families
     for name in ('xlstm_125m', 'hymba_1_5b'):
-        with pytest.raises(NotImplementedError):
-            get_config(name)
+        m = Model(get_config(name))
+        assert m.cfg.arch_class in ('ssm', 'hybrid')
+        sm = Model(get_smoke_config(name))
+        sp = sm.init(0, device='cpu', dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match='A.5'):
+            ServingEngine(sm, sp, prefix_cache=True, page_size=8,
+                          max_seq=64, device='cpu',
+                          mesh=make_serving_mesh('2x2', devices=['cpu'] * 4))
 
 
 @pytest.fixture(scope='module')
